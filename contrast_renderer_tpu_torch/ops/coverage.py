@@ -1,0 +1,1403 @@
+"""Tile-binned stencil-and-cover coverage in PyTorch, with the raster
+kernel written by hand in CUDA for Hopper.
+
+The counterpart of ``contrast_renderer_tpu/ops/coverage.py``; the names
+match so that a reader finds each piece in both packages.
+
+1. ``make_prepare`` (torch tensor code): transforms every stencil
+   draw's triangles in full f32, clips them at the near plane, sets up
+   the edge and interpolation rows, and bins them to pixel tiles as
+   per-(tile, command, class) entry ranges; cover hulls get a per-tile
+   class (skip / boundary / full) and a bitmask of the hull lines that
+   cross the tile.  The same arithmetic as the reference, op by op, so
+   the binning outputs agree with it.
+2. ``make_rasterize``: packs the arguments of ``coverage_raster`` and
+   de-tiles its output.  ``coverage_raster`` launches the CUDA kernel
+   (``csrc/coverage_raster.cu``) on CUDA tensors and runs
+   ``rasterize_plain``, its plain torch version, on CPU tensors.
+
+This slice ports the kernel's fill-only specialisation: filled paths
+with solid colour, no clip, no alpha groups, no depth test.  Frames that
+need another body raise ``NotImplementedError`` before any launch
+(``check_supported``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from contrast_renderer_tpu.vertex import (
+    KIND_INTEGRAL_QUADRATIC,
+    KIND_RATIONAL_CUBIC,
+    KIND_RATIONAL_QUADRATIC,
+    KIND_SOLID,
+    KIND_STROKE_JOINT,
+    KIND_STROKE_LINE,
+)
+
+from .. import cuda_build
+
+OP_STENCIL = 0
+OP_CLIP = 1
+OP_UNCLIP = 2
+OP_COLOR = 3
+OP_SAVE_ALPHA = 4
+OP_SCALE_ALPHA = 5
+OP_RESTORE_ALPHA = 6
+#: Fused SAVE then SCALE over the same hull (renderer._optimize_commands).
+OP_SAVE_SCALE = 7
+
+#: Gradient stop budget (cmd_f row: MAX_STOPS RGBA colors + MAX_STOPS
+#: offsets).
+MAX_STOPS = 4
+
+#: Standard MSAA sample positions (x, y) within a pixel, y-down.
+SAMPLE_PATTERNS = {
+    1: np.array([[0.5, 0.5]], np.float32),
+    2: np.array([[0.75, 0.75], [0.25, 0.25]], np.float32),
+    4: np.array(
+        [[0.375, 0.125], [0.875, 0.375], [0.125, 0.625], [0.625, 0.875]],
+        np.float32,
+    ),
+    8: np.array(
+        [
+            [0.5625, 0.3125], [0.4375, 0.6875], [0.8125, 0.5625],
+            [0.3125, 0.1875], [0.1875, 0.8125], [0.0625, 0.4375],
+            [0.6875, 0.9375], [0.9375, 0.0625],
+        ],
+        np.float32,
+    ),
+    16: np.array(
+        [
+            [0.5625, 0.5625], [0.4375, 0.3125], [0.3125, 0.625],
+            [0.75, 0.4375], [0.1875, 0.375], [0.625, 0.8125],
+            [0.8125, 0.6875], [0.6875, 0.1875], [0.375, 0.875],
+            [0.5, 0.0625], [0.25, 0.125], [0.125, 0.75],
+            [0.03125, 0.5], [0.9375, 0.25], [0.875, 0.9375],
+            [0.0625, 0.03125],
+        ],
+        np.float32,
+    ),
+}
+
+# Float row layout (one packed row per screen-space triangle).
+RF_EDGE = 0        # 0..8: (a, b, c) × 3 oriented edges (inside ⇒ e ≥ 0)
+RF_INV_AREA = 9    # 1/|pixel area| (λ_k = ẽ_k · invA)
+RF_AW = 10         # 10..21: aux·(1/w), vertex paired with edge k
+RF_IW = 22         # 22..24: 1/w, vertex paired with edge k
+RF_END_Y = 25      # end-cap provoking texcoord.y
+RF_AABB = 26       # 26..29: pixel-space min_x, min_y, max_x, max_y
+D_F = 32
+
+# Int row layout.
+RI_KIND = 0
+RI_CONTRIB = 1
+RI_GROUP = 2
+RI_FLAGS = 3       # bits 0..2 top-left edge rule, 3 end-cap, 4 joint tip
+RI_FILL = 4        # 1 for fill kinds, 0 for strokes
+RI_CMD = 5         # originating command index
+RI_CLASS = 6       # processing class (CLS_*)
+D_I = 8
+
+#: Entries are range-sorted per (tile, command, class); stroke classes
+#: sort before fill classes (the reference's draw order).
+CLS_LINE_SOLID = 0
+CLS_LINE_DASH1 = 1
+CLS_LINE_DASHN = 2
+CLS_JOINT_SOLID = 3
+CLS_JOINT_DASH1 = 4
+CLS_JOINT_DASHN = 5
+CLS_FILL_SOLID = 6
+CLS_FILL_QUAD = 7
+CLS_FILL_CUBIC = 8
+N_CLASSES = 9
+#: Default fill batch width.  The CUDA kernel walks entries one at a
+#: time; the batch only sets the entry-row padding (FrameSpec.entry_pad)
+#: so the binning outputs keep the reference's shapes.
+NB = 2
+
+FLAG_END_CAP = 8
+FLAG_JOINT_TIP = 16
+
+# Descriptor row layout (global dynamic-stroke table).
+DESC_F = 12
+DESC_I = 16
+
+
+@dataclass(frozen=True)
+class FrameSpec:
+    """Static signature of a frame: the reference's FrameSpec without
+    the TPU memory-space knobs (``stream_draws``, ``interpret``)."""
+
+    width: int
+    height: int
+    ops: tuple            # per-command RenderOperation ints
+    #: Per-command shape index, or a per-instance tuple of indices.
+    cmd_shape: tuple
+    n_shapes: int
+    t_max: int            # padded triangle count per shape
+    h_max: int            # padded hull vertex count per shape
+    samples: int
+    winding_bits: int
+    n_layers: int
+    #: Named mode or a canonical ((src, op, dst), (src, op, dst)) tuple.
+    blending: object
+    cmd_inst: tuple = ()
+    paints: tuple = ()
+    depth_compare: str = "always"
+    depth_write: bool = False
+    #: Resolve to packed RGBA8 (one int32 per pixel) in the kernel.
+    out_uint8: bool = False
+    tile_h: int = 32
+    tile_w: int = 128
+    #: Vertical strips per tile: the physical (tile_h, tile_w) block
+    #: covers a (tile_h·strips, tile_w/strips) screen rectangle.
+    tile_strips: int = 1
+    capacity: int = 256             # per-tile local entry rows
+    global_capacity: int = 2048     # big-triangle rows
+    tile_global_capacity: int = 128  # per-tile big-triangle entries
+    clip_pool: int = 64             # near-plane-crossing triangle slots
+    slots_x: int = 2
+    slots_y: int = 2
+    fill_batch: int = NB
+    stroke_batch: int = 1
+    #: Clip/alpha bracket gating; must be empty in this slice.
+    gate_spans: tuple = ()
+    #: Whether any stencil draw carries stroke rows.
+    has_strokes: bool = True
+
+    def __post_init__(self):
+        if self.tile_w % self.tile_strips:
+            raise ValueError(
+                f"tile_strips={self.tile_strips} must divide "
+                f"tile_w={self.tile_w}"
+            )
+        object.__setattr__(self, "_hash", None)
+
+    def __hash__(self):
+        h = self._hash
+        if h is None:
+            h = hash(tuple(
+                getattr(self, f.name) for f in dataclasses.fields(self)
+            ))
+            object.__setattr__(self, "_hash", h)
+        return h
+
+    @property
+    def entry_pad(self):
+        """Row padding past the capacity (the reference's batched
+        reads stay in bounds)."""
+        return max(self.fill_batch, self.stroke_batch)
+
+    @property
+    def n_commands(self):
+        return len(self.ops)
+
+    @property
+    def screen_tile_w(self):
+        return self.tile_w // self.tile_strips
+
+    @property
+    def screen_tile_h(self):
+        return self.tile_h * self.tile_strips
+
+    @property
+    def ntx(self):
+        return -(-self.width // self.screen_tile_w)
+
+    @property
+    def nty(self):
+        return -(-self.height // self.screen_tile_h)
+
+    @property
+    def n_tiles(self):
+        return self.ntx * self.nty
+
+
+def check_supported(spec: FrameSpec):
+    """Raise NotImplementedError, naming the ROADMAP item that ports it,
+    when ``spec`` needs a kernel body this slice does not have."""
+    ops = set(spec.ops)
+    reason = None
+    if spec.has_strokes:
+        reason = "stroke rows in a stencil draw (ROADMAP.md, Queue 2 item 1: stroke stencil)"
+    elif ops & {OP_CLIP, OP_UNCLIP}:
+        reason = "clip commands (ROADMAP.md, Queue 2 item 2: clip)"
+    elif ops & {OP_SAVE_ALPHA, OP_SCALE_ALPHA, OP_RESTORE_ALPHA, OP_SAVE_SCALE}:
+        reason = "alpha groups (ROADMAP.md, Queue 2 item 3: alpha groups)"
+    elif spec.depth_write or spec.depth_compare != "always":
+        reason = "a depth test or depth write (ROADMAP.md, Queue 2 item 4: depth)"
+    elif any(spec.paints):
+        reason = "gradient or user paints (ROADMAP.md, Queue 2 item 5: non-solid paints)"
+    elif spec.gate_spans:
+        reason = "gate spans (ROADMAP.md, Queue 1 item 2: gate spans)"
+    if reason is not None:
+        raise NotImplementedError(
+            f"the PyTorch/CUDA port cannot render {reason} yet"
+        )
+
+
+#: Named blend modes as canonical (src_factor, operation, dst_factor).
+_NAMED_BLEND = {
+    "back_to_front": ("one", "add", "one_minus_src_alpha"),
+    "front_to_back": ("one_minus_dst_alpha", "add", "one"),
+    "additive": ("one", "add", "one"),
+}
+
+#: Integer codes of the blend algebra, as the CUDA kernel reads them.
+BLEND_FACTOR_CODES = {
+    "zero": 0,
+    "one": 1,
+    "src_alpha": 2,
+    "one_minus_src_alpha": 3,
+    "dst_alpha": 4,
+    "one_minus_dst_alpha": 5,
+    "src_alpha_saturated": 6,
+    "constant": 7,
+    "one_minus_constant": 8,
+}
+BLEND_OP_CODES = {
+    "add": 0, "subtract": 1, "reverse_subtract": 2, "min": 3, "max": 4,
+}
+
+
+def _canonical_blend(blending):
+    """spec.blending → (color_component, alpha_component) tuples."""
+    if isinstance(blending, str):
+        comp = _NAMED_BLEND[blending]
+        return comp, comp
+    color, alpha = blending
+    return tuple(color), tuple(alpha)
+
+
+def blend_uses_constant(blending) -> bool:
+    """True when the blend state references the runtime blend-constant
+    color; the packer then appends it to cmd_f columns 20:24."""
+    color, alpha = _canonical_blend(blending)
+    return any(
+        f in ("constant", "one_minus_constant")
+        for comp in (color, alpha)
+        for f in (comp[0], comp[2])
+    )
+
+
+def _blend_codes(blending):
+    """(src, op, dst) codes for color then alpha."""
+    return tuple(
+        code
+        for src, op, dst in _canonical_blend(blending)
+        for code in (
+            BLEND_FACTOR_CODES[src], BLEND_OP_CODES[op],
+            BLEND_FACTOR_CODES[dst],
+        )
+    )
+
+
+def _blend_channel(comp, s, d, ca, da, chan=0, const=None):
+    """out = op(s·src_factor, d·dst_factor) for one channel, wgpu
+    semantics (premultiplied; ``min``/``max`` ignore factors).
+
+    ``ca``: the draw's source alpha; ``da``: the destination alpha
+    before this draw touched any channel; ``const``: the 4 blend-constant
+    scalars (present iff the state uses constant factors).  Every
+    operand is a float32 tensor, so each step rounds as in the kernel."""
+    src_f, op, dst_f = comp
+    if op == "min":
+        return torch.minimum(s, d)
+    if op == "max":
+        return torch.maximum(s, d)
+
+    def factor(name):
+        if name == "zero":
+            return 0.0
+        if name == "one":
+            return 1.0
+        if name == "src_alpha":
+            return ca
+        if name == "one_minus_src_alpha":
+            return 1.0 - ca
+        if name == "dst_alpha":
+            return da
+        if name == "one_minus_dst_alpha":
+            return 1.0 - da
+        if name == "src_alpha_saturated":
+            # min(αs, 1−αd) on RGB, 1 on alpha.
+            return torch.minimum(ca, 1.0 - da) if chan < 3 else 1.0
+        if name == "constant":
+            return const[chan]
+        if name == "one_minus_constant":
+            return 1.0 - const[chan]
+        raise ValueError(f"unknown blend factor {name!r}")
+
+    st = s * factor(src_f) if src_f != "zero" else 0.0
+    dt = d * factor(dst_f) if dst_f != "zero" else 0.0
+    if op == "add":
+        return st + dt
+    if op == "subtract":
+        return st - dt
+    return dt - st  # reverse_subtract
+
+
+class PreparedFrame(NamedTuple):
+    """Tensors produced by ``prepare``, consumed by ``rasterize``; the
+    reference's fields and shapes."""
+
+    tri_f: torch.Tensor    # (n_tiles, K+PAD, D_F)
+    tri_i: torch.Tensor    # (n_tiles, K+PAD, D_I)
+    off: torch.Tensor      # (n_tiles, 1, 9C+1) per-(cmd, class) ranges
+    g_tri_f: torch.Tensor  # (n_tiles, Kg+PAD, D_F) per-tile big triangles
+    g_tri_i: torch.Tensor  # (n_tiles, Kg+PAD, D_I)
+    g_off: torch.Tensor    # (n_tiles, 1, 9C+1)
+    bulk: torch.Tensor     # (n_tiles, 1, C) trivially-accepted winding
+    cls: torch.Tensor      # (n_tiles, 1, Rc) cover-draw class 0/1/2
+    hbits: torch.Tensor    # (n_tiles, 1, Rc) crossing hull-line bitmask
+    aclist: torch.Tensor   # (n_tiles, 1, U) active unit indices
+    acount: torch.Tensor   # (n_tiles, 1, 1)
+    hull_lines: torch.Tensor  # (Rc, Hm+2, 4) inward-oriented pixel lines
+    paint_xy: torch.Tensor    # (Rc, 4) gradient endpoints (zeros here)
+    zplane: torch.Tensor      # (Rc, 3) NDC-z planes (zeros here)
+    overflow: torch.Tensor    # (4,) max local count, global count,
+    #                           max tile globals, near-plane crossings
+
+
+# ---------------------------------------------------------------------------
+# prepare: setup + binning (torch)
+# ---------------------------------------------------------------------------
+
+
+class DrawTables(NamedTuple):
+    """Static expansion of the command list into draws and units (see
+    the reference's DrawTables)."""
+
+    inst: np.ndarray        # (C,) per-command instance count
+    row_base: np.ndarray    # (C+1,) transform-row offset per command
+    s_cmd: np.ndarray       # (Rs,) stencil draw → command
+    s_row: np.ndarray       # (Rs,) stencil draw → transform row
+    c_cmd: np.ndarray       # (Rc,) cover draw → command
+    c_row: np.ndarray       # (Rc,) cover draw → transform row
+    unit_cmd: np.ndarray    # (U,) unit → command
+    unit_draw: np.ndarray   # (U,) unit → cover draw (-1 for stencil)
+
+
+def draw_tables(spec: FrameSpec) -> DrawTables:
+    C = spec.n_commands
+    ops = np.asarray(spec.ops, np.int32)
+    inst = np.asarray(
+        spec.cmd_inst if spec.cmd_inst else (1,) * C, np.int32
+    )
+    if len(inst) != C or not (inst >= 1).all():
+        raise ValueError("cmd_inst must give every command >= 1 instance")
+    row_base = np.concatenate([[0], np.cumsum(inst)]).astype(np.int32)
+    s_cmd, s_row, c_cmd, c_row = [], [], [], []
+    unit_cmd, unit_draw = [], []
+    for c in range(C):
+        rows = range(int(row_base[c]), int(row_base[c + 1]))
+        if ops[c] == OP_STENCIL:
+            s_cmd += [c] * int(inst[c])
+            s_row += list(rows)
+            unit_cmd.append(c)
+            unit_draw.append(-1)
+        else:
+            for r in rows:
+                unit_cmd.append(c)
+                unit_draw.append(len(c_cmd))
+                c_cmd.append(c)
+                c_row.append(r)
+    # A dummy draw that no unit references keeps every table non-empty,
+    # as in the reference.
+    if not s_cmd:
+        s_cmd, s_row = [0], [0]
+    if not c_cmd:
+        c_cmd, c_row = [0], [0]
+    i32 = np.int32
+    return DrawTables(
+        inst=inst,
+        row_base=row_base,
+        s_cmd=np.asarray(s_cmd, i32),
+        s_row=np.asarray(s_row, i32),
+        c_cmd=np.asarray(c_cmd, i32),
+        c_row=np.asarray(c_row, i32),
+        unit_cmd=np.asarray(unit_cmd, i32),
+        unit_draw=np.asarray(unit_draw, i32),
+    )
+
+
+def _corner_min_max(a, b, c, x0, y0, tw, th):
+    """Min/max of the linear function a·x+b·y+c over the tile rectangle
+    [x0, x0+tw] × [y0, y0+th] (all broadcastable)."""
+    base = a * x0 + b * y0 + c
+    lo = base + torch.clamp(a * tw, max=0.0) + torch.clamp(b * th, max=0.0)
+    hi = base + torch.clamp(a * tw, min=0.0) + torch.clamp(b * th, min=0.0)
+    return lo, hi
+
+
+def _transform_points(x, y, m):
+    """clip[..., r] = x·m[r,0] + y·m[r,1] + 0·m[r,2] + 1·m[r,3]: the
+    reference's full-f32 einsum over the homogeneous (x, y, 0, 1),
+    written as an explicit multiply-add over the 4 columns so no matmul
+    precision mode (TF32) can enter.  ``m`` is (..., 4, 4) broadcastable
+    against ``x[..., None]``."""
+    zero = torch.zeros_like(x)[..., None]
+    one = torch.ones_like(x)[..., None]
+    return (
+        x[..., None] * m[..., 0]
+        + y[..., None] * m[..., 1]
+        + zero * m[..., 2]
+        + one * m[..., 3]
+    )
+
+
+def _scatter_rows(n_rows, slots, values):
+    """Rows of ``values`` written at row indices ``slots`` of an
+    (n_rows, width) zero buffer; several rows may target the dump row
+    n_rows - 1, whose content is never read."""
+    out = torch.zeros(
+        (n_rows, values.shape[-1]), dtype=values.dtype, device=values.device
+    )
+    out[slots] = values
+    return out
+
+
+def make_prepare(spec: FrameSpec):
+    # Bracket gating and depth planes are not ported (strokes, clip and
+    # alpha ops bin as in the reference).
+    if spec.gate_spans or spec.depth_write or spec.depth_compare != "always":
+        check_supported(spec)
+    C = spec.n_commands
+    draws = draw_tables(spec)
+    _row_base = draws.row_base
+
+    def _shape_at(c, r):
+        e = spec.cmd_shape[c]
+        return e[r - _row_base[c]] if isinstance(e, (tuple, list)) else e
+
+    s_shape_np = np.asarray(
+        [_shape_at(c, r) for c, r in zip(draws.s_cmd, draws.s_row)],
+        np.int64,
+    )
+    c_shape_np = np.asarray(
+        [_shape_at(c, r) for c, r in zip(draws.c_cmd, draws.c_row)],
+        np.int64,
+    )
+    Rs = len(draws.s_cmd)
+    Rc = len(draws.c_cmd)
+    U = len(draws.unit_cmd)
+    T = spec.t_max
+    Hm = spec.h_max
+    W, H = spec.width, spec.height
+    # All binning geometry is in screen space: the tile footprint.
+    tw, th = spec.screen_tile_w, spec.screen_tile_h
+    ntx, nty, n_tiles = spec.ntx, spec.nty, spec.n_tiles
+    K = spec.capacity
+    G = spec.global_capacity
+    Kg = spec.tile_global_capacity
+    PAD = spec.entry_pad
+    mx, my = spec.slots_x, spec.slots_y
+    M = mx * my
+
+    def prepare(xy, aux, kind, meta, gbase, hull, transforms, desc_static,
+                paint_model=None):
+        """xy (Ns,T,3,2) aux (Ns,T,3,4) kind (Ns,T) meta (Ns,T,2)
+        gbase (Ns,) hull (Ns,Hm,2) transforms (R,4,4) desc_static
+        (n_groups, 2), all tensors on one device."""
+        if paint_model is not None:
+            raise NotImplementedError(
+                "the PyTorch/CUDA port cannot bin gradient paints yet "
+                "(ROADMAP.md, Queue 2 item 5: non-solid paints)"
+            )
+        dev = xy.device
+        f32 = torch.float32
+        i32 = torch.int32
+        i64 = torch.int64
+
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        def arange(n, dtype=i32):
+            return torch.arange(n, dtype=dtype, device=dev)
+
+        # ---- per-stencil-draw triangle setup --------------------------
+        s_cmd = torch.as_tensor(draws.s_cmd, device=dev)
+        sshape = idx(s_shape_np)
+        sxy = xy[sshape]                          # (Rs, T, 3, 2)
+        saux = aux[sshape]
+        stf = transforms[idx(draws.s_row)]        # (Rs, 4, 4)
+        clip = _transform_points(
+            sxy[..., 0], sxy[..., 1], stf[:, None, None]
+        )                                         # (Rs, T, 3, 4)
+
+        # ---- flatten to rows (one row per screen triangle) ------------
+        N0 = Rs * T
+        clip_flat = clip.reshape(N0, 3, 4)
+        aux_flat = saux.reshape(N0, 3, 4)
+        kind_flat = kind[sshape].reshape(N0)
+        meta_flat = meta[sshape].reshape(N0, 2)
+        gbase_flat = torch.repeat_interleave(gbase[sshape], T)
+        cmd_flat = torch.repeat_interleave(s_cmd, T)
+
+        # ---- near-plane clipping of crossing triangles -----------------
+        # Sutherland-Hodgman against w > eps into a pool of E slots, each
+        # giving up to two sub-triangles (the reference's hardware clip).
+        E = spec.clip_pool
+        w_eps = torch.tensor(1e-6, dtype=f32, device=dev)
+        w_all = clip_flat[..., 3]
+        win = w_all > w_eps
+        n_in = win.sum(-1)
+        crossing = (n_in >= 1) & (n_in <= 2)
+        cross_total = crossing.sum()
+        # Crossing rows in ascending order first (the reference's top_k
+        # over N0 - i; only the first min(total, E) slots are used).
+        corder = torch.argsort(
+            torch.where(crossing, 0, 1).to(i32), stable=True
+        )[:min(E, N0)]
+        cidx = (
+            torch.cat([corder, corder.new_zeros(E - N0)])
+            if E > N0 else corder
+        )
+        slot_ok = arange(E) < torch.clamp(cross_total, max=E)
+
+        attr = torch.cat([clip_flat[cidx], aux_flat[cidx]], -1)  # (E,3,8)
+        rot = idx([1, 2, 0])
+        wa = attr[..., 3]
+        a_in = wa > w_eps
+        nxt = attr[:, rot, :]
+        wb = wa[:, rot]
+        b_in = wb > w_eps
+        denom = torch.where(wb - wa != 0.0, wb - wa, 1.0)
+        t_cross = (w_eps - wa) / denom
+        inter = attr + t_cross[..., None] * (nxt - attr)
+        # Pin the intersection w to exactly eps (see the reference).
+        inter[..., 3] = w_eps
+        out_v = torch.stack([attr, inter], 2).reshape(E, 6, 8)
+        out_ok = torch.stack([a_in, a_in != b_in], 2).reshape(E, 6)
+        rank = torch.cumsum(out_ok.to(i32), 1) - 1
+        cnt = out_ok.to(i32).sum(1)
+        rows_e = arange(E, i64)[:, None].expand(E, 6)
+        slot = torch.where(out_ok, torch.clamp(rank, max=4), 4).to(i64)
+        poly = _scatter_rows(
+            E * 5, (rows_e * 5 + slot).reshape(-1), out_v.reshape(-1, 8)
+        ).reshape(E, 5, 8)[:, :4]
+        in_use = arange(4)[None, :] < torch.clamp(cnt, max=4)[:, None]
+        poly = torch.where(in_use[..., None], poly, poly[:, 0:1])
+        # Fan: (p0, p1, p2) and (p0, p2, p3); a 3-vertex polygon's second
+        # triangle is degenerate and culled downstream.
+        tri0 = poly[:, idx([0, 1, 2])]
+        tri1 = poly[:, idx([0, 2, 3])]
+        pool_attr = torch.cat([tri0, tri1], 0)          # (2E, 3, 8)
+        pool_valid = slot_ok.repeat(2)
+        pool_clip = torch.where(
+            pool_valid[:, None, None], pool_attr[..., :4], 0.0
+        )
+        pool_aux = pool_attr[..., 4:]
+        pool_src = torch.where(slot_ok, cidx, 0).repeat(2)
+
+        clip_all = torch.cat([clip_flat, pool_clip])     # (N, 3, 4)
+        aux_all = torch.cat([aux_flat, pool_aux])
+        kind_all = torch.cat([kind_flat, kind_flat[pool_src]])
+        meta_all = torch.cat([meta_flat, meta_flat[pool_src]])
+        gbase_all = torch.cat([gbase_flat, gbase_flat[pool_src]])
+        cmd_of = torch.cat([cmd_flat, cmd_flat[pool_src]])
+        # Crossing rows are superseded by their pool sub-triangles.
+        near_ok = torch.cat([
+            win.all(-1),
+            (pool_clip[..., 3] > 0.0).all(-1) & pool_valid,
+        ])
+        n_rows = N0 + 2 * E
+
+        # ---- screen-space projection + edge setup ----------------------
+        w = clip_all[..., 3]
+        inv_w = torch.where(w != 0.0, 1.0 / w, 0.0)
+        ndc = clip_all[..., :2] * inv_w[..., None]
+        px = (ndc[..., 0] + 1.0) * (0.5 * W)
+        py = (1.0 - ndc[..., 1]) * (0.5 * H)
+        pix = torch.stack([px, py], -1)                  # (N, 3, 2)
+
+        v0, v1, v2 = pix[..., 0, :], pix[..., 1, :], pix[..., 2, :]
+        area = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - (
+            v1[..., 1] - v0[..., 1]
+        ) * (v2[..., 0] - v0[..., 0])
+        orient = torch.sign(area)
+        finite = torch.isfinite(pix).all(-1).all(-1) & torch.isfinite(area)
+        visible = finite & (area != 0.0) & near_ok
+
+        edges = []
+        tl_bits = torch.zeros(area.shape, dtype=i32, device=dev)
+        for e_index, (ai, bi) in enumerate(((0, 1), (1, 2), (2, 0))):
+            a_v = pix[..., ai, :]
+            b_v = pix[..., bi, :]
+            ea = -(b_v[..., 1] - a_v[..., 1]) * orient
+            eb = (b_v[..., 0] - a_v[..., 0]) * orient
+            ec = -(ea * a_v[..., 0] + eb * a_v[..., 1])
+            aa = torch.where(orient[..., None] > 0, a_v, b_v)
+            bb = torch.where(orient[..., None] > 0, b_v, a_v)
+            top_left = (
+                (aa[..., 1] == bb[..., 1]) & (bb[..., 0] > aa[..., 0])
+            ) | (bb[..., 1] > aa[..., 1])
+            tl_bits = tl_bits | (top_left.to(i32) << e_index)
+            edges.append(torch.stack([ea, eb, ec], -1))
+        edge = torch.stack(edges, -2)                    # (N, 3, 3)
+        inv_area = torch.where(area != 0.0, 1.0 / torch.abs(area), 0.0)
+
+        aux_w = aux_all * inv_w[..., None]
+        perm = idx([2, 0, 1])
+        aw = aux_w[:, perm, :]                           # aw[k] pairs edge k
+        iw = inv_w[:, perm]
+
+        is_fill = kind_all <= KIND_RATIONAL_CUBIC
+        contribution = torch.where(
+            visible & is_fill, -orient.to(i32), 0
+        ).to(i32)
+        contribution = torch.where(visible & ~is_fill, 1, contribution)
+
+        group_flags = meta_all[..., 0].to(i32)
+        group = gbase_all + (group_flags & 0xFFFF)
+        flags = (
+            tl_bits
+            | torch.where((group_flags & 0x10000) != 0, FLAG_END_CAP, 0)
+            | torch.where((group_flags & 0x20000) != 0, FLAG_JOINT_TIP, 0)
+        ).to(i32)
+
+        aabb = torch.cat([pix.amin(-2), pix.amax(-2)], -1)
+        live = (
+            (contribution != 0)
+            & (aabb[..., 0] <= W) & (aabb[..., 2] >= 0.0)
+            & (aabb[..., 1] <= H) & (aabb[..., 3] >= 0.0)
+        )
+        contribution = torch.where(live, contribution, 0)
+
+        rows_f = torch.cat(
+            [
+                edge.reshape(n_rows, 9),
+                inv_area[:, None],
+                aw.reshape(n_rows, 12),
+                iw,
+                meta_all[:, 1:2],
+                aabb,
+                torch.zeros((n_rows, D_F - 30), dtype=f32, device=dev),
+            ],
+            -1,
+        )
+        # Per-group dash mode (0 solid, 1 single interval, 2 general);
+        # groups outside the table read 0, as the reference's one-hot.
+        n_groups = desc_static.shape[0]
+        mode_tbl = torch.where(
+            desc_static[:, 0] == 0, 0,
+            torch.where(desc_static[:, 1] == 0, 1, 2),
+        ).to(i32)
+        in_tbl = (group >= 0) & (group < n_groups)
+        dash_mode = torch.where(
+            in_tbl, mode_tbl[torch.clamp(group, 0, n_groups - 1).to(i64)], 0
+        )
+        clsk = torch.where(
+            kind_all == KIND_STROKE_LINE, CLS_LINE_SOLID + dash_mode,
+            torch.where(
+                kind_all == KIND_STROKE_JOINT, CLS_JOINT_SOLID + dash_mode,
+                torch.where(
+                    kind_all == KIND_SOLID, CLS_FILL_SOLID,
+                    torch.where(
+                        (kind_all == KIND_INTEGRAL_QUADRATIC)
+                        | (kind_all == KIND_RATIONAL_QUADRATIC),
+                        CLS_FILL_QUAD, CLS_FILL_CUBIC,
+                    ),
+                ),
+            ),
+        )
+        rows_i = torch.stack(
+            [
+                kind_all,
+                contribution,
+                group,
+                flags,
+                is_fill.to(i32),
+                cmd_of,
+                clsk,
+                torch.zeros_like(kind_all),
+            ],
+            -1,
+        ).to(i32)
+
+        solid_flat = kind_all == KIND_SOLID
+        contrib_flat = rows_i[:, RI_CONTRIB]
+        class_flat = rows_i[:, RI_CLASS]
+        cmd64 = cmd_of.to(i64)
+        key2_flat = cmd64 * N_CLASSES + class_flat
+
+        def tile_index(v, step, n):
+            return torch.clamp(torch.floor(v / step), 0, n - 1).to(i64)
+
+        tx0 = tile_index(aabb[:, 0], tw, ntx)
+        ty0 = tile_index(aabb[:, 1], th, nty)
+        tx1 = tile_index(aabb[:, 2], tw, ntx)
+        ty1 = tile_index(aabb[:, 3], th, nty)
+        span_ok = ((tx1 - tx0) < mx) & ((ty1 - ty0) < my)
+        is_local = live & span_ok
+        is_global = live & ~span_ok
+
+        bulk = torch.zeros((n_tiles, C), dtype=i32, device=dev)
+
+        # ---- local slot enumeration ----------------------------------
+        m = arange(M, i64)
+        etx = tx0[:, None] + (m % mx)[None, :]           # (N, M)
+        ety = ty0[:, None] + (m // mx)[None, :]
+        in_range = (
+            (etx <= tx1[:, None]) & (ety <= ty1[:, None])
+            & (etx < ntx) & (ety < nty) & is_local[:, None]
+        )
+        ex0 = etx.to(f32) * tw
+        ey0 = ety.to(f32) * th
+        reject = torch.zeros(etx.shape, dtype=torch.bool, device=dev)
+        accept = torch.ones(etx.shape, dtype=torch.bool, device=dev)
+        for e_index in range(3):
+            a = rows_f[:, 3 * e_index + 0][:, None]
+            b = rows_f[:, 3 * e_index + 1][:, None]
+            c = rows_f[:, 3 * e_index + 2][:, None]
+            lo, hi = _corner_min_max(a, b, c, ex0, ey0, tw, th)
+            reject = reject | (hi < 0.0)
+            accept = accept & (lo > 0.0)
+        valid = in_range & ~reject
+        tile_of = ety * ntx + etx
+        solid_acc = valid & accept & solid_flat[:, None]
+        entry = valid & ~solid_acc
+
+        # Trivial accepts of solid triangles fold into one winding delta
+        # per (tile, command).
+        bulk.index_put_(
+            (tile_of[solid_acc], cmd64[:, None].expand(-1, M)[solid_acc]),
+            contrib_flat[:, None].expand(-1, M)[solid_acc],
+            accumulate=True,
+        )
+
+        # Stable sort of local entries by (tile, cmd, class).
+        key = (tile_of * C + cmd64[:, None]) * N_CLASSES + class_flat[:, None]
+        big = n_tiles * C * N_CLASSES
+        key = torch.where(entry, key, big).reshape(-1)
+        order = torch.sort(key, stable=True).indices
+        srow = order // M                                # payload: row index
+
+        counts2 = torch.bincount(key[key < big], minlength=big).reshape(
+            n_tiles, N_CLASSES * C
+        )
+        off = torch.cat(
+            [torch.zeros((n_tiles, 1), dtype=i64, device=dev),
+             torch.cumsum(counts2, 1)],
+            1,
+        )
+        tile_count = off[:, -1]
+        tile_begin = torch.cat(
+            [torch.zeros(1, dtype=i64, device=dev),
+             torch.cumsum(tile_count, 0)[:-1]]
+        )
+        kk = arange(K + PAD, i64)
+        gidx = torch.clamp(tile_begin[:, None] + kk[None, :], 0, key.shape[0] - 1)
+        # Rows past a tile's entry count belong to the next segment; the
+        # kernel never reads past the `off` ranges.
+        tri_rows = srow[gidx]
+        tri_f = rows_f[tri_rows]
+        tri_i = rows_i[tri_rows]
+        off = torch.clamp(off, max=K)
+
+        # ---- globals (big triangles) via a small dense matrix ---------
+        gkey = torch.where(is_global, key2_flat, C * N_CLASSES + 1)
+        gsrow = torch.sort(gkey, stable=True).indices
+        g_total = is_global.sum()
+        g_ids = (
+            gsrow[:G] if n_rows >= G
+            else torch.cat([gsrow, gsrow.new_zeros(G - n_rows)])
+        )
+        g_valid = arange(G, i64) < torch.clamp(g_total, max=G)
+        g_rows_f = rows_f[g_ids]
+        g_rows_i = rows_i[g_ids]
+
+        tile_x0 = arange(ntx).to(f32) * tw
+        tile_y0 = arange(nty).to(f32) * th
+        gaabb = g_rows_f[:, RF_AABB:RF_AABB + 4]
+        ovx = (gaabb[:, 0:1] <= tile_x0[None, :] + tw) & (
+            gaabb[:, 2:3] >= tile_x0[None, :]
+        )                                                # (G, ntx)
+        ovy = (gaabb[:, 1:2] <= tile_y0[None, :] + th) & (
+            gaabb[:, 3:4] >= tile_y0[None, :]
+        )                                                # (G, nty)
+        g_reject = torch.zeros((G, nty, ntx), dtype=torch.bool, device=dev)
+        g_accept = torch.ones((G, nty, ntx), dtype=torch.bool, device=dev)
+        for e_index in range(3):
+            a = g_rows_f[:, 3 * e_index + 0][:, None, None]
+            b = g_rows_f[:, 3 * e_index + 1][:, None, None]
+            c = g_rows_f[:, 3 * e_index + 2][:, None, None]
+            lo, hi = _corner_min_max(
+                a, b, c, tile_x0[None, None, :], tile_y0[None, :, None], tw, th
+            )
+            g_reject = g_reject | (hi < 0.0)
+            g_accept = g_accept & (lo > 0.0)
+        g_over = ovy[:, :, None] & ovx[:, None, :] & g_valid[:, None, None]
+        g_solid = g_rows_i[:, RI_KIND] == KIND_SOLID
+        g_acc_mask = g_over & g_accept & g_solid[:, None, None]
+        g_entry = (g_over & ~g_reject & ~g_acc_mask).permute(1, 2, 0).reshape(
+            n_tiles, G
+        )
+        g_acc_flat = g_acc_mask.permute(1, 2, 0).reshape(n_tiles, G)
+
+        # Per-(tile, command) sums over globals: exact integer scatters
+        # (the reference's one-hot matmuls).
+        g_cmd = g_rows_i[:, RI_CMD].to(i64)
+        bulk.index_add_(
+            1, g_cmd,
+            torch.where(g_acc_flat, g_rows_i[None, :, RI_CONTRIB], 0).to(i32),
+        )
+
+        # Per-tile global entry list in ascending g (already (cmd,
+        # class)-sorted); slots past the tile's count are never read.
+        gl_key = torch.where(g_entry, arange(G, i64)[None, :], G)
+        gl_idx = torch.sort(gl_key, dim=1, stable=True).indices[:, :Kg]
+        glist = torch.cat(
+            [gl_idx, gl_idx.new_zeros((n_tiles, Kg + PAD - gl_idx.shape[1]))],
+            1,
+        )
+        g_tri_f = g_rows_f[glist]                        # (n_tiles, Kg+PAD, D_F)
+        g_tri_i = g_rows_i[glist]
+        g_key2 = g_cmd * N_CLASSES + g_rows_i[:, RI_CLASS]
+        g_counts2 = torch.zeros(
+            (n_tiles, N_CLASSES * C), dtype=i64, device=dev
+        ).index_add_(1, g_key2, g_entry.to(i64))
+        g_off = torch.cat(
+            [torch.zeros((n_tiles, 1), dtype=i64, device=dev),
+             torch.cumsum(g_counts2, 1)],
+            1,
+        )
+        tile_g_count = g_off[:, -1]
+        g_off = torch.clamp(g_off, max=Kg)
+
+        # ---- cover draws: near-plane clip + hull lines + class ---------
+        hp = hull[idx(c_shape_np)]                       # (Rc, Hm, 2)
+        ctf = transforms[idx(draws.c_row)]               # (Rc, 4, 4)
+        Cc = Rc
+        # No paint model and no depth in this slice: zeros, as the
+        # reference leaves them when both are compiled out.
+        paint_xy = torch.zeros((Rc, 4), dtype=f32, device=dev)
+        zplane = torch.zeros((Rc, 3), dtype=f32, device=dev)
+        hclip = _transform_points(hp[..., 0], hp[..., 1], ctf[:, None])
+        # Sutherland–Hodgman clip of the convex hull against w > eps.
+        H2 = Hm + 2
+        eps = torch.tensor(1e-5, dtype=f32, device=dev)
+        b_vert = torch.roll(hclip, -1, 1)
+        wa = hclip[..., 3]
+        wb = b_vert[..., 3]
+        in_a = wa > eps
+        denom = torch.where(wb - wa != 0.0, wb - wa, 1.0)
+        t_int = (eps - wa) / denom
+        inter = hclip + t_int[..., None] * (b_vert - hclip)
+        out_v = torch.stack([hclip, inter], 2).reshape(Cc, 2 * Hm, 4)
+        out_valid = torch.stack([in_a, in_a != (wb > eps)], 2).reshape(
+            Cc, 2 * Hm
+        )
+        h_rank = torch.cumsum(out_valid.to(i32), 1) - 1
+        h_count = out_valid.to(i32).sum(1)
+        rows_c = arange(Cc, i64)[:, None].expand(Cc, 2 * Hm)
+        slot = torch.where(out_valid, torch.clamp(h_rank, max=H2), H2).to(i64)
+        clipped = _scatter_rows(
+            Cc * (H2 + 1), (rows_c * (H2 + 1) + slot).reshape(-1),
+            out_v.reshape(-1, 4),
+        ).reshape(Cc, H2 + 1, 4)[:, :H2]
+        # Unused slots repeat the first vertex: degenerate edges, replaced
+        # by pass lines below.
+        in_use = arange(H2)[None, :] < torch.clamp(h_count, max=H2)[:, None]
+        clipped = torch.where(in_use[..., None], clipped, clipped[:, 0:1, :])
+        hvalid = h_count >= 3
+
+        hw = clipped[..., 3]
+        hiw = torch.where(hw > 0.0, 1.0 / hw, 0.0)
+        hndc = clipped[..., :2] * hiw[..., None]
+        hx = (hndc[..., 0] + 1.0) * (0.5 * W)
+        hy = (1.0 - hndc[..., 1]) * (0.5 * H)
+        hxn = torch.roll(hx, -1, -1)
+        hyn = torch.roll(hy, -1, -1)
+        h_area = torch.sum(hx * hyn - hxn * hy, -1)
+        hsign = torch.where(h_area >= 0, 1.0, -1.0)[:, None]
+        ha = -(hyn - hy) * hsign
+        hb = (hxn - hx) * hsign
+        hc = -(ha * hx + hb * hy)
+        degenerate = (ha == 0.0) & (hb == 0.0)
+        ha = torch.where(degenerate, 0.0, ha)
+        hb = torch.where(degenerate, 0.0, hb)
+        hc = torch.where(degenerate, 1.0, hc)
+        hull_lines = torch.stack(
+            [ha, hb, hc, torch.zeros_like(ha)], -1
+        )                                                # (Rc, H2, 4)
+
+        hovx = (hx.amin(-1)[:, None] <= tile_x0[None, :] + tw) & (
+            hx.amax(-1)[:, None] >= tile_x0[None, :]
+        )
+        hovy = (hy.amin(-1)[:, None] <= tile_y0[None, :] + th) & (
+            hy.amax(-1)[:, None] >= tile_y0[None, :]
+        )
+        h_reject = torch.zeros((Cc, nty, ntx), dtype=torch.bool, device=dev)
+        h_accept = torch.ones((Cc, nty, ntx), dtype=torch.bool, device=dev)
+        # Per-(tile, cover) bitmask of the hull lines crossing the tile.
+        h_bits = torch.zeros((Cc, nty, ntx), dtype=i32, device=dev)
+        if H2 > 31:
+            raise ValueError("hull-line bitmask needs a single i32 word")
+        for h_index in range(H2):
+            a = ha[:, h_index][:, None, None]
+            b = hb[:, h_index][:, None, None]
+            c = hc[:, h_index][:, None, None]
+            lo, hi = _corner_min_max(
+                a, b, c, tile_x0[None, None, :], tile_y0[None, :, None], tw, th
+            )
+            h_reject = h_reject | (hi < 0.0)
+            h_accept = h_accept & (lo > 0.0)
+            h_bits = h_bits | torch.where(lo > 0.0, 0, 1 << h_index).to(i32)
+        h_over = hovy[:, :, None] & hovx[:, None, :] & hvalid[:, None, None]
+        cls = torch.where(
+            h_over,
+            torch.where(h_accept, 2, torch.where(h_reject, 0, 1)),
+            0,
+        ).to(i32).permute(1, 2, 0).reshape(n_tiles, Rc)
+        hbits = h_bits.permute(1, 2, 0).reshape(n_tiles, Rc)
+
+        # ---- active unit list ------------------------------------------
+        # A unit is a whole stencil command or one cover draw, walked in
+        # global draw order.
+        start = off[:, 0:N_CLASSES * C:N_CLASSES]
+        end = off[:, N_CLASSES:N_CLASSES * C + 1:N_CLASSES]
+        g_start = g_off[:, 0:N_CLASSES * C:N_CLASSES]
+        g_end = g_off[:, N_CLASSES:N_CLASSES * C + 1:N_CLASSES]
+        stencil_active = (end > start) | (g_end > g_start) | (bulk != 0)
+        cover_active = cls > 0
+        act_s = stencil_active[:, idx(draws.unit_cmd)]
+        act_c = cover_active[:, idx(np.maximum(draws.unit_draw, 0))]
+        is_cover_u = torch.as_tensor(draws.unit_draw >= 0, device=dev)
+        active = torch.where(is_cover_u[None, :], act_c, act_s)
+        # Compact active unit indices per tile (inactive slots key to U
+        # and sink to the tail).
+        aclist = torch.sort(
+            torch.where(active, arange(U)[None, :], U).to(i32), dim=1
+        ).values
+        acount = active.to(i32).sum(1)
+
+        overflow = torch.stack(
+            [tile_count.max(), g_total, tile_g_count.max(), cross_total]
+        ).to(i32)
+
+        fields = dict(
+            tri_f=tri_f,
+            tri_i=tri_i,
+            off=off.to(i32)[:, None, :],
+            g_tri_f=g_tri_f,
+            g_tri_i=g_tri_i,
+            g_off=g_off.to(i32)[:, None, :],
+            bulk=bulk[:, None, :],
+            cls=cls[:, None, :],
+            hbits=hbits[:, None, :],
+            aclist=aclist[:, None, :],
+            acount=acount.to(i32)[:, None, None],
+            hull_lines=hull_lines,
+            paint_xy=paint_xy,
+            zplane=zplane,
+            overflow=overflow,
+        )
+        return PreparedFrame(**{k: v.contiguous() for k, v in fields.items()})
+
+    return prepare
+
+
+# ---------------------------------------------------------------------------
+# rasterize: the CUDA kernel and its plain torch version
+# ---------------------------------------------------------------------------
+
+#: Launches of the CUDA kernel since the count was last reset: the
+#: wrapper adds one where it launches and nowhere else.
+raster_launches = 0
+
+_KERNEL_SOURCES = ("coverage_raster.cu",)
+_MAX_SAMPLES = 16
+
+
+class _RasterArgs(ctypes.Structure):
+    """Mirror of ``struct RasterArgs`` in csrc/coverage_raster.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p) for name in (
+            "cmd_i", "cmd_f", "hull", "unit_cmd", "unit_draw", "acount",
+            "aclist", "off", "g_off", "bulk", "cls", "hbits", "tri_f",
+            "tri_i", "g_tri_f", "g_tri_i", "out",
+        )
+    ] + [
+        (name, ctypes.c_int) for name in (
+            "n_tiles", "ntx", "th", "tw", "strips", "lw", "lh",
+            "n_commands", "n_draws", "n_units", "hull_rows", "draw_cols",
+            "kp", "kgp", "samples", "winding_mask", "out_u8",
+            "color_src", "color_op", "color_dst",
+            "alpha_src", "alpha_op", "alpha_dst", "uses_constant",
+        )
+    ] + [
+        ("sample_x", ctypes.c_float * _MAX_SAMPLES),
+        ("sample_y", ctypes.c_float * _MAX_SAMPLES),
+    ]
+
+
+_library = None
+
+
+def build_kernel():
+    """The raster kernel's library, typed for ctypes; the first call
+    builds it with nvcc (or loads the cached build)."""
+    global _library
+    if _library is None:
+        lib = cuda_build.load_library("coverage_raster", _KERNEL_SOURCES)
+        lib.coverage_raster_launch.argtypes = [
+            ctypes.POINTER(_RasterArgs), ctypes.c_void_p,
+        ]
+        lib.coverage_raster_launch.restype = ctypes.c_int
+        lib.coverage_raster_block_size.argtypes = []
+        lib.coverage_raster_block_size.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+@functools.lru_cache(maxsize=64)
+def _raster_plan(spec: FrameSpec):
+    """The host work of coverage_raster that depends on the spec alone,
+    done once per spec: its draw tables and the expected (shape, dtype)
+    of every input."""
+    draws = draw_tables(spec)
+    return draws, _raster_shapes(spec, draws)
+
+
+def _raster_shapes(spec: FrameSpec, draws: DrawTables):
+    """Expected (shape, dtype) of every coverage_raster input."""
+    C = spec.n_commands
+    Rc = len(draws.c_cmd)
+    U = len(draws.unit_cmd)
+    n_tiles = spec.n_tiles
+    kp = spec.capacity + spec.entry_pad
+    kgp = spec.tile_global_capacity + spec.entry_pad
+    i32, f32 = torch.int32, torch.float32
+    return {
+        "tri_f": ((n_tiles, kp, D_F), f32),
+        "tri_i": ((n_tiles, kp, D_I), i32),
+        "off": ((n_tiles, 1, N_CLASSES * C + 1), i32),
+        "g_tri_f": ((n_tiles, kgp, D_F), f32),
+        "g_tri_i": ((n_tiles, kgp, D_I), i32),
+        "g_off": ((n_tiles, 1, N_CLASSES * C + 1), i32),
+        "bulk": ((n_tiles, 1, C), i32),
+        "cls": ((n_tiles, 1, Rc), i32),
+        "hbits": ((n_tiles, 1, Rc), i32),
+        "aclist": ((n_tiles, 1, U), i32),
+        "acount": ((n_tiles, 1, 1), i32),
+        "hull_lines": ((Rc, spec.h_max + 2, 4), f32),
+        "cmd_i": ((C, 4), i32),
+        "cmd_f": ((Rc, 24 if blend_uses_constant(spec.blending) else 20), f32),
+        "unit_cmd": ((U,), i32),
+        "unit_draw": ((U,), i32),
+    }
+
+
+def _raster_output(spec: FrameSpec, device):
+    if spec.out_uint8:
+        shape, dtype = (spec.n_tiles, spec.tile_h, spec.tile_w), torch.int32
+    else:
+        shape = (spec.n_tiles, 4, spec.tile_h, spec.tile_w)
+        dtype = torch.float32
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
+    """Rasterize one prepared frame into tiles: float (n_tiles, 4, th,
+    tw), or packed RGBA8 as int32 (n_tiles, th, tw) when
+    ``spec.out_uint8``, both in the tile's physical lane layout.
+
+    CUDA tensors launch the kernel of csrc/coverage_raster.cu on the
+    current stream; CPU tensors run ``rasterize_plain``."""
+    global raster_launches
+    check_supported(spec)
+    draws, expected = _raster_plan(spec)
+    tensors = dict(
+        prepared._asdict(), cmd_i=cmd_i, cmd_f=cmd_f,
+        unit_cmd=unit_cmd, unit_draw=unit_draw,
+    )
+    device = prepared.tri_f.device
+    for name, (shape, dtype) in expected.items():
+        t = tensors[name]
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, tri_f on {device}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"{name}: expected {shape} {dtype}, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.type == "cpu":
+        return rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw)
+    if device.type != "cuda":
+        raise ValueError(f"coverage_raster takes CPU or CUDA tensors, not {device}")
+    lib = build_kernel()
+    block = lib.coverage_raster_block_size()
+    if (spec.tile_h * spec.tile_w) % block:
+        raise ValueError(
+            f"tile {spec.tile_h}x{spec.tile_w} is not a multiple of the "
+            f"kernel's {block}-thread block"
+        )
+    out = _raster_output(spec, device)
+    offsets = SAMPLE_PATTERNS[spec.samples]
+    codes = _blend_codes(spec.blending)
+    args = _RasterArgs(
+        *(tensors[name].data_ptr() for name in (
+            "cmd_i", "cmd_f", "hull_lines", "unit_cmd", "unit_draw",
+            "acount", "aclist", "off", "g_off", "bulk", "cls", "hbits",
+            "tri_f", "tri_i", "g_tri_f", "g_tri_i",
+        )),
+        out.data_ptr(),
+        spec.n_tiles, spec.ntx, spec.tile_h, spec.tile_w, spec.tile_strips,
+        spec.screen_tile_w, spec.screen_tile_h,
+        spec.n_commands, len(draws.c_cmd), len(draws.unit_cmd),
+        spec.h_max + 2, cmd_f.shape[1],
+        expected["tri_f"][0][1], expected["g_tri_f"][0][1],
+        spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
+        *codes, int(blend_uses_constant(spec.blending)),
+    )
+    args.sample_x[:spec.samples] = offsets[:, 0].tolist()
+    args.sample_y[:spec.samples] = offsets[:, 1].tolist()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.coverage_raster_launch(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"coverage_raster launch failed: CUDA error {err}")
+    raster_launches += 1
+    return out
+
+
+def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
+    """Winding deltas (T, S, P) of a batch of fill entries: rf (T, B,
+    D_F), ri (T, B, D_I), ok (T, B) marks the entries inside their
+    range; pxc/pyc (T, 1, P) pixel centres.  The arithmetic and its
+    order are the kernel's, step for step."""
+
+    def cf(i):
+        return rf[..., i:i + 1]                          # (T, B, 1)
+
+    a0, b0, c0 = cf(0), cf(1), cf(2)
+    a1, b1, c1 = cf(3), cf(4), cf(5)
+    a2, b2, c2 = cf(6), cf(7), cf(8)
+    flags = ri[..., RI_FLAGS:RI_FLAGS + 1]
+    contrib = torch.where(ok, ri[..., RI_CONTRIB], 0)[..., None]
+    e0 = a0 * pxc + b0 * pyc + c0                        # (T, B, P)
+    e1 = a1 * pxc + b1 * pyc + c1
+    e2 = a2 * pxc + b2 * pyc + c2
+    tl0 = (flags & 1) != 0
+    tl1 = (flags & 2) != 0
+    tl2 = (flags & 4) != 0
+    n_ch = {CLS_FILL_SOLID: 0, CLS_FILL_QUAD: 3, CLS_FILL_CUBIC: 4}[class_code]
+    if n_ch:
+        inv_area = cf(RF_INV_AREA)
+        l0 = e0 * inv_area
+        l1 = e1 * inv_area
+        l2 = e2 * inv_area
+        aw = [[cf(RF_AW + 4 * k + ch) for k in range(3)] for ch in range(n_ch)]
+        ch_c = [l0 * w[0] + l1 * w[1] + l2 * w[2] for w in aw]
+        gx = [inv_area * (a0 * w[0] + a1 * w[1] + a2 * w[2]) for w in aw]
+        gy = [inv_area * (b0 * w[0] + b1 * w[1] + b2 * w[2]) for w in aw]
+    deltas = []
+    for ox, oy in offsets:
+        dx = float(ox) - 0.5
+        dy = float(oy) - 0.5
+        nt0 = -(a0 * dx + b0 * dy)
+        nt1 = -(a1 * dx + b1 * dy)
+        nt2 = -(a2 * dx + b2 * dy)
+        keep = (
+            ((e0 > nt0) | ((e0 == nt0) & tl0))
+            & ((e1 > nt1) | ((e1 == nt1) & tl1))
+            & ((e2 > nt2) | ((e2 == nt2) & tl2))
+        )
+        if n_ch:
+            xs, ys, zs = (
+                ch_c[k] + (gx[k] * dx + gy[k] * dy) for k in range(3)
+            )
+            if n_ch == 3:
+                keep = keep & (xs * xs - ys * zs <= 0.0)
+            else:
+                ws = ch_c[3] + (gx[3] * dx + gy[3] * dy)
+                keep = keep & (xs * xs * xs - ys * zs * ws <= 0.0)
+        deltas.append(torch.where(keep, contrib, 0).sum(1, dtype=torch.int32))
+    return torch.stack(deltas, 1)
+
+
+#: Fill entries the plain version evaluates per step (bounds the size
+#: of its (tiles, batch, pixels) temporaries).
+PLAIN_BATCH = 8
+
+
+def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
+    """The plain torch version of coverage_raster (same arguments, same
+    output).  Vectorised over tiles: it walks the units in draw order,
+    and each tile applies a unit only where the unit is in its active
+    list, which is the kernel's per-tile walk over ``aclist``."""
+    check_supported(spec)
+    dev = prepared.tri_f.device
+    f32, i32 = torch.float32, torch.int32
+    S = spec.samples
+    n_tiles, th, tw = spec.n_tiles, spec.tile_h, spec.tile_w
+    lw, lh, strips = spec.screen_tile_w, spec.screen_tile_h, spec.tile_strips
+    P = th * tw
+    U = unit_cmd.shape[0]
+    offsets = SAMPLE_PATTERNS[S]
+    winding_mask = (1 << spec.winding_bits) - 1
+    blend_color, blend_alpha = _canonical_blend(spec.blending)
+    uses_const = blend_uses_constant(spec.blending)
+
+    # Pixel coordinates of each lane (strip layout: lane l of row r is
+    # screen pixel (x0 + l % lw, y0 + (l // lw)·th + r)).
+    p = torch.arange(P, device=dev)
+    row_i, col_i = p // tw, p % tw
+    if strips == 1:
+        col, row = col_i.to(f32), row_i.to(f32)
+    else:
+        col = (col_i % lw).to(f32)
+        row = ((col_i // lw) * th + row_i).to(f32)
+    t = torch.arange(n_tiles, device=dev)
+    tile_x0 = (t % spec.ntx).to(f32)[:, None] * lw
+    tile_y0 = (t // spec.ntx).to(f32)[:, None] * lh
+    bx = tile_x0 + col                                   # (T, P)
+    by = tile_y0 + row
+    pxc = (bx + 0.5)[:, None, :]
+    pyc = (by + 0.5)[:, None, :]
+    px = torch.stack([bx + float(ox) for ox, _ in offsets], 1)  # (T, S, P)
+    py = torch.stack([by + float(oy) for _, oy in offsets], 1)
+
+    # active[t, u]: unit u is in tile t's active list.
+    k = torch.arange(U, device=dev)
+    acount = prepared.acount.reshape(n_tiles, 1)
+    listed = torch.where(
+        k[None, :] < acount, prepared.aclist.reshape(n_tiles, U).long(), U
+    )
+    active = torch.zeros((n_tiles, U + 1), dtype=torch.bool, device=dev)
+    active.scatter_(1, listed, True)
+    active = active[:, :U]
+
+    wind = torch.zeros((n_tiles, S, P), dtype=i32, device=dev)
+    color = torch.zeros((4, n_tiles, S, P), dtype=f32, device=dev)
+    off = prepared.off.reshape(n_tiles, -1).long()
+    g_off = prepared.g_off.reshape(n_tiles, -1).long()
+    tri = (prepared.tri_f, prepared.tri_i, off)
+    g_tri = (prepared.g_tri_f, prepared.g_tri_i, g_off)
+    tiles = t[:, None]
+
+    unit_cmd_h = unit_cmd.tolist()
+    unit_draw_h = unit_draw.tolist()
+    cmd_i_h = cmd_i.tolist()
+    for u in range(U):
+        act = active[:, u]
+        c, d = unit_cmd_h[u], unit_draw_h[u]
+        op, depth = cmd_i_h[c][0], cmd_i_h[c][1]
+        if depth != 0 or not bool(act.any()):
+            continue
+        if op == OP_STENCIL:
+            base = N_CLASSES * c
+            for cls_code in (CLS_FILL_SOLID, CLS_FILL_QUAD, CLS_FILL_CUBIC):
+                for rows_f, rows_i, ranges in (tri, g_tri):
+                    lo = ranges[:, base + cls_code]
+                    hi = torch.where(act, ranges[:, base + cls_code + 1], lo)
+                    n = int((hi - lo).max())
+                    for j0 in range(0, n, PLAIN_BATCH):
+                        j = lo[:, None] + j0 + torch.arange(PLAIN_BATCH, device=dev)
+                        ok = j < hi[:, None]
+                        j = torch.clamp(j, max=rows_f.shape[1] - 1)
+                        wind += _fill_delta(
+                            rows_f[tiles, j], rows_i[tiles, j], ok,
+                            cls_code, pxc, pyc, offsets,
+                        )
+            bulk = torch.where(act, prepared.bulk[:, 0, c], 0)
+            wind += bulk[:, None, None]
+        else:
+            cl = torch.where(act, prepared.cls[:, 0, d], 0)
+            bits = prepared.hbits[:, 0, d]
+            lines = prepared.hull_lines[d]
+            in_hull = (cl == 2)[:, None, None].expand(n_tiles, S, P)
+            boundary = cl == 1
+            if bool(boundary.any()):
+                ok = torch.ones((n_tiles, S, P), dtype=torch.bool, device=dev)
+                for h in range(lines.shape[0]):
+                    use = ((bits >> h) & 1) != 0
+                    if not bool((use & boundary).any()):
+                        continue
+                    he = lines[h, 0] * px + lines[h, 1] * py + lines[h, 2]
+                    ok = ok & (~use[:, None, None] | (he >= 0.0))
+                in_hull = in_hull | (boundary[:, None, None] & ok)
+            if op == OP_COLOR:
+                row = cmd_f[d]
+                ca = row[3]
+                src = (row[0] * ca, row[1] * ca, row[2] * ca, ca)
+                const = tuple(row[20:24]) if uses_const else None
+                mask = in_hull & ((wind & winding_mask) != 0)
+                da = color[3]
+                color = torch.stack([
+                    torch.where(
+                        mask,
+                        _blend_channel(
+                            blend_alpha if chan == 3 else blend_color,
+                            src[chan], color[chan], ca, da, chan, const,
+                        ),
+                        color[chan],
+                    )
+                    for chan in range(4)
+                ])
+                wind = torch.where(mask, 0, wind)
+
+    # Resolve: the sample mean, summed in sample order as the kernel does.
+    inv_s = 1.0 / S
+    resolved = []
+    for chan in range(4):
+        acc = torch.zeros((n_tiles, P), dtype=f32, device=dev)
+        for s in range(S):
+            acc = acc + color[chan, :, s]
+        resolved.append(acc * inv_s)
+    if spec.out_uint8:
+        q = torch.stack(
+            [
+                torch.floor(torch.clamp(v, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+                for v in resolved
+            ],
+            -1,
+        )                                                # (T, P, 4)
+        # Little-endian RGBA8 quads reinterpreted as one int32 per pixel.
+        return q.view(torch.int32).reshape(n_tiles, th, tw)
+    return torch.stack(resolved, 1).reshape(n_tiles, 4, th, tw)
+
+
+def make_rasterize(spec: FrameSpec):
+    draws = _raster_plan(spec)[0]
+    W, H = spec.width, spec.height
+    th = spec.tile_h
+    strips = spec.tile_strips
+    lw, lh = spec.screen_tile_w, spec.screen_tile_h
+    ntx, nty = spec.ntx, spec.nty
+    units = {}
+
+    def rasterize(prepared: PreparedFrame, cmd_i, cmd_f, desc_f, desc_i):
+        # desc_f/desc_i carry the dash descriptors of the stroke bodies,
+        # which this slice does not run.
+        dev = prepared.tri_f.device
+        if dev not in units:
+            units[dev] = (
+                torch.as_tensor(draws.unit_cmd, device=dev),
+                torch.as_tensor(draws.unit_draw, device=dev),
+            )
+        tiles = coverage_raster(spec, prepared, cmd_i, cmd_f, *units[dev])
+        if spec.out_uint8:
+            # De-strip: lane l of row r is screen pixel ((l // lw)·th + r,
+            # l % lw) of the tile's footprint; then bytes per pixel.
+            image = tiles.reshape(nty, ntx, th, strips, lw)
+            image = image.permute(0, 3, 2, 1, 4).reshape(nty * lh, ntx * lw)
+            image = image[:H, :W].contiguous().view(torch.uint8)
+            return image.reshape(H, W, 4)
+        image = tiles.reshape(nty, ntx, 4, th, strips, lw)
+        image = image.permute(0, 4, 3, 1, 5, 2).reshape(nty * lh, ntx * lw, 4)
+        return image[:H, :W]
+
+    return rasterize

@@ -1,0 +1,1026 @@
+"""The rendering interface of the PyTorch/CUDA port: Configuration,
+Shape, DrawCommand, Renderer.
+
+The counterpart of ``contrast_renderer_tpu/renderer.py``, with the same
+names and attributes.  A frame runs in three stages:
+
+1. *Scene packing* (host, cached per shape set): the shapes' triangle
+   tables and hulls are padded, stacked and copied to the renderer's
+   device once.
+2. *prepare* (torch, cached per transform set): triangle setup and tile
+   binning (``ops/coverage.make_prepare``).
+3. *rasterize* (every frame): the CUDA kernel walks each tile's command
+   list with per-sample winding and colour held in registers
+   (``ops/coverage.make_rasterize``); on a CPU device its plain torch
+   version runs instead.
+
+This slice renders filled paths with solid colour.  Frames with clip or
+alpha ops, a depth test or write, gradient or user paints, or stroke
+rows in a stencil draw raise ``NotImplementedError`` before anything
+runs, naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import enum
+import hashlib
+import logging
+from dataclasses import dataclass, replace
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from contrast_renderer_tpu import dynamic_stroke as ds
+from contrast_renderer_tpu import native
+from contrast_renderer_tpu.convex_hull import andrew, outer_polygon
+from contrast_renderer_tpu.error import (
+    ClipStackOverflow,
+    DynamicStrokeOptionsIndexOutOfBounds,
+    NumberOfStencilBitsIsUnsupported,
+    TooManyNestedOpacityGroups,
+    require_finite,
+)
+from contrast_renderer_tpu.fill import FillBuilder
+from contrast_renderer_tpu.path import DynamicStrokeOptions, Path, SegmentType
+from contrast_renderer_tpu.stroke import StrokeBuilder
+from contrast_renderer_tpu.vertex import (
+    KIND_INTEGRAL_QUADRATIC, KIND_SOLID, KIND_STROKE_LINE, TriangleTable,
+)
+
+from .ops import coverage
+
+logger = logging.getLogger("contrast_renderer_tpu_torch")
+
+
+class RenderOperation(enum.IntEnum):
+    """What a draw command does (reference renderer.rs:143-160)."""
+
+    STENCIL = 0
+    CLIP = 1
+    UNCLIP = 2
+    COLOR = 3
+    SAVE_ALPHA_CONTEXT = 4
+    SCALE_ALPHA_CONTEXT = 5
+    RESTORE_ALPHA_CONTEXT = 6
+
+
+#: The wgpu::BlendFactor set (see the reference's BLEND_FACTORS).
+BLEND_FACTORS = (
+    "zero",
+    "one",
+    "src_alpha",
+    "one_minus_src_alpha",
+    "dst_alpha",
+    "one_minus_dst_alpha",
+    "src_alpha_saturated",
+    "constant",
+    "one_minus_constant",
+)
+#: wgpu::CompareFunction names accepted by Configuration.depth_compare.
+DEPTH_COMPARE_FUNCTIONS = (
+    "never",
+    "less",
+    "equal",
+    "less_equal",
+    "greater",
+    "not_equal",
+    "greater_equal",
+    "always",
+)
+#: Blend operations (wgpu::BlendOperation); min/max ignore the factors.
+BLEND_OPERATIONS = ("add", "subtract", "reverse_subtract", "min", "max")
+
+
+@dataclass(frozen=True)
+class BlendComponent:
+    """src/dst factor + operation for one channel group:
+    ``out = op(src·src_factor, dst·dst_factor)`` on premultiplied
+    values."""
+
+    src_factor: str = "one"
+    operation: str = "add"
+    dst_factor: str = "one_minus_src_alpha"
+
+    def __post_init__(self):
+        if self.src_factor not in BLEND_FACTORS:
+            raise ValueError(f"unknown blend factor {self.src_factor!r}")
+        if self.dst_factor not in BLEND_FACTORS:
+            raise ValueError(f"unknown blend factor {self.dst_factor!r}")
+        if self.operation not in BLEND_OPERATIONS:
+            raise ValueError(f"unknown blend operation {self.operation!r}")
+
+
+@dataclass(frozen=True)
+class BlendState:
+    """A full wgpu-style blend state: independent color and alpha
+    components."""
+
+    color: BlendComponent = BlendComponent()
+    alpha: BlendComponent = BlendComponent()
+
+    def canonical(self):
+        """Hashable static encoding carried by FrameSpec.blending."""
+        c, a = self.color, self.alpha
+        return (
+            (c.src_factor, c.operation, c.dst_factor),
+            (a.src_factor, a.operation, a.dst_factor),
+        )
+
+
+#: Gradient stop budget per paint.
+MAX_GRADIENT_STOPS = 4
+
+
+def _paint_kind(color) -> int:
+    return getattr(color, "kind", 0)
+
+
+def _spec_paint(color):
+    """FrameSpec.paints entry for a command color: the builtin kind
+    int, or the paint object itself for user paints."""
+    kind = _paint_kind(color)
+    return color if kind >= 3 else kind
+
+
+#: The named shorthands as BlendStates.
+NAMED_BLEND_STATES = {
+    "back_to_front": BlendState(
+        BlendComponent("one", "add", "one_minus_src_alpha"),
+        BlendComponent("one", "add", "one_minus_src_alpha"),
+    ),
+    "front_to_back": BlendState(
+        BlendComponent("one_minus_dst_alpha", "add", "one"),
+        BlendComponent("one_minus_dst_alpha", "add", "one"),
+    ),
+    "additive": BlendState(
+        BlendComponent("one", "add", "one"),
+        BlendComponent("one", "add", "one"),
+    ),
+}
+
+
+@dataclass
+class Configuration:
+    """Configurable renderer parameters (reference renderer.rs:379-405);
+    the same fields and checks as the JAX package's Configuration."""
+
+    msaa_sample_count: int = 4
+    clip_nesting_counter_bits: int = 4
+    winding_counter_bits: int = 4
+    alpha_layer_count: int = 0
+    #: A named mode ("back_to_front", "front_to_back", "additive") or a
+    #: :class:`BlendState`.
+    blending: object = "back_to_front"
+    depth_compare: str = "always"
+    depth_write_enabled: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.blending, str):
+            if self.blending not in NAMED_BLEND_STATES:
+                raise ValueError(f"unknown blending {self.blending!r}")
+        elif not isinstance(self.blending, BlendState):
+            raise ValueError(
+                "blending must be a named mode or a BlendState, got "
+                f"{self.blending!r}"
+            )
+        if (
+            self.winding_counter_bits == 0
+            or self.clip_nesting_counter_bits + self.winding_counter_bits > 8
+        ):
+            raise NumberOfStencilBitsIsUnsupported(
+                f"clip={self.clip_nesting_counter_bits} winding={self.winding_counter_bits}"
+            )
+        if self.msaa_sample_count not in coverage.SAMPLE_PATTERNS:
+            raise ValueError(
+                "msaa_sample_count must be one of "
+                f"{sorted(coverage.SAMPLE_PATTERNS)}"
+            )
+        if self.depth_compare not in DEPTH_COMPARE_FUNCTIONS:
+            raise ValueError(
+                f"depth_compare must be one of {DEPTH_COMPARE_FUNCTIONS}, "
+                f"got {self.depth_compare!r}"
+            )
+
+
+_GLYPH_SEGMENTS = (SegmentType.LINE, SegmentType.INTEGRAL_QUADRATIC_CURVE)
+#: Minimum glyph-style path count before the native batch tessellator
+#: takes over from the per-path FillBuilder.
+_NATIVE_FILL_THRESHOLD = 8
+
+
+def _is_glyph_style(path: Path) -> bool:
+    return all(st in _GLYPH_SEGMENTS for st in path.segment_types)
+
+
+def _native_fill_batch(paths, proto_hull):
+    """Tessellate glyph-style paths with the shared native C++ kernel in
+    one batched call (bit-equivalent to FillBuilder's output)."""
+    offsets = [0]
+    starts, kinds, points = [], [], []
+    for p in paths:
+        starts.append(p.start)
+        for segment_type, segment in p.iter_segments():
+            cps = segment.control_points
+            if segment_type is SegmentType.LINE:
+                kinds.append(0)
+                points.append([cps[0][0], cps[0][1], 0.0, 0.0])
+            else:
+                kinds.append(1)
+                points.append([cps[0][0], cps[0][1], cps[1][0], cps[1][1]])
+        offsets.append(len(kinds))
+    solid_xy, curve_xy, curve_aux, hull_pts = native.tessellate_quadratic_paths(
+        np.asarray(offsets, np.int64),
+        np.asarray(starts, np.float64),
+        np.asarray(kinds, np.uint8),
+        np.asarray(points, np.float64),
+    )
+    proto_hull.extend(hull_pts)
+    n_solid, n_curve = len(solid_xy), len(curve_xy)
+    aux = np.zeros((n_solid + n_curve, 3, 4), np.float32)
+    aux[n_solid:, :, :3] = curve_aux
+    return TriangleTable(
+        xy=np.concatenate([solid_xy, curve_xy]).astype(np.float32),
+        aux=aux,
+        kind=np.concatenate(
+            [
+                np.full(n_solid, KIND_SOLID, np.int32),
+                np.full(n_curve, KIND_INTEGRAL_QUADRATIC, np.int32),
+            ]
+        ),
+        meta=np.zeros((n_solid + n_curve, 2), np.float32),
+    )
+
+
+class Shape:
+    """A set of paths always rendered together (reference Shape,
+    renderer.rs:163-249): one triangle table (stroke triangles first)
+    and the convex hull the cover operations use.  Tessellation is the
+    shared FillBuilder, StrokeBuilder and native tessellator, so the
+    tables equal the JAX package's bit for bit."""
+
+    _uid_counter = iter(range(1, 1 << 62))
+
+    def __init__(
+        self,
+        paths: Sequence[Path],
+        dynamic_stroke_options: Sequence[DynamicStrokeOptions] = (),
+        use_native: bool = True,
+    ):
+        # Unique, never-recycled identity keys the scene cache.
+        self._uid = next(Shape._uid_counter)
+        self._geometry_version = -1
+        self.update_paths(paths, dynamic_stroke_options, use_native)
+
+    def update_paths(
+        self,
+        paths: Sequence[Path],
+        dynamic_stroke_options: Sequence[DynamicStrokeOptions] = (),
+        use_native: bool = True,
+    ):
+        """Re-tessellate this Shape in place; renderers notice via the
+        geometry version and re-upload only this shape's tables."""
+        proto_hull: List = []
+        stroke_builder = StrokeBuilder()
+        fill_builder = FillBuilder()
+        fill_paths = [p for p in paths if p.stroke_options is None]
+        native_fills = ()
+        if (
+            use_native
+            and len(fill_paths) >= _NATIVE_FILL_THRESHOLD
+            and native.available()
+            and all(_is_glyph_style(p) for p in fill_paths)
+        ):
+            native_fills = fill_paths
+        for path in paths:
+            if path.stroke_options is not None:
+                if path.stroke_options.dynamic_stroke_options_group >= len(
+                    dynamic_stroke_options
+                ):
+                    raise DynamicStrokeOptionsIndexOutOfBounds(
+                        f"group {path.stroke_options.dynamic_stroke_options_group}"
+                    )
+                stroke_builder.add_path(proto_hull, path)
+            elif not native_fills:
+                fill_builder.add_path(proto_hull, path)
+        tables = [stroke_builder.build()]
+        if native_fills:
+            tables.append(_native_fill_batch(native_fills, proto_hull))
+        tables.append(fill_builder.build())
+        self.triangles = TriangleTable.concatenate(tables)
+        require_finite(self.triangles.xy, "path coordinates")
+        require_finite(self.triangles.aux, "curve weights")
+        self.convex_hull = outer_polygon(
+            andrew(
+                np.asarray(proto_hull).reshape(-1, 2)
+                if proto_hull
+                else np.zeros((0, 2))
+            )
+        )
+        self.dynamic_stroke_options = list(dynamic_stroke_options)
+        self.descriptors = ds.StrokeDescriptorTable.from_options(
+            self.dynamic_stroke_options
+        )
+        self._geometry_version += 1
+
+    @classmethod
+    def from_triangle_table(
+        cls,
+        triangles: TriangleTable,
+        hull_points: np.ndarray,
+        dynamic_stroke_options: Sequence[DynamicStrokeOptions] = (),
+    ) -> "Shape":
+        """A Shape from pre-tessellated geometry (the hull is rebuilt
+        from ``hull_points``)."""
+        shape = cls.__new__(cls)
+        shape._uid = next(cls._uid_counter)
+        shape._geometry_version = 0
+        shape.triangles = triangles
+        require_finite(triangles.xy, "triangle coordinates")
+        require_finite(triangles.aux, "curve weights")
+        pts = np.asarray(hull_points, np.float64).reshape(-1, 2)
+        shape.convex_hull = outer_polygon(
+            andrew(pts if len(pts) else np.zeros((0, 2)))
+        )
+        shape.dynamic_stroke_options = list(dynamic_stroke_options)
+        shape.descriptors = ds.StrokeDescriptorTable.from_options(
+            shape.dynamic_stroke_options
+        )
+        return shape
+
+    def set_dynamic_stroke_options(
+        self, index: int, options: DynamicStrokeOptions
+    ):
+        """Update one descriptor group without re-tessellating."""
+        if index >= len(self.dynamic_stroke_options):
+            raise DynamicStrokeOptionsIndexOutOfBounds(str(index))
+        self.dynamic_stroke_options[index] = options
+        self.descriptors = ds.StrokeDescriptorTable.from_options(
+            self.dynamic_stroke_options
+        )
+
+
+@dataclass
+class DrawCommand:
+    """One step of a frame (the reference's Shape::render call with a
+    RenderOperation and an instance range).  ``transform`` is a (4, 4)
+    matrix or an (N, 4, 4) stack of instances; ``color`` is (4,) or
+    (N, 4); ``shape`` is one Shape or one per instance."""
+
+    operation: RenderOperation
+    shape: object
+    transform: np.ndarray  # (4, 4) or (N, 4, 4) row-major model→clip
+    color: object = (0.0, 0.0, 0.0, 1.0)  # (4,) or (N, 4)
+    clip_depth: int = 0
+    alpha_layer: int = 0
+
+    @property
+    def n_instances(self) -> int:
+        t = np.asarray(self.transform)
+        return 1 if t.ndim == 2 else int(t.shape[0])
+
+    @property
+    def shapes(self):
+        """The command's shapes as a list (len 1 or n_instances)."""
+        return (
+            list(self.shape)
+            if isinstance(self.shape, (list, tuple))
+            else [self.shape]
+        )
+
+
+def _optimize_commands(commands):
+    """Fuse each SaveAlphaContext + ScaleAlphaContext pair over the
+    identical single-instance cover into one pass (OP_SAVE_SCALE).
+
+    Returns ``(optimized, keep_rows)``; ``keep_rows`` indexes the
+    surviving transform rows of the original layout (None when nothing
+    fused)."""
+    out, keep = [], []
+    row = 0
+    i = 0
+    while i < len(commands):
+        c = commands[i]
+        if (
+            i + 1 < len(commands)
+            and c.operation == RenderOperation.SAVE_ALPHA_CONTEXT
+            and commands[i + 1].operation
+            == RenderOperation.SCALE_ALPHA_CONTEXT
+        ):
+            s = commands[i + 1]
+            if (
+                c.shape is s.shape
+                and c.clip_depth == s.clip_depth
+                and c.alpha_layer == s.alpha_layer
+                and c.n_instances == 1
+                and s.n_instances == 1
+                and np.array_equal(
+                    np.asarray(c.transform, np.float32),
+                    np.asarray(s.transform, np.float32),
+                )
+            ):
+                out.append(replace(s, operation=coverage.OP_SAVE_SCALE))
+                keep.extend(
+                    range(row + c.n_instances,
+                          row + c.n_instances + s.n_instances)
+                )
+                row += c.n_instances + s.n_instances
+                i += 2
+                continue
+        out.append(c)
+        keep.extend(range(row, row + c.n_instances))
+        row += c.n_instances
+        i += 1
+    keep_rows = (
+        None if len(keep) == row else np.asarray(keep, np.int32)
+    )
+    return out, keep_rows
+
+
+class _SceneArrays:
+    """Padded, stacked geometry of a set of shapes, as tensors on the
+    renderer's device."""
+
+    def __init__(self, shapes: Sequence[Shape], device):
+        t_max = max(1, max(len(s.triangles) for s in shapes))
+        h_max = max(4, max(len(s.convex_hull) for s in shapes))
+
+        def pad_tables(shape):
+            t = shape.triangles
+            pad = t_max - len(t)
+            xy = np.concatenate([t.xy, np.zeros((pad, 3, 2), np.float32)])
+            aux = np.concatenate([t.aux, np.zeros((pad, 3, 4), np.float32)])
+            kind = np.concatenate([t.kind, np.zeros(pad, np.int32)])
+            meta = np.concatenate([t.meta, np.zeros((pad, 2), np.float32)])
+            hull = shape.convex_hull.astype(np.float32)
+            if len(hull) == 0:
+                hull = np.zeros((1, 2), np.float32)
+            hull = np.concatenate(
+                [hull, np.repeat(hull[-1:], h_max - len(hull), axis=0)]
+            )
+            return xy, aux, kind, meta, hull
+
+        padded = [pad_tables(s) for s in shapes]
+        gbase = np.cumsum(
+            [0] + [len(s.descriptors.phase) for s in shapes[:-1]]
+        )
+        self.t_max = t_max
+        self.h_max = h_max
+        self.n_shapes = len(shapes)
+        #: Unpadded triangle count per shape (_spec's density estimate).
+        self.tri_counts = tuple(len(s.triangles) for s in shapes)
+        #: Per-shape stroke rows (line/joint kinds).
+        self.stroke_counts = tuple(
+            int((np.asarray(s.triangles.kind) >= KIND_STROKE_LINE).sum())
+            for s in shapes
+        )
+        #: Total stroke descriptor groups (each shape carries at least
+        #: one, so this is never the test for stroke rows).
+        self.n_desc = sum(len(s.descriptors.phase) for s in shapes)
+
+        def stacked(i, dtype):
+            arr = np.stack([p[i] for p in padded]).astype(dtype)
+            return torch.as_tensor(arr, device=device)
+
+        self.xy = stacked(0, np.float32)
+        self.aux = stacked(1, np.float32)
+        self.kind = stacked(2, np.int32)
+        self.meta = stacked(3, np.float32)
+        self.hull = stacked(4, np.float32)
+        self.gbase = torch.as_tensor(gbase.astype(np.int32), device=device)
+
+    @property
+    def arrays(self):
+        return (self.xy, self.aux, self.kind, self.meta, self.gbase, self.hull)
+
+
+def _next_pow2(n: int) -> int:
+    out = 1
+    while out < n:
+        out *= 2
+    return out
+
+
+#: Shrink-to-fit headroom and floors for (tile, global, tile-global,
+#: clip-pool) capacities, as in the reference.
+FIT_MARGIN = 1.5
+FIT_FLOORS = (32, 64, 16, 16)
+
+
+def _fit_capacity(count: int, floor_: int, ceiling: int) -> int:
+    """next-pow2(count · FIT_MARGIN), floored and clamped to ceiling."""
+    return min(
+        ceiling, max(floor_, _next_pow2(int(count * FIT_MARGIN) + 1))
+    )
+
+
+class Renderer:
+    """Executes frames of draw commands on one torch device (replaces
+    reference Renderer, renderer.rs:408-884).
+
+    ``device`` is where the scene, the binning and the raster run:
+    ``"cuda"`` (or ``"cuda:N"``) launches the CUDA kernel and raises if
+    no card is visible; ``"cpu"`` runs the kernel's plain torch
+    version."""
+
+    def __init__(
+        self,
+        config: Configuration,
+        width: int,
+        height: int,
+        tile_size=None,
+        tile_capacity: int = 256,
+        fill_batch=None,
+        stroke_batch: int = 1,
+        auto_instance: bool = True,
+        tile_strips=None,
+        device="cpu",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Renderer(device={device!r}): no CUDA device is available"
+            )
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {device!r}")
+        self.config = config
+        self.width = int(width)
+        self.height = int(height)
+        #: Tile height; None = auto per scene (see _spec).
+        self.tile_h = (
+            None if tile_size is None else max(8, min(int(tile_size), 32))
+        )
+        self.tile_w = 128
+        self.tile_capacity = int(tile_capacity)
+        #: Fill batch: sets the entry-row padding (FrameSpec.entry_pad);
+        #: None = auto per scene.
+        self.fill_batch = None if fill_batch is None else int(fill_batch)
+        self.stroke_batch = max(1, int(stroke_batch))
+        #: Vertical strips per tile; None = auto per scene (see _spec).
+        self.tile_strips = None if tile_strips is None else int(tile_strips)
+        self._global_capacity = 1024
+        self._tile_global_capacity = 32
+        self._clip_pool = 64
+        self._executors = {}
+        self._scene_cache = {}
+        self._prepared_cache = {}
+        #: Content-keyed cache of small device tensors (command tables,
+        #: descriptors, transforms).
+        self._upload_cache = {}
+        #: Kept for the reference's signature.  This port walks the
+        #: commands in sequence; the reference's fusion is pixel-exact,
+        #: so the image is the same (ROADMAP.md, Queue 1 item 1).
+        self.auto_instance = bool(auto_instance)
+        #: Runtime blend-constant color for the ``constant`` /
+        #: ``one_minus_constant`` factors.
+        self.blend_constant = (0.0, 0.0, 0.0, 0.0)
+        #: Digests of transform stacks already validated finite.
+        self._finite_ok = {}
+        #: Per-stage counters of the last rendered frame.
+        self.stats = {}
+
+    # ------------------------------------------------------------------
+
+    def resize(self, width: int, height: int):
+        """Change the framebuffer size; scene uploads survive."""
+        if (int(width), int(height)) == (self.width, self.height):
+            return
+        self.width = int(width)
+        self.height = int(height)
+        self._executors.clear()
+        self._prepared_cache.clear()
+
+    def set_blend_constant(self, color):
+        """Set the blend-constant color read by the ``constant`` /
+        ``one_minus_constant`` factors."""
+        color = np.asarray(color, np.float32).reshape(-1)
+        if color.shape != (4,):
+            raise ValueError("blend constant must be RGBA")
+        require_finite(color, "blend constant")
+        self.blend_constant = tuple(float(c) for c in color)
+
+    def _blending(self):
+        b = self.config.blending
+        return b if isinstance(b, str) else b.canonical()
+
+    def _blend_constant_arg(self):
+        return (
+            self.blend_constant
+            if coverage.blend_uses_constant(self._blending())
+            else None
+        )
+
+    def _validate(self, commands):
+        config = self.config
+        for command in commands:
+            if isinstance(command.shape, (list, tuple)) and len(
+                command.shape
+            ) != command.n_instances:
+                raise ValueError(
+                    f"multi-shape command carries {len(command.shape)} "
+                    f"shapes for {command.n_instances} instances"
+                )
+            if command.clip_depth >= (1 << config.clip_nesting_counter_bits):
+                raise ClipStackOverflow(str(command.clip_depth))
+            if command.operation in (
+                RenderOperation.SAVE_ALPHA_CONTEXT,
+                RenderOperation.SCALE_ALPHA_CONTEXT,
+                RenderOperation.RESTORE_ALPHA_CONTEXT,
+            ) and command.alpha_layer >= config.alpha_layer_count:
+                raise TooManyNestedOpacityGroups(str(command.alpha_layer))
+            if _paint_kind(command.color):
+                raise NotImplementedError(
+                    "the PyTorch/CUDA port cannot render gradient or user "
+                    "paints yet (ROADMAP.md, Queue 2 item 5: non-solid paints)"
+                )
+            color = np.asarray(command.color)
+            if color.ndim == 2 and color.shape[0] not in (
+                1, command.n_instances
+            ):
+                raise ValueError(
+                    f"per-instance color count {color.shape[0]} does not "
+                    f"match {command.n_instances} instances"
+                )
+
+    @staticmethod
+    def _pack_transforms(commands) -> np.ndarray:
+        """Stack every command's instance transforms into the (R, 4, 4)
+        draw-row layout of coverage.draw_tables."""
+        rows = [
+            np.asarray(c.transform, np.float32).reshape(-1, 4, 4)
+            for c in commands
+        ]
+        return np.ascontiguousarray(np.concatenate(rows))
+
+    def _unique_shapes(self, commands):
+        shapes = []
+        shape_index = {}
+        for command in commands:
+            for shape in command.shapes:
+                if id(shape) not in shape_index:
+                    shape_index[id(shape)] = len(shapes)
+                    shapes.append(shape)
+        return shapes, shape_index
+
+    @staticmethod
+    def _cmd_shape_entry(command, shape_index):
+        """FrameSpec.cmd_shape entry for one command: an int, or a
+        per-instance tuple for multi-shape commands."""
+        if isinstance(command.shape, (list, tuple)):
+            return tuple(shape_index[id(s)] for s in command.shape)
+        return shape_index[id(command.shape)]
+
+    def _scene_arrays(self, shapes) -> Tuple[tuple, _SceneArrays]:
+        key = tuple((s._uid, s._geometry_version) for s in shapes)
+        scene = self._scene_cache.get(key)
+        if scene is None:
+            scene = _SceneArrays(shapes, self.device)
+            if len(self._scene_cache) >= 8:
+                self._scene_cache.pop(next(iter(self._scene_cache)))
+            self._scene_cache[key] = scene
+        return key, scene
+
+    def _spec(self, ops, cmd_shape, cmd_inst, scene,
+              paints=()) -> coverage.FrameSpec:
+        # The reference's density tiers (measured on its TPU, kept so the
+        # specs and the binning match it one to one; re-deriving them on
+        # this card is later work).
+        multi_rows = max(
+            (
+                sum(scene.tri_counts[s] for s in entry)
+                for entry in cmd_shape
+                if isinstance(entry, tuple)
+            ),
+            default=0,
+        )
+        density = max(scene.t_max, multi_rows)
+        # Stroke rows over the actual (command, instance) stencil draws.
+        inst = cmd_inst if cmd_inst else (1,) * len(ops)
+        s_rows = t_rows = 0
+        for o, entry, n in zip(ops, cmd_shape, inst):
+            if o != coverage.OP_STENCIL:
+                continue
+            if isinstance(entry, tuple):
+                s_rows += sum(scene.stroke_counts[s] for s in entry)
+                t_rows += sum(scene.tri_counts[s] for s in entry)
+            else:
+                s_rows += n * scene.stroke_counts[entry]
+                t_rows += n * scene.tri_counts[entry]
+        stroke_dom = s_rows * 2 > max(1, t_rows)
+        if density >= 32768:
+            auto_tile, auto_batch, auto_strips = 8, 32, 2
+        elif density >= 4096:
+            auto_tile, auto_batch = 16, 8
+            auto_strips = 2 if stroke_dom else 1
+        else:
+            auto_tile, auto_batch = 32, 2
+            auto_strips = 2 if stroke_dom else 1
+        return coverage.FrameSpec(
+            width=self.width,
+            height=self.height,
+            ops=ops,
+            cmd_shape=cmd_shape,
+            cmd_inst=cmd_inst,
+            paints=paints if any(paints) else (),
+            n_shapes=scene.n_shapes,
+            t_max=scene.t_max,
+            h_max=scene.h_max,
+            samples=self.config.msaa_sample_count,
+            winding_bits=self.config.winding_counter_bits,
+            n_layers=self.config.alpha_layer_count,
+            blending=self._blending(),
+            depth_compare=self.config.depth_compare,
+            depth_write=self.config.depth_write_enabled,
+            tile_h=auto_tile if self.tile_h is None else self.tile_h,
+            tile_w=self.tile_w,
+            tile_strips=(
+                auto_strips if self.tile_strips is None else self.tile_strips
+            ),
+            capacity=self.tile_capacity,
+            global_capacity=self._global_capacity,
+            tile_global_capacity=self._tile_global_capacity,
+            clip_pool=self._clip_pool,
+            fill_batch=(
+                auto_batch if self.fill_batch is None else self.fill_batch
+            ),
+            stroke_batch=self.stroke_batch,
+            # Keyed on the stroke rows the stencil draws carry, not on
+            # descriptor groups (every shape carries at least one).
+            has_strokes=s_rows > 0,
+        )
+
+    def _get_executors(self, spec):
+        execs = self._executors.get(spec)
+        if execs is None:
+            execs = (coverage.make_prepare(spec), coverage.make_rasterize(spec))
+            self._executors[spec] = execs
+        return execs
+
+    @staticmethod
+    def _pack_descriptors(shapes):
+        tables = [s.descriptors for s in shapes]
+        n = sum(len(t.phase) for t in tables)
+        desc_f = np.zeros((max(1, n), coverage.DESC_F), np.float32)
+        desc_i = np.zeros((max(1, n), coverage.DESC_I), np.int32)
+        base = 0
+        for t in tables:
+            g = len(t.phase)
+            desc_f[base:base + g, 0:4] = t.gap_start
+            desc_f[base:base + g, 4:8] = t.gap_end
+            desc_f[base:base + g, 8] = t.phase
+            desc_i[base:base + g, 0:4] = t.end_caps
+            desc_i[base:base + g, 4:8] = t.start_caps
+            desc_i[base:base + g, 8] = t.last_interval
+            desc_i[base:base + g, 9] = t.dashed
+            desc_i[base:base + g, 10] = t.join
+            desc_i[base:base + g, 11] = t.solid_start_cap
+            desc_i[base:base + g, 12] = t.solid_end_cap
+            base += g
+        return desc_f, desc_i
+
+    @staticmethod
+    def _pack_commands_runtime(commands, blend_constant=None):
+        """cmd_i (C, 4) = [op, clip depth, alpha layer, paint code] per
+        command; cmd_f holds one row per cover draw, in the order
+        coverage.draw_tables enumerates them: the solid color broadcast
+        to the MAX_STOPS stop colors, then zero stop offsets, plus the
+        blend constant in columns 20:24 when the state reads it.  Solid
+        colors only (_validate refuses paints)."""
+        cmd_i = np.array(
+            [
+                [int(c.operation), c.clip_depth, c.alpha_layer,
+                 _paint_kind(c.color)]
+                for c in commands
+            ],
+            np.int32,
+        )
+        rows = []
+        for c in commands:
+            if c.operation == RenderOperation.STENCIL:
+                continue
+            color = np.asarray(c.color, np.float32).reshape(-1, 4)
+            color = (
+                np.broadcast_to(color, (c.n_instances, 4))
+                if color.shape[0] == 1
+                else color
+            )
+            rows.append(
+                np.concatenate(
+                    [
+                        np.tile(color, (1, coverage.MAX_STOPS)),
+                        np.zeros(
+                            (len(color), coverage.MAX_STOPS), np.float32
+                        ),
+                    ],
+                    axis=1,
+                )
+            )
+        cmd_f = (
+            np.ascontiguousarray(np.concatenate(rows), dtype=np.float32)
+            if rows
+            else np.zeros((1, 20), np.float32)
+        )
+        if blend_constant is not None:
+            const = np.broadcast_to(
+                np.asarray(blend_constant, np.float32), (len(cmd_f), 4)
+            )
+            cmd_f = np.ascontiguousarray(
+                np.concatenate([cmd_f, const], axis=1)
+            )
+        return cmd_i, cmd_f
+
+    def _dev_cached(self, name: str, arr: np.ndarray, digest=None):
+        """Device copy of ``arr``, re-uploaded only when its bytes
+        change (keyed on a 16-byte BLAKE2 digest)."""
+        arr = np.ascontiguousarray(arr)
+        if digest is None:
+            digest = hashlib.blake2b(arr, digest_size=16).digest()
+        key = (name, arr.shape, arr.dtype.str, digest)
+        dev = self._upload_cache.get(key)
+        if dev is None:
+            if len(self._upload_cache) >= 64:
+                self._upload_cache.pop(next(iter(self._upload_cache)))
+            dev = torch.as_tensor(arr).to(self.device)
+            self._upload_cache[key] = dev
+        return dev
+
+    def _grow_capacities(self, overflow, limits) -> bool:
+        grew = False
+        if overflow[0] > limits[0]:
+            self.tile_capacity = _next_pow2(int(overflow[0]))
+            grew = True
+        if overflow[1] > limits[1]:
+            self._global_capacity = _next_pow2(int(overflow[1]))
+            grew = True
+        if overflow[2] > limits[2]:
+            self._tile_global_capacity = _next_pow2(int(overflow[2]))
+            grew = True
+        if overflow[3] > limits[3]:
+            self._clip_pool = _next_pow2(int(overflow[3]))
+            grew = True
+        return grew
+
+    # ------------------------------------------------------------------
+
+    def _prepare(self, commands, uint8_kernel=False):
+        """Validate, pack and bin a frame: returns ``(raster_spec,
+        rasterize, runtime_args)``, where ``rasterize(*runtime_args)``
+        renders it.  Binning reruns only when the spec, the shapes or
+        the transforms change; capacities grow until nothing
+        overflows (the reference's strict-capacity path)."""
+        self._validate(commands)
+        commands, _ = _optimize_commands(commands)
+        shapes, shape_index = self._unique_shapes(commands)
+        scene_key, scene = self._scene_arrays(shapes)
+        ops = tuple(int(c.operation) for c in commands)
+        cmd_shape = tuple(
+            self._cmd_shape_entry(c, shape_index) for c in commands
+        )
+        inst = tuple(c.n_instances for c in commands)
+        cmd_inst = inst if any(n != 1 for n in inst) else ()
+        paints = tuple(_spec_paint(c.color) for c in commands)
+        transforms = self._pack_transforms(commands)
+        tf_digest = hashlib.blake2b(transforms, digest_size=16).digest()
+        if tf_digest not in self._finite_ok:
+            require_finite(transforms, "command transforms")
+            if len(self._finite_ok) >= 64:
+                self._finite_ok.pop(next(iter(self._finite_ok)))
+            self._finite_ok[tf_digest] = True
+        desc_f, desc_i = self._pack_descriptors(shapes)
+        desc_static = np.ascontiguousarray(desc_i[:, [9, 8]])
+
+        for _attempt in range(4):
+            spec = self._spec(ops, cmd_shape, cmd_inst, scene, paints)
+            # Frames this slice cannot render stop here, before any work
+            # reaches the device.
+            coverage.check_supported(spec)
+            prepare, rasterize = self._get_executors(spec)
+            raster_spec = (
+                replace(spec, out_uint8=True) if uint8_kernel else spec
+            )
+            if uint8_kernel:
+                rasterize = self._get_executors(raster_spec)[1]
+            pkey = (spec, scene_key, tf_digest, desc_static.tobytes())
+            cached = self._prepared_cache.get(pkey)
+            if cached is not None:
+                prepared, self.stats = cached
+                break
+            prepared = prepare(
+                *scene.arrays,
+                self._dev_cached("transforms", transforms, digest=tf_digest),
+                self._dev_cached("desc_static", desc_static),
+            )
+            limits = (
+                spec.capacity,
+                spec.global_capacity,
+                spec.tile_global_capacity,
+                spec.clip_pool,
+            )
+            overflow = prepared.overflow.cpu().numpy()
+            self.stats = {
+                "commands": len(commands),
+                "shapes": len(shapes),
+                "triangles_per_shape": scene.t_max,
+                "tiles": spec.n_tiles,
+                "max_tile_entries": int(overflow[0]),
+                "global_triangles": int(overflow[1]),
+                "max_tile_globals": int(overflow[2]),
+                "near_plane_crossings": int(overflow[3]),
+            }
+            logger.debug("prepare: %s", self.stats)
+            if self._grow_capacities(overflow, limits):
+                continue
+            if len(self._prepared_cache) >= 8:
+                self._prepared_cache.pop(next(iter(self._prepared_cache)))
+            self._prepared_cache[pkey] = (prepared, self.stats)
+            break
+        else:
+            raise RuntimeError("tile binning capacity did not converge")
+
+        cmd_i, cmd_f = self._pack_commands_runtime(
+            commands, self._blend_constant_arg()
+        )
+        runtime_args = (
+            prepared,
+            self._dev_cached("cmd_i", cmd_i),
+            self._dev_cached("cmd_f", cmd_f),
+            self._dev_cached("desc_f", desc_f),
+            self._dev_cached("desc_i", desc_i),
+        )
+        return raster_spec, rasterize, runtime_args
+
+    def render(
+        self,
+        commands: Sequence[DrawCommand],
+        background=None,
+        to_host: bool = True,
+        as_uint8: bool = False,
+        srgb: bool = False,
+        uint8_kernel: bool = False,
+    ):
+        """Render a frame; returns (H, W, 4) premultiplied RGBA float32,
+        or uint8 with ``as_uint8=True`` (quantized on the device).
+
+        ``uint8_kernel=True`` resolves to packed RGBA8 inside the raster
+        kernel (bit-identical to quantizing the float output); it does
+        not compose with ``background``/``srgb``.  ``to_host=False``
+        returns the device tensor instead of a numpy array."""
+        if uint8_kernel and (background is not None or srgb):
+            raise ValueError(
+                "uint8_kernel does not compose with background/srgb"
+            )
+        _, rasterize, runtime_args = self._prepare(commands, uint8_kernel)
+        image = rasterize(*runtime_args)
+        if uint8_kernel:
+            return image.cpu().numpy() if to_host else image
+        if as_uint8:
+            if srgb:
+                if background is not None:
+                    image = self._composite(image, self._background(background))
+                image = self._quantize_srgb(image)
+            elif background is not None:
+                image = self._composite_quantize(
+                    image, self._background(background)
+                )
+            else:
+                image = self._quantize(image)
+            return image.cpu().numpy() if to_host else image
+        if not to_host:
+            return image
+        image = image.cpu().numpy()
+        if background is not None:
+            alpha = image[..., 3:4]
+            image = image + np.asarray(background, np.float32) * (1.0 - alpha)
+        return image
+
+    def _background(self, background):
+        return torch.as_tensor(
+            np.asarray(background, np.float32), device=self.device
+        )
+
+    @staticmethod
+    def _quantize(image):
+        return (torch.clamp(image, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+    @staticmethod
+    def _composite(image, background):
+        return image + background * (1.0 - image[..., 3:4])
+
+    @staticmethod
+    def _composite_quantize(image, background):
+        alpha = image[..., 3:4]
+        image = image + background * (1.0 - alpha)
+        return (torch.clamp(image, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+    @staticmethod
+    def _quantize_srgb(image):
+        """uint8 with sRGB-encoded RGB (alpha stays linear)."""
+        image = torch.clamp(image, 0.0, 1.0)
+        rgb = image[..., :3]
+        rgb = torch.where(
+            rgb > 0.0031308,
+            1.055 * rgb ** (1.0 / 2.4) - 0.055,
+            12.92 * rgb,
+        )
+        image = torch.cat([rgb, image[..., 3:]], -1)
+        return (image * 255.0 + 0.5).to(torch.uint8)
