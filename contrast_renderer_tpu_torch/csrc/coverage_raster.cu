@@ -1,47 +1,85 @@
-// coverage_raster: the fill-only coverage kernel, hand-written for Hopper
-// (sm_90a).
+// coverage_raster: the coverage kernel, hand-written for Hopper (sm_90a).
 //
-// Replaces contrast_renderer_tpu/ops/coverage.py::make_rasterize.kernel,
-// specialised to frames of filled paths with solid colour (no clip, no
-// alpha groups, no depth, no strokes, no non-solid paints).  The bodies
+// Replaces contrast_renderer_tpu/ops/coverage.py::make_rasterize.kernel for
+// frames without a depth test and with solid colour paints.  The bodies
 // ported here:
 //   - the per-tile walk: the empty-tile path (acount == 0 writes zeros), the
 //     walk over the tile's active units (`aclist`), and the MSAA resolve to
 //     float or to packed RGBA8 (one int32 per pixel);
+//   - the stroke stencil: six classes (lines, joints; each solid,
+//     single-interval dash, general dash), local then per-tile global,
+//     before the fills: perspective-correct texcoords, the mitre / bevel /
+//     round join predicate, the seven cap predicates, the dash pattern
+//     (interval search, phase, caps), the reference's polynomial atan2 for
+//     the joints' angle, and the stroke OR into the winding;
 //   - the fill stencil: solid, integral/rational quadratic (x^2 - yz <= 0)
-//     and cubic (x^3 - yzw <= 0) entries, local then per-tile global, with
-//     the top-left tie rule, and the per-(tile, command) bulk winding;
+//     and cubic (x^3 - yzw <= 0) entries, with the top-left tie rule, and
+//     the per-(tile, command) bulk winding;
+//   - clip: the per-sample clip counter, set by clip ops and reset by
+//     unclip ops, gating every stencil update, colour cover and alpha op;
+//   - alpha groups: save, scale, save+scale and restore of frame alpha
+//     through L per-sample layer slots;
 //   - the solid colour cover: the tile's cover class, the hull lines set in
 //     `hbits`, the winding rule, the generic wgpu blend algebra (integer
 //     factor and operation codes, blend constant from cmd_f columns 20:24),
 //     and the winding reset of covered samples.
 // The wrapper (ops/coverage.py::coverage_raster) refuses every frame that
-// needs another body.
+// needs another body (depth, gradient and user paints).
 //
 // What bounds it on this card: ALU work per binned entry over the tile's
-// samples.  Each entry costs every pixel of its tile three edge functions,
-// up to four interpolated curve weights and S sample tests (~40-120 float
-// operations per pixel), against 96 bytes of entry row that the whole
-// block shares; entry-row bandwidth is two orders of magnitude below the
-// ALU time.
+// samples.  A fill entry costs each pixel three edge functions, up to four
+// interpolated curve weights and S sample tests (~40-120 float operations).
+// A stroke entry costs far more: per sample a divide, two or three
+// texcoords and the cap, join and dash predicates (~60-250 operations,
+// fmodf and the atan2 polynomial included).  Entry rows and descriptors
+// are read once per block and shared by its 256 threads; their bandwidth
+// is orders of magnitude below the ALU time.  Registers bound occupancy:
+// per pixel the kernel holds S windings, 4*S colours, S clip counters and
+// L*S layer slots.
 //
 // What the design does about it:
-//   - One thread owns one pixel for the whole command walk and keeps its S
-//     windings and 4*S premultiplied colours in registers (20 registers at
-//     4x MSAA).  A 32x128 tile's state at 4x MSAA is 320 KiB, more than a
-//     block's shared memory, but the state never crosses pixels, so no
-//     block needs it all: a block is a 256-pixel slab of a tile, on a grid
-//     of (tiles, slabs).
+//   - One thread owns one pixel for the whole command walk and keeps its
+//     state in registers.  A 32x128 tile's state at 4x MSAA is 320 KiB,
+//     more than a block's shared memory, but the state never crosses
+//     pixels, so no block needs it all: a block is a 256-pixel slab of a
+//     tile, on a grid of (tiles, slabs).
 //   - The block stages the entry rows it is about to walk into shared
-//     memory in chunks, once for all its threads.
-//   - Edge and curve functions are evaluated once at the pixel centre and
-//     reached at each sample by a uniform shift, as the reference does.
+//     memory in chunks, once for all its threads; a stroke row is staged
+//     with its group's descriptor, so the per-entry cap and join codes are
+//     uniform over the block and the cap `switch` never diverges.
+//   - Edge functions, curve weights, texcoord numerators and 1/w are
+//     evaluated once at the pixel centre and reached at each sample by a
+//     uniform shift, as the reference does.
+//   - The six stroke classes are six template instantiations, each
+//     branch-free in its class.  A stroke entry's sample loop is not
+//     unrolled: it yields a bit per sample, which an unrolled loop ORs into
+//     the register windings.  The code of the heavy predicates thus stays
+//     independent of S.
+//   - Alpha layers: one layer is held in registers (S floats per pixel, 4
+//     for the showcase at S=4).  With more, each pixel's L*S slots live in
+//     a global-memory scratch that the wrapper allocates, one slot per
+//     pixel of the grid, coalesced across the warp and never shared; the
+//     kernel zeroes them per tile.  256 slots per pixel at S=16, L=16
+//     would not fit registers.  The scratch takes 4*L*S bytes per pixel of
+//     the tiled frame (n_tiles*th*tw pixels): about 8.5 GB at 3840x2160,
+//     S=16, L=16.  No L is refused here; device memory is the bound.
+//   - Frames without clip or alpha ops compile both out (no clip registers)
+//     and skip commands at a nonzero clip depth whole, and frames without
+//     stroke rows compile the stroke classes out, as the reference's
+//     static specialisation does: the stroke code would otherwise raise
+//     the register count of fill-only frames (at S=4, 64 -> 128).  That
+//     makes six instantiations per sample count, 30 in all; each sample
+//     count compiles in its own nvcc process, all five at once.
 //   - Control flow depends only on the tile and the unit, never on the
-//     pixel, so the warps of a block never diverge on it.
+//     pixel, so the warps of a block never diverge on it; per-sample
+//     decisions are selects.  The one exception is the general dash's cap
+//     types, which vary by sample: they take the branch-free where-chain.
 //
 // Rounding: built with --fmad=false, so every multiply and add rounds on
-// its own, in the reference's order of operations; the results then match
-// the plain torch version (rasterize_plain) bit for bit, edge ties
+// its own, in the reference's order of operations; divides and square
+// roots are IEEE (no fast math), fmodf is exact, and atan2 is the
+// reference's polynomial, op for op.  The results then match the plain
+// torch version (rasterize_plain) bit for bit, edge and predicate ties
 // included.
 
 #include <cuda_runtime.h>
@@ -51,20 +89,52 @@ namespace {
 
 constexpr int BLOCK = 256;           // pixels (threads) per block
 constexpr int CHUNK = 64;            // entry rows staged per pass
-constexpr int ROW_F = 22;            // staged float columns: edges, 1/area, aux/w
 constexpr int D_F = 32;
 constexpr int D_I = 8;
+constexpr int DESC_F = 12;
+constexpr int DESC_I = 16;
 constexpr int RF_INV_AREA = 9;
 constexpr int RF_AW = 10;
+constexpr int RF_IW = 22;
+constexpr int RF_END_Y = 25;
 constexpr int RI_CONTRIB = 1;
+constexpr int RI_GROUP = 2;
 constexpr int RI_FLAGS = 3;
+constexpr int FLAG_END_CAP = 8;
+constexpr int FLAG_JOINT_TIP = 16;
+// Staged fill row: edges, 1/area, aux/w (RF_EDGE .. RF_AW + 12); ints:
+// contribution, flags.
+constexpr int FILL_F = 22;
+constexpr int FILL_I = 2;
+// Staged stroke row: the row's first 26 floats (edges, 1/area, aux/w, 1/w,
+// end-cap y), then desc_f[0:9] of its group; ints: flags, then
+// desc_i[0:13] of its group.
+constexpr int STROKE_ROW = RF_END_Y + 1;
+constexpr int STROKE_F = STROKE_ROW + 9;
+constexpr int STROKE_I = 1 + 13;
 constexpr int OP_STENCIL = 0;
+constexpr int OP_CLIP = 1;
+constexpr int OP_UNCLIP = 2;
 constexpr int OP_COLOR = 3;
+constexpr int OP_SAVE_ALPHA = 4;
+constexpr int OP_SCALE_ALPHA = 5;
+constexpr int OP_RESTORE_ALPHA = 6;
+constexpr int OP_SAVE_SCALE = 7;
 constexpr int N_CLASSES = 9;
+constexpr int CLS_LINE_SOLID = 0;
+constexpr int CLS_JOINT_SOLID = 3;
 constexpr int CLS_FILL_SOLID = 6;
 constexpr int CLS_FILL_QUAD = 7;
 constexpr int CLS_FILL_CUBIC = 8;
 constexpr int MAX_SAMPLES = 16;
+constexpr int MAX_DASH_INTERVALS = 4;
+constexpr int JOIN_BEVEL = 1, JOIN_ROUND = 2;
+constexpr int CAP_SQUARE = 0, CAP_ROUND = 1, CAP_OUT = 2, CAP_IN = 3,
+              CAP_RIGHT = 4, CAP_LEFT = 5, CAP_BUTT = 6;
+// Python's math.pi and the reference's TAU = 2 pi, rounded to float as the
+// reference rounds them (double, then float).
+constexpr double PI = 3.141592653589793;
+constexpr double TAU = 2.0 * PI;
 
 // Blend factor and operation codes (ops/coverage.py BLEND_*_CODES).
 constexpr int F_ZERO = 0, F_ONE = 1, F_SRC_ALPHA = 2, F_ONE_MINUS_SRC_ALPHA = 3,
@@ -93,12 +163,19 @@ struct RasterArgs {
   const int* tri_i;      // (n_tiles, kp, 8)
   const float* g_tri_f;  // (n_tiles, kgp, 32)
   const int* g_tri_i;    // (n_tiles, kgp, 8)
+  const float* desc_f;   // (n_groups, 12) dash gaps, phase
+  const int* desc_i;     // (n_groups, 16) caps, last interval, join
+  float* layers;         // layer_mode 0 with alpha ops: (L, S, n_tiles*th*tw)
   void* out;             // f32 (n_tiles, 4, th, tw) or i32 (n_tiles, th, tw)
   int n_tiles, ntx, th, tw, strips, lw, lh;
-  int n_commands, n_draws, n_units, hull_rows, draw_cols, kp, kgp;
+  int n_commands, n_draws, n_units, hull_rows, draw_cols, kp, kgp, n_groups;
   int samples, winding_mask, out_u8;
   int color_src, color_op, color_dst, alpha_src, alpha_op, alpha_dst;
   int uses_constant;
+  // has_clip: the frame holds clip or unclip ops.  layer_mode: -1, no clip
+  // or alpha ops; 1, one alpha layer in registers; 0, layers in `layers`.
+  // has_strokes: some stencil draw carries stroke rows.
+  int has_clip, layer_mode, n_layers, has_strokes;
   float sample_x[MAX_SAMPLES];
   float sample_y[MAX_SAMPLES];
 };
@@ -133,12 +210,258 @@ __device__ __forceinline__ float blend_channel(int sf, int op, int df, float s,
   return dt - st;  // reverse subtract
 }
 
+// max and min that return NaN when either operand is NaN (jnp.maximum,
+// torch.maximum), unlike fmaxf and fminf.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+// jnp.remainder: the truncated remainder moved into the sign of b.
+__device__ __forceinline__ float py_remainder(float a, float b) {
+  const float m = fmodf(a, b);
+  return (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) ? m + b : m;
+}
+
+// The reference's atan2 (ops/coverage.py::_atan2): minimax polynomial on
+// [0, 1] and an octant reduction, op for op.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = nan_max(ax, ay), lo = nan_min(ax, ay);
+  const float a = lo / nan_max(hi, (float)1e-30);
+  const float s = a * a;
+  float r = s * (float)2.90188402868554e-3 - (float)1.62907683983662e-2;
+  r = r * s + (float)4.30330487210615e-2;
+  r = r * s - (float)7.53012846110272e-2;
+  r = r * s + (float)1.06614349190831e-1;
+  r = r * s - (float)1.42070654521002e-1;
+  r = r * s + (float)1.99934912843697e-1;
+  r = r * s - (float)3.33331017859204e-1;
+  r = r * s * a + a;
+  r = ay > ax ? (float)(0.5 * PI) - r : r;
+  r = x < 0.0f ? (float)PI - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// Cap predicates (shaders.wgsl:165-189) for a cap type uniform over the
+// block: one case.
+__device__ __forceinline__ bool cap_mask(int cap, float x, float y) {
+  switch (cap) {
+    case CAP_SQUARE: return y <= 0.5f;
+    case CAP_ROUND: return x * x + y * y < 0.25f;
+    case CAP_OUT: return 0.5f - y > fabsf(x);
+    case CAP_IN: return y < fabsf(x);
+    case CAP_RIGHT: return 0.5f - y > x;
+    case CAP_LEFT: return y - 0.5f < x;
+    case CAP_BUTT: return y < 0.0f;
+    default: return false;
+  }
+}
+
+// The same predicates for a cap type that varies by sample, branch-free.
+__device__ __forceinline__ bool cap_mask_select(int cap, float x, float y) {
+  const float ax = fabsf(x);
+  return ((cap == CAP_BUTT) & (y < 0.0f)) |
+         ((cap == CAP_SQUARE) & (y <= 0.5f)) |
+         ((cap == CAP_ROUND) & (x * x + y * y < 0.25f)) |
+         ((cap == CAP_OUT) & (0.5f - y > ax)) |
+         ((cap == CAP_IN) & (y < ax)) |
+         ((cap == CAP_RIGHT) & (0.5f - y > x)) |
+         ((cap == CAP_LEFT) & (y - 0.5f < x));
+}
+
+// Dashed coverage at pattern position y, side x: DASH 1 is a
+// single-interval pattern, 2 the general one (shaders.wgsl:205-231).  df
+// and di are the entry's staged descriptor (desc_f[0:9], desc_i[0:13]).
+template <int DASH>
+__device__ __forceinline__ bool dash_mask(const float* df, const int* di,
+                                          float x, float y) {
+  if constexpr (DASH == 1) {
+    const float pattern_len = df[4];
+    const float position = py_remainder(y - df[8], pattern_len);
+    const float past = position - df[0];
+    return (past <= 0.0f) | cap_mask(di[0], x, past) |
+           cap_mask(di[4], x, pattern_len - position);
+  } else {
+    const int last = di[8];
+    float pattern_len = df[4];
+#pragma unroll
+    for (int i = 1; i < MAX_DASH_INTERVALS; ++i)
+      pattern_len = last == i ? df[4 + i] : pattern_len;
+    const float position = py_remainder(y - df[8], pattern_len);
+    int interval = last;
+#pragma unroll
+    for (int i = MAX_DASH_INTERVALS - 1; i >= 0; --i) {
+      const bool hit = (df[4 + i] - position >= 0.0f) & (i <= last);
+      interval = hit ? i : interval;
+    }
+    float g_s = 0.0f, g_e = 0.0f;
+    int e_cap = 0, s_cap = 0;
+#pragma unroll
+    for (int i = 0; i < MAX_DASH_INTERVALS; ++i) {
+      const bool sel = interval == i;
+      g_s = sel ? df[i] : g_s;
+      g_e = sel ? df[4 + i] : g_e;
+      e_cap = sel ? di[i] : e_cap;
+      s_cap = sel ? di[4 + i] : s_cap;
+    }
+    const float past = position - g_s;
+    return (past <= 0.0f) | cap_mask_select(e_cap, x, past) |
+           cap_mask_select(s_cap, x, g_e - position);
+  }
+}
+
+// Whether one sample's texcoords lie on the stroke (reference
+// process_stroke_batch.entry_keep).
+template <bool JOINT, int DASH>
+__device__ __forceinline__ bool stroke_keep(const float* f, const int* ii,
+                                            const float* tex) {
+  const int flags = ii[0];
+  const int* di = ii + 1;
+  const float* df = f + STROKE_ROW;
+  if constexpr (JOINT) {
+    const float radius = sqrtf(tex[0] * tex[0] + tex[1] * tex[1]);
+    const int join = di[10];
+    const bool is_tip = (flags & FLAG_JOINT_TIP) != 0;
+    const bool is_bevel = join == JOIN_BEVEL, is_round = join == JOIN_ROUND;
+    // Mitre keeps everything, bevel drops tip triangles, round keeps the
+    // half-width disc (shaders.wgsl:191-203).
+    bool keep = (((!is_bevel) & (!is_round)) & (radius >= 0.0f)) |
+                ((is_bevel & (!is_tip)) & (radius >= 0.0f)) |
+                (is_round & (radius <= 0.5f));
+    if constexpr (DASH != 0) {
+      const float angle = atan2_poly(tex[1], tex[0]) * (float)(1.0 / TAU);
+      keep = keep & dash_mask<DASH>(df, di, radius, tex[2] + angle);
+    }
+    return keep;
+  } else if constexpr (DASH != 0) {
+    return dash_mask<DASH>(df, di, tex[0], tex[1]);
+  } else {
+    const bool end_cap = cap_mask(di[12], tex[0], tex[1] - f[RF_END_Y]);
+    const bool start_cap = cap_mask(di[11], tex[0], -tex[1]);
+    const bool end_flag = (flags & FLAG_END_CAP) != 0;
+    return (end_flag & end_cap) |
+           ((!end_flag) & ((tex[1] >= 0.0f) | start_cap));
+  }
+}
+
+// One stroke entry against this thread's pixel: bit s of the result is set
+// when the entry covers sample s.  The sample loop stays rolled (offsets
+// from shared memory), so the predicates' code does not grow with S.
+template <bool JOINT, int DASH>
+__device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
+                                                 float pxc, float pyc,
+                                                 const float* sdx,
+                                                 const float* sdy, int n) {
+  constexpr int NCH = JOINT ? 3 : 2;
+  const float a0 = f[0], b0 = f[1], c0 = f[2];
+  const float a1 = f[3], b1 = f[4], c1 = f[5];
+  const float a2 = f[6], b2 = f[7], c2 = f[8];
+  const float e0 = a0 * pxc + b0 * pyc + c0;
+  const float e1 = a1 * pxc + b1 * pyc + c1;
+  const float e2 = a2 * pxc + b2 * pyc + c2;
+  const float inv_a = f[RF_INV_AREA];
+  const float l0 = e0 * inv_a, l1 = e1 * inv_a, l2 = e2 * inv_a;
+  float ch[NCH], gx[NCH], gy[NCH];
+#pragma unroll
+  for (int cc = 0; cc < NCH; ++cc) {
+    // aux/w of the vertex paired with edge 0, 1, 2 (RF_AW + 4*edge + cc).
+    const float w0 = f[RF_AW + cc], w1 = f[RF_AW + 4 + cc],
+                w2 = f[RF_AW + 8 + cc];
+    ch[cc] = l0 * w0 + l1 * w1 + l2 * w2;
+    gx[cc] = inv_a * (a0 * w0 + a1 * w1 + a2 * w2);
+    gy[cc] = inv_a * (b0 * w0 + b1 * w1 + b2 * w2);
+  }
+  const float i0 = f[RF_IW], i1 = f[RF_IW + 1], i2 = f[RF_IW + 2];
+  const float iw_c = l0 * i0 + l1 * i1 + l2 * i2;
+  const float gxw = inv_a * (a0 * i0 + a1 * i1 + a2 * i2);
+  const float gyw = inv_a * (b0 * i0 + b1 * i1 + b2 * i2);
+  const int flags = ii[0];
+  const bool tl0 = (flags & 1) != 0;
+  const bool tl1 = (flags & 2) != 0;
+  const bool tl2 = (flags & 4) != 0;
+  unsigned bits = 0u;
+#pragma unroll 1
+  for (int s = 0; s < n; ++s) {
+    const float dx = sdx[s], dy = sdy[s];
+    const float nt0 = -(a0 * dx + b0 * dy);
+    const float nt1 = -(a1 * dx + b1 * dy);
+    const float nt2 = -(a2 * dx + b2 * dy);
+    const bool inside = ((e0 > nt0) | ((e0 == nt0) & tl0)) &
+                        ((e1 > nt1) | ((e1 == nt1) & tl1)) &
+                        ((e2 > nt2) | ((e2 == nt2) & tl2));
+    const float iws = iw_c + (gxw * dx + gyw * dy);
+    const float inv = 1.0f / (iws != 0.0f ? iws : 1.0f);
+    float tex[NCH];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+      tex[cc] = (ch[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv;
+    const bool cov = inside & stroke_keep<JOINT, DASH>(f, ii, tex);
+    bits |= (unsigned)cov << s;
+  }
+  return bits;
+}
+
+__device__ __forceinline__ int group_of(const int* rows_i, size_t row,
+                                        int n_groups) {
+  return min(max(rows_i[row * D_I + RI_GROUP], 0), n_groups - 1);
+}
+
+// Stroke entries [lo, hi) of one class from a tile's rows, staged through
+// shared memory CHUNK rows at a time with their groups' descriptors.  A
+// covered sample whose winding is 0 (and, with clip ops, whose clip
+// counter equals the command's depth) ends at winding 1: the stroke OR,
+// entry by entry.  lo and hi are uniform over the block, so every thread
+// reaches every barrier.
+template <int S, bool CA, bool JOINT, int DASH>
+__device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
+                             int hi, float pxc, float pyc, const RasterArgs& a,
+                             int (&wind)[S], const int (&clip)[CA ? S : 1],
+                             int depth, float* sf, int* si, const float* sdx,
+                             const float* sdy) {
+  for (int base = lo; base < hi; base += CHUNK) {
+    const int n = min(CHUNK, hi - base);
+    __syncthreads();  // the previous chunk has been consumed
+    for (int i = threadIdx.x; i < n * STROKE_F; i += BLOCK) {
+      const int r = i / STROKE_F, col = i - r * STROKE_F;
+      const size_t row = (size_t)(base + r);
+      sf[i] = col < STROKE_ROW
+                  ? rows_f[row * D_F + col]
+                  : a.desc_f[(size_t)group_of(rows_i, row, a.n_groups) * DESC_F +
+                             (col - STROKE_ROW)];
+    }
+    for (int i = threadIdx.x; i < n * STROKE_I; i += BLOCK) {
+      const int r = i / STROKE_I, col = i - r * STROKE_I;
+      const size_t row = (size_t)(base + r);
+      si[i] = col == 0
+                  ? rows_i[row * D_I + RI_FLAGS]
+                  : a.desc_i[(size_t)group_of(rows_i, row, a.n_groups) * DESC_I +
+                             (col - 1)];
+    }
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const unsigned bits = stroke_cover<JOINT, DASH>(
+          sf + j * STROKE_F, si + j * STROKE_I, pxc, pyc, sdx, sdy, S);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        bool cov = ((bits >> s) & 1u) != 0;
+        if constexpr (CA) cov = cov & (clip[s] == depth);
+        wind[s] = (cov & (wind[s] == 0)) ? 1 : wind[s];
+      }
+    }
+  }
+}
+
 // One fill entry against this thread's pixel: NCH = 0 solid, 3 quadratic,
 // 4 cubic (the number of interpolated implicit-curve weights).
-template <int S, int NCH>
+template <int S, bool CA, int NCH>
 __device__ __forceinline__ void fill_entry(const float* f, int contrib,
                                            int flags, float pxc, float pyc,
-                                           const RasterArgs& a, int (&wind)[S]) {
+                                           const RasterArgs& a, int (&wind)[S],
+                                           const int (&clip)[CA ? S : 1],
+                                           int depth) {
   const float a0 = f[0], b0 = f[1], c0 = f[2];
   const float a1 = f[3], b1 = f[4], c1 = f[5];
   const float a2 = f[6], b2 = f[7], c2 = f[8];
@@ -185,49 +508,59 @@ __device__ __forceinline__ void fill_entry(const float* f, int contrib,
       const float ws = ch[3] + (gx[3] * dx + gy[3] * dy);
       keep = keep && (xs * xs * xs - ys * zs * ws <= 0.0f);
     }
+    if constexpr (CA) keep = keep && clip[s] == depth;
     wind[s] += keep ? contrib : 0;
   }
 }
 
-// Entries [lo, hi) of one class from a tile's rows, staged through shared
-// memory CHUNK rows at a time.  lo and hi are uniform over the block, so
-// every thread reaches every barrier.
-template <int S, int NCH>
+// Fill entries [lo, hi) of one class from a tile's rows, staged through
+// shared memory CHUNK rows at a time.  lo and hi are uniform over the
+// block, so every thread reaches every barrier.
+template <int S, bool CA, int NCH>
 __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
                            int hi, float pxc, float pyc, const RasterArgs& a,
-                           int (&wind)[S], float* sf, int* si) {
+                           int (&wind)[S], const int (&clip)[CA ? S : 1],
+                           int depth, float* sf, int* si) {
   for (int base = lo; base < hi; base += CHUNK) {
     const int n = min(CHUNK, hi - base);
     __syncthreads();  // the previous chunk has been consumed
-    for (int i = threadIdx.x; i < n * ROW_F; i += BLOCK) {
-      const int r = i / ROW_F;
-      sf[i] = rows_f[(size_t)(base + r) * D_F + (i - r * ROW_F)];
+    for (int i = threadIdx.x; i < n * FILL_F; i += BLOCK) {
+      const int r = i / FILL_F;
+      sf[i] = rows_f[(size_t)(base + r) * D_F + (i - r * FILL_F)];
     }
     for (int i = threadIdx.x; i < n; i += BLOCK) {
-      si[2 * i] = rows_i[(size_t)(base + i) * D_I + RI_CONTRIB];
-      si[2 * i + 1] = rows_i[(size_t)(base + i) * D_I + RI_FLAGS];
+      si[FILL_I * i] = rows_i[(size_t)(base + i) * D_I + RI_CONTRIB];
+      si[FILL_I * i + 1] = rows_i[(size_t)(base + i) * D_I + RI_FLAGS];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j)
-      fill_entry<S, NCH>(sf + j * ROW_F, si[2 * j], si[2 * j + 1], pxc, pyc, a,
-                         wind);
+      fill_entry<S, CA, NCH>(sf + j * FILL_F, si[FILL_I * j],
+                             si[FILL_I * j + 1], pxc, pyc, a, wind, clip,
+                             depth);
   }
 }
 
-template <int S, bool OUT_U8>
+// NL < 0: no clip or alpha ops in the frame; NL = 1: clip counters and
+// one alpha layer in registers; NL = 0: clip counters, alpha layers (if
+// any) in a.layers.  STROKES: the frame has stroke rows (without, the
+// stroke classes compile out and leave the fill path's registers alone).
+template <int S, int NL, bool STROKES>
 __global__ void __launch_bounds__(BLOCK)
     coverage_raster_kernel(const RasterArgs a) {
-  __shared__ float sf[CHUNK * ROW_F];
-  __shared__ int si[CHUNK * 2];
+  constexpr bool CA = NL >= 0;
+  __shared__ float sf[CHUNK * STROKE_F];
+  __shared__ int si[CHUNK * STROKE_I];
+  __shared__ float sdx[MAX_SAMPLES], sdy[MAX_SAMPLES];
   const int t = blockIdx.x;
   const int n_px = a.th * a.tw;
   const int pix = blockIdx.y * BLOCK + threadIdx.x;  // lane-major in the tile
   const int r = pix / a.tw;
   const int l = pix - r * a.tw;
   const int n_active = a.acount[t];
+  const bool out_u8 = a.out_u8 != 0;
 
   if (n_active == 0) {  // empty tile: transparent black
-    if (OUT_U8) {
+    if (out_u8) {
       static_cast<int*>(a.out)[(size_t)t * n_px + pix] = 0;
     } else {
 #pragma unroll
@@ -235,6 +568,16 @@ __global__ void __launch_bounds__(BLOCK)
         static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + pix] = 0.0f;
     }
     return;
+  }
+
+  // Sample offsets from the pixel centre, for the rolled stroke loops; the
+  // first staging barrier orders these writes before any read.
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sdx[s] = a.sample_x[s] - 0.5f;
+      sdy[s] = a.sample_y[s] - 0.5f;
+    }
   }
 
   // Strip layout: lane l of row r is screen pixel
@@ -254,11 +597,27 @@ __global__ void __launch_bounds__(BLOCK)
 
   int wind[S];
   float color[4][S];
+  int clip[CA ? S : 1];
+  float layer[NL > 0 ? NL : 1][S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     wind[s] = 0;
 #pragma unroll
     for (int chan = 0; chan < 4; ++chan) color[chan][s] = 0.0f;
+    if constexpr (CA) clip[s] = 0;
+#pragma unroll
+    for (int j = 0; j < (NL > 0 ? NL : 1); ++j) layer[j][s] = 0.0f;
+  }
+  // Layer slots in global memory (NL = 0): slot (j, s) of this pixel at
+  // layers[(j * S + s) * total + gp], coalesced across the warp.
+  const size_t total = (size_t)a.n_tiles * n_px;
+  const size_t gp = (size_t)t * n_px + pix;
+  if constexpr (NL == 0) {
+    if (a.layers != nullptr) {
+      for (int j = 0; j < a.n_layers; ++j)
+#pragma unroll
+        for (int s = 0; s < S; ++s) a.layers[((size_t)j * S + s) * total + gp] = 0.0f;
+    }
   }
 
   const int n_ranges = N_CLASSES * a.n_commands + 1;
@@ -274,33 +633,55 @@ __global__ void __launch_bounds__(BLOCK)
     const int c = a.unit_cmd[uid];
     const int d = a.unit_draw[uid];
     const int op = a.cmd_i[c * 4];
-    // Without clip commands the clip buffer is identically zero: commands
+    const int depth = a.cmd_i[c * 4 + 1];
+    // Without clip ops the clip counters are identically zero: commands
     // at a nonzero clip depth are no-ops.
-    if (a.cmd_i[c * 4 + 1] != 0) continue;
+    if (!a.has_clip && depth != 0) continue;
 
     if (op == OP_STENCIL) {
       const int b = N_CLASSES * c;
-      fill_range<S, 0>(tri_f, tri_i, off[b + CLS_FILL_SOLID],
-                       off[b + CLS_FILL_SOLID + 1], pxc, pyc, a, wind, sf, si);
-      fill_range<S, 0>(g_tri_f, g_tri_i, g_off[b + CLS_FILL_SOLID],
-                       g_off[b + CLS_FILL_SOLID + 1], pxc, pyc, a, wind, sf, si);
-      fill_range<S, 3>(tri_f, tri_i, off[b + CLS_FILL_QUAD],
-                       off[b + CLS_FILL_QUAD + 1], pxc, pyc, a, wind, sf, si);
-      fill_range<S, 3>(g_tri_f, g_tri_i, g_off[b + CLS_FILL_QUAD],
-                       g_off[b + CLS_FILL_QUAD + 1], pxc, pyc, a, wind, sf, si);
-      fill_range<S, 4>(tri_f, tri_i, off[b + CLS_FILL_CUBIC],
-                       off[b + CLS_FILL_CUBIC + 1], pxc, pyc, a, wind, sf, si);
-      fill_range<S, 4>(g_tri_f, g_tri_i, g_off[b + CLS_FILL_CUBIC],
-                       g_off[b + CLS_FILL_CUBIC + 1], pxc, pyc, a, wind, sf,
-                       si);
+      // Stroke classes first, in the reference's order: lines then
+      // joints, each solid, single-interval dash, general dash; each
+      // local, then global.
+      if constexpr (STROKES) {
+#define STROKE_CLASS(CODE, JOINT, DASH)                                        \
+  stroke_range<S, CA, JOINT, DASH>(tri_f, tri_i, off[b + (CODE)],              \
+                                   off[b + (CODE) + 1], pxc, pyc, a, wind,     \
+                                   clip, depth, sf, si, sdx, sdy);             \
+  stroke_range<S, CA, JOINT, DASH>(g_tri_f, g_tri_i, g_off[b + (CODE)],        \
+                                   g_off[b + (CODE) + 1], pxc, pyc, a, wind,   \
+                                   clip, depth, sf, si, sdx, sdy);
+      STROKE_CLASS(CLS_LINE_SOLID, false, 0)
+      STROKE_CLASS(CLS_LINE_SOLID + 1, false, 1)
+      STROKE_CLASS(CLS_LINE_SOLID + 2, false, 2)
+      STROKE_CLASS(CLS_JOINT_SOLID, true, 0)
+      STROKE_CLASS(CLS_JOINT_SOLID + 1, true, 1)
+      STROKE_CLASS(CLS_JOINT_SOLID + 2, true, 2)
+#undef STROKE_CLASS
+      }
+#define FILL_CLASS(CODE, NCH)                                                  \
+  fill_range<S, CA, NCH>(tri_f, tri_i, off[b + (CODE)], off[b + (CODE) + 1],   \
+                         pxc, pyc, a, wind, clip, depth, sf, si);              \
+  fill_range<S, CA, NCH>(g_tri_f, g_tri_i, g_off[b + (CODE)],                  \
+                         g_off[b + (CODE) + 1], pxc, pyc, a, wind, clip,       \
+                         depth, sf, si);
+      FILL_CLASS(CLS_FILL_SOLID, 0)
+      FILL_CLASS(CLS_FILL_QUAD, 3)
+      FILL_CLASS(CLS_FILL_CUBIC, 4)
+#undef FILL_CLASS
       const int bulk = a.bulk[(size_t)t * a.n_commands + c];
 #pragma unroll
-      for (int s = 0; s < S; ++s) wind[s] += bulk;
+      for (int s = 0; s < S; ++s) {
+        bool ok = true;
+        if constexpr (CA) ok = clip[s] == depth;
+        wind[s] += ok ? bulk : 0;
+      }
       continue;
     }
 
     const int cl = a.cls[(size_t)t * a.n_draws + d];
-    if (cl == 0 || op != OP_COLOR) continue;
+    if (cl == 0) continue;
+    if (!CA && op != OP_COLOR) continue;
     bool in_hull[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) in_hull[s] = true;
@@ -320,23 +701,83 @@ __global__ void __launch_bounds__(BLOCK)
     }
     const float* cf = a.cmd_f + (size_t)d * a.draw_cols;
     const float ca = cf[3];
-    const float src[4] = {cf[0] * ca, cf[1] * ca, cf[2] * ca, ca};
-    const float konst[4] = {
-        a.uses_constant ? cf[20] : 0.0f, a.uses_constant ? cf[21] : 0.0f,
-        a.uses_constant ? cf[22] : 0.0f, a.uses_constant ? cf[23] : 0.0f};
+
+    if (op == OP_COLOR) {
+      const float src[4] = {cf[0] * ca, cf[1] * ca, cf[2] * ca, ca};
+      const float konst[4] = {
+          a.uses_constant ? cf[20] : 0.0f, a.uses_constant ? cf[21] : 0.0f,
+          a.uses_constant ? cf[22] : 0.0f, a.uses_constant ? cf[23] : 0.0f};
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      if (!in_hull[s] || (wind[s] & a.winding_mask) == 0) continue;
-      const float da = color[3][s];
+      for (int s = 0; s < S; ++s) {
+        bool mask = in_hull[s] && (wind[s] & a.winding_mask) != 0;
+        if constexpr (CA) mask = mask && clip[s] == depth;
+        if (!mask) continue;
+        const float da = color[3][s];
 #pragma unroll
-      for (int chan = 0; chan < 4; ++chan) {
-        const bool alpha = chan == 3;
-        color[chan][s] = blend_channel(
-            alpha ? a.alpha_src : a.color_src, alpha ? a.alpha_op : a.color_op,
-            alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], ca,
-            da, chan, konst);
+        for (int chan = 0; chan < 4; ++chan) {
+          const bool alpha = chan == 3;
+          color[chan][s] = blend_channel(
+              alpha ? a.alpha_src : a.color_src, alpha ? a.alpha_op : a.color_op,
+              alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], ca,
+              da, chan, konst);
+        }
+        wind[s] = 0;
       }
-      wind[s] = 0;
+      continue;
+    }
+
+    if constexpr (CA) {
+      if (op == OP_CLIP || op == OP_UNCLIP) {
+        // Clip promotes winding != 0 into the clip counter
+        // (renderer.rs:692-710); unclip demotes deeper samples
+        // (renderer.rs:711-729).  Neither is gated by the clip test.
+        const bool promote = op == OP_CLIP;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const bool mask =
+              in_hull[s] && (promote ? (wind[s] & a.winding_mask) != 0
+                                     : clip[s] > depth);
+          clip[s] = mask ? depth : clip[s];
+          wind[s] = mask ? 0 : wind[s];
+        }
+        continue;
+      }
+      if (op < OP_SAVE_ALPHA || op > OP_SAVE_SCALE) continue;
+      // Alpha-group ops on layer li (renderer.rs:756-861): save copies
+      // frame alpha into the layer, scale sets (1 - g) + g * alpha,
+      // restore subtracts (1 - saved) * (1 - g); save+scale is save then
+      // scale over one mask.  _validate bounds the layer; the clamp keeps
+      // an unvalidated one inside the state.
+      const int li = min(max(a.cmd_i[c * 4 + 2], 0), a.n_layers - 1);
+      const bool save = op == OP_SAVE_ALPHA || op == OP_SAVE_SCALE;
+      const bool scale = op == OP_SCALE_ALPHA || op == OP_SAVE_SCALE;
+      const bool restore = op == OP_RESTORE_ALPHA;
+      float* slots = NL == 0 ? a.layers + (size_t)li * S * total + gp : nullptr;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const bool mask = in_hull[s] && clip[s] == depth;
+        const float a0 = color[3][s];
+        if (save) {
+          if constexpr (NL > 0) {
+#pragma unroll
+            for (int j = 0; j < NL; ++j)
+              layer[j][s] = (mask && j == li) ? a0 : layer[j][s];
+          } else if (mask) {
+            slots[(size_t)s * total] = a0;
+          }
+        }
+        if (scale) color[3][s] = mask ? (1.0f - ca) + ca * a0 : a0;
+        if (restore) {
+          float saved = 0.0f;
+          if constexpr (NL > 0) {
+#pragma unroll
+            for (int j = 0; j < NL; ++j) saved = j == li ? layer[j][s] : saved;
+          } else {
+            saved = slots[(size_t)s * total];
+          }
+          color[3][s] = mask ? a0 - (1.0f - saved) * (1.0f - ca) : a0;
+        }
+      }
     }
   }
 
@@ -349,7 +790,7 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
     for (int s = 0; s < S; ++s) v = v + color[chan][s];
     v = v * inv_s;
-    if (OUT_U8) {
+    if (out_u8) {
       // floor(clip(v) * 255 + 0.5), packed little-endian RGBA8 in uint32
       // (A << 24 would overflow an int32).
       const uint32_t q =
@@ -359,20 +800,52 @@ __global__ void __launch_bounds__(BLOCK)
       static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + pix] = v;
     }
   }
-  if (OUT_U8) static_cast<uint32_t*>(a.out)[(size_t)t * n_px + pix] = packed;
+  if (out_u8) static_cast<uint32_t*>(a.out)[(size_t)t * n_px + pix] = packed;
 }
 
-template <int S>
-cudaError_t launch(const RasterArgs& a, cudaStream_t stream) {
+template <int S, bool STROKES>
+cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
   const dim3 grid(a.n_tiles, (a.th * a.tw) / BLOCK);
-  if (a.out_u8)
-    coverage_raster_kernel<S, true><<<grid, BLOCK, 0, stream>>>(a);
-  else
-    coverage_raster_kernel<S, false><<<grid, BLOCK, 0, stream>>>(a);
+  switch (a.layer_mode) {
+    case -1:
+      coverage_raster_kernel<S, -1, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      break;
+    case 0:
+      coverage_raster_kernel<S, 0, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      break;
+    case 1:
+      coverage_raster_kernel<S, 1, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The kernels of one sample count S (six instantiations: three layer
+// modes, with and without strokes) are compiled in a unit of their own,
+// built from this file with -DRASTER_SAMPLES=S; the five units and the
+// entry points (built without it) compile in parallel (cuda_build.py).
+template <int S>
+cudaError_t launch_samples(const RasterArgs& a, cudaStream_t stream);
+
+#ifdef RASTER_SAMPLES
+
+template <>
+cudaError_t launch_samples<RASTER_SAMPLES>(const RasterArgs& a,
+                                           cudaStream_t stream) {
+  return a.has_strokes ? launch_layers<RASTER_SAMPLES, true>(a, stream)
+                       : launch_layers<RASTER_SAMPLES, false>(a, stream);
+}
+
+#else
+
+template <> cudaError_t launch_samples<1>(const RasterArgs&, cudaStream_t);
+template <> cudaError_t launch_samples<2>(const RasterArgs&, cudaStream_t);
+template <> cudaError_t launch_samples<4>(const RasterArgs&, cudaStream_t);
+template <> cudaError_t launch_samples<8>(const RasterArgs&, cudaStream_t);
+template <> cudaError_t launch_samples<16>(const RasterArgs&, cudaStream_t);
 
 extern "C" int coverage_raster_block_size() { return BLOCK; }
 
@@ -382,15 +855,18 @@ extern "C" int coverage_raster_block_size() { return BLOCK; }
 extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   const RasterArgs& a = *args;
   if (a.n_tiles <= 0 || (a.th * a.tw) % BLOCK != 0 ||
-      a.th * a.tw / BLOCK > 65535)
+      a.th * a.tw / BLOCK > 65535 || a.n_groups < 1 || a.n_layers < 1 ||
+      (a.layer_mode > 0 && a.n_layers > a.layer_mode))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.samples) {
-    case 1: return (int)launch<1>(a, s);
-    case 2: return (int)launch<2>(a, s);
-    case 4: return (int)launch<4>(a, s);
-    case 8: return (int)launch<8>(a, s);
-    case 16: return (int)launch<16>(a, s);
+    case 1: return (int)launch_samples<1>(a, s);
+    case 2: return (int)launch_samples<2>(a, s);
+    case 4: return (int)launch_samples<4>(a, s);
+    case 8: return (int)launch_samples<8>(a, s);
+    case 16: return (int)launch_samples<16>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // RASTER_SAMPLES

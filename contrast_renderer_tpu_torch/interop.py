@@ -18,7 +18,10 @@ from .renderer import DrawCommand, RenderOperation, Shape
 
 def _shape_from_reference(ref) -> Shape:
     """A Shape sharing the reference shape's triangle table, hull and
-    stroke descriptors (no re-tessellation)."""
+    stroke descriptor table (no re-tessellation).  Both packages pack the
+    descriptor table into the same desc_f/desc_i rows; a later
+    set_dynamic_stroke_options on either shape rebuilds that shape's
+    table only."""
     shape = Shape.__new__(Shape)
     shape._uid = next(Shape._uid_counter)
     shape._geometry_version = 0

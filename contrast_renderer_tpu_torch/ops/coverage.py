@@ -16,10 +16,12 @@ match so that a reader finds each piece in both packages.
    (``csrc/coverage_raster.cu``) on CUDA tensors and runs
    ``rasterize_plain``, its plain torch version, on CPU tensors.
 
-This slice ports the kernel's fill-only specialisation: filled paths
-with solid colour, no clip, no alpha groups, no depth test.  Frames that
-need another body raise ``NotImplementedError`` before any launch
-(``check_supported``).
+The kernel bodies ported so far: the fill stencil, the stroke stencil
+(lines and joints; solid, single-interval and general dashes; caps and
+joins), clip and unclip, the alpha-group ops, and the solid colour
+cover.  Frames that need another body (a depth test or write, gradient
+or user paints, gate spans) raise ``NotImplementedError`` before any
+launch (``check_supported``).
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from contrast_renderer_tpu.path import MAX_DASH_INTERVALS, TAU, Cap, Join
 from contrast_renderer_tpu.vertex import (
     KIND_INTEGRAL_QUADRATIC,
     KIND_RATIONAL_CUBIC,
@@ -118,6 +122,18 @@ CLS_FILL_SOLID = 6
 CLS_FILL_QUAD = 7
 CLS_FILL_CUBIC = 8
 N_CLASSES = 9
+#: (class, joint, dash mode) of the stroke classes in the kernel's walk
+#: order: lines then joints, each solid, single-interval dash, general
+#: dash (dash mode 0, 1, 2).
+STROKE_CLASSES = (
+    (CLS_LINE_SOLID, False, 0),
+    (CLS_LINE_DASH1, False, 1),
+    (CLS_LINE_DASHN, False, 2),
+    (CLS_JOINT_SOLID, True, 0),
+    (CLS_JOINT_DASH1, True, 1),
+    (CLS_JOINT_DASHN, True, 2),
+)
+FILL_CLASSES = (CLS_FILL_SOLID, CLS_FILL_QUAD, CLS_FILL_CUBIC)
 #: Default fill batch width.  The CUDA kernel walks entries one at a
 #: time; the batch only sets the entry-row padding (FrameSpec.entry_pad)
 #: so the binning outputs keep the reference's shapes.
@@ -224,15 +240,8 @@ class FrameSpec:
 def check_supported(spec: FrameSpec):
     """Raise NotImplementedError, naming the ROADMAP item that ports it,
     when ``spec`` needs a kernel body this slice does not have."""
-    ops = set(spec.ops)
     reason = None
-    if spec.has_strokes:
-        reason = "stroke rows in a stencil draw (ROADMAP.md, Queue 2 item 1: stroke stencil)"
-    elif ops & {OP_CLIP, OP_UNCLIP}:
-        reason = "clip commands (ROADMAP.md, Queue 2 item 2: clip)"
-    elif ops & {OP_SAVE_ALPHA, OP_SCALE_ALPHA, OP_RESTORE_ALPHA, OP_SAVE_SCALE}:
-        reason = "alpha groups (ROADMAP.md, Queue 2 item 3: alpha groups)"
-    elif spec.depth_write or spec.depth_compare != "always":
+    if spec.depth_write or spec.depth_compare != "always":
         reason = "a depth test or depth write (ROADMAP.md, Queue 2 item 4: depth)"
     elif any(spec.paints):
         reason = "gradient or user paints (ROADMAP.md, Queue 2 item 5: non-solid paints)"
@@ -242,6 +251,17 @@ def check_supported(spec: FrameSpec):
         raise NotImplementedError(
             f"the PyTorch/CUDA port cannot render {reason} yet"
         )
+
+
+ALPHA_OPS = (OP_SAVE_ALPHA, OP_SCALE_ALPHA, OP_RESTORE_ALPHA, OP_SAVE_SCALE)
+
+
+def clip_alpha_ops(spec: FrameSpec):
+    """(has_clip, has_alpha): whether the frame holds clip or unclip ops,
+    and alpha-group ops.  Without clip ops the clip buffer stays zero, so
+    commands at a nonzero clip depth are no-ops and are skipped whole."""
+    ops = set(spec.ops)
+    return bool(ops & {OP_CLIP, OP_UNCLIP}), bool(ops & set(ALPHA_OPS))
 
 
 #: Named blend modes as canonical (src_factor, operation, dst_factor).
@@ -466,8 +486,7 @@ def _scatter_rows(n_rows, slots, values):
 
 
 def make_prepare(spec: FrameSpec):
-    # Bracket gating and depth planes are not ported (strokes, clip and
-    # alpha ops bin as in the reference).
+    # Bracket gating and depth planes are not ported.
     if spec.gate_spans or spec.depth_write or spec.depth_compare != "always":
         check_supported(spec)
     C = spec.n_commands
@@ -1014,7 +1033,11 @@ def make_prepare(spec: FrameSpec):
 #: wrapper adds one where it launches and nowhere else.
 raster_launches = 0
 
-_KERNEL_SOURCES = ("coverage_raster.cu",)
+#: The raster library's compile units: the entry points, and the
+#: kernels of each sample count in a unit of their own.
+_KERNEL_UNITS = (("coverage_raster.cu", ()),) + tuple(
+    ("coverage_raster.cu", (f"RASTER_SAMPLES={s}",)) for s in sorted(SAMPLE_PATTERNS)
+)
 _MAX_SAMPLES = 16
 
 
@@ -1025,15 +1048,17 @@ class _RasterArgs(ctypes.Structure):
         (name, ctypes.c_void_p) for name in (
             "cmd_i", "cmd_f", "hull", "unit_cmd", "unit_draw", "acount",
             "aclist", "off", "g_off", "bulk", "cls", "hbits", "tri_f",
-            "tri_i", "g_tri_f", "g_tri_i", "out",
+            "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i", "layers",
+            "out",
         )
     ] + [
         (name, ctypes.c_int) for name in (
             "n_tiles", "ntx", "th", "tw", "strips", "lw", "lh",
             "n_commands", "n_draws", "n_units", "hull_rows", "draw_cols",
-            "kp", "kgp", "samples", "winding_mask", "out_u8",
+            "kp", "kgp", "n_groups", "samples", "winding_mask", "out_u8",
             "color_src", "color_op", "color_dst",
             "alpha_src", "alpha_op", "alpha_dst", "uses_constant",
+            "has_clip", "layer_mode", "n_layers", "has_strokes",
         )
     ] + [
         ("sample_x", ctypes.c_float * _MAX_SAMPLES),
@@ -1049,7 +1074,7 @@ def build_kernel():
     builds it with nvcc (or loads the cached build)."""
     global _library
     if _library is None:
-        lib = cuda_build.load_library("coverage_raster", _KERNEL_SOURCES)
+        lib = cuda_build.load_library("coverage_raster", _KERNEL_UNITS)
         lib.coverage_raster_launch.argtypes = [
             ctypes.POINTER(_RasterArgs), ctypes.c_void_p,
         ]
@@ -1070,7 +1095,8 @@ def _raster_plan(spec: FrameSpec):
 
 
 def _raster_shapes(spec: FrameSpec, draws: DrawTables):
-    """Expected (shape, dtype) of every coverage_raster input."""
+    """Expected (shape, dtype) of every coverage_raster input; ``G``
+    stands for the descriptor group count, which the spec does not fix."""
     C = spec.n_commands
     Rc = len(draws.c_cmd)
     U = len(draws.unit_cmd)
@@ -1095,7 +1121,29 @@ def _raster_shapes(spec: FrameSpec, draws: DrawTables):
         "cmd_f": ((Rc, 24 if blend_uses_constant(spec.blending) else 20), f32),
         "unit_cmd": ((U,), i32),
         "unit_draw": ((U,), i32),
+        "desc_f": (("G", DESC_F), f32),
+        "desc_i": (("G", DESC_I), i32),
     }
+
+
+def _check_inputs(expected, tensors, device):
+    """Raise ValueError unless every input has its expected device, shape,
+    dtype and contiguity, and desc_f/desc_i share one G >= 1."""
+    n_groups = tensors["desc_f"].shape[0]
+    for name, (shape, dtype) in expected.items():
+        t = tensors[name]
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, tri_f on {device}")
+        want = tuple(n_groups if n == "G" else n for n in shape)
+        if tuple(t.shape) != want or t.dtype != dtype:
+            raise ValueError(
+                f"{name}: expected {want} {dtype}, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_groups < 1:
+        raise ValueError("desc_f/desc_i need at least one descriptor group")
 
 
 def _raster_output(spec: FrameSpec, device):
@@ -1107,10 +1155,24 @@ def _raster_output(spec: FrameSpec, device):
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
+def layer_mode(spec: FrameSpec) -> int:
+    """The kernel instantiation a frame needs: -1 without clip or alpha
+    ops; 1 for alpha ops on one layer, held in registers; 0 for clip
+    without alpha ops, or for more layers (a global-memory scratch of
+    (L, S) slots per pixel)."""
+    has_clip, has_alpha = clip_alpha_ops(spec)
+    if has_alpha and max(1, spec.n_layers) == 1:
+        return 1
+    return 0 if has_clip or has_alpha else -1
+
+
+def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
+                    desc_f, desc_i):
     """Rasterize one prepared frame into tiles: float (n_tiles, 4, th,
     tw), or packed RGBA8 as int32 (n_tiles, th, tw) when
     ``spec.out_uint8``, both in the tile's physical lane layout.
+    ``desc_f``/``desc_i`` are the stroke descriptor rows, (G, DESC_F)
+    f32 and (G, DESC_I) i32.
 
     CUDA tensors launch the kernel of csrc/coverage_raster.cu on the
     current stream; CPU tensors run ``rasterize_plain``."""
@@ -1119,22 +1181,14 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
     draws, expected = _raster_plan(spec)
     tensors = dict(
         prepared._asdict(), cmd_i=cmd_i, cmd_f=cmd_f,
-        unit_cmd=unit_cmd, unit_draw=unit_draw,
+        unit_cmd=unit_cmd, unit_draw=unit_draw, desc_f=desc_f, desc_i=desc_i,
     )
     device = prepared.tri_f.device
-    for name, (shape, dtype) in expected.items():
-        t = tensors[name]
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, tri_f on {device}")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(
-                f"{name}: expected {shape} {dtype}, got "
-                f"{tuple(t.shape)} {t.dtype}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_inputs(expected, tensors, device)
     if device.type == "cpu":
-        return rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw)
+        return rasterize_plain(
+            spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw, desc_f, desc_i
+        )
     if device.type != "cuda":
         raise ValueError(f"coverage_raster takes CPU or CUDA tensors, not {device}")
     lib = build_kernel()
@@ -1145,22 +1199,38 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
             f"kernel's {block}-thread block"
         )
     out = _raster_output(spec, device)
+    has_clip, has_alpha = clip_alpha_ops(spec)
+    mode = layer_mode(spec)
+    n_layers = max(1, spec.n_layers)
+    # The kernel allocates nothing: in layer mode 0 it keeps each pixel's
+    # (L, S) layer state in this scratch, 4*L*S bytes per pixel of the
+    # tiled frame, which it zeroes per tile.
+    layers = (
+        torch.empty(
+            n_layers * spec.samples * spec.n_tiles * spec.tile_h * spec.tile_w,
+            dtype=torch.float32, device=device,
+        )
+        if has_alpha and mode == 0 else None
+    )
     offsets = SAMPLE_PATTERNS[spec.samples]
     codes = _blend_codes(spec.blending)
     args = _RasterArgs(
         *(tensors[name].data_ptr() for name in (
             "cmd_i", "cmd_f", "hull_lines", "unit_cmd", "unit_draw",
             "acount", "aclist", "off", "g_off", "bulk", "cls", "hbits",
-            "tri_f", "tri_i", "g_tri_f", "g_tri_i",
+            "tri_f", "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i",
         )),
+        None if layers is None else layers.data_ptr(),
         out.data_ptr(),
         spec.n_tiles, spec.ntx, spec.tile_h, spec.tile_w, spec.tile_strips,
         spec.screen_tile_w, spec.screen_tile_h,
         spec.n_commands, len(draws.c_cmd), len(draws.unit_cmd),
         spec.h_max + 2, cmd_f.shape[1],
         expected["tri_f"][0][1], expected["g_tri_f"][0][1],
+        desc_f.shape[0],
         spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
         *codes, int(blend_uses_constant(spec.blending)),
+        int(has_clip), mode, n_layers, int(spec.has_strokes),
     )
     args.sample_x[:spec.samples] = offsets[:, 0].tolist()
     args.sample_y[:spec.samples] = offsets[:, 1].tolist()
@@ -1228,16 +1298,199 @@ def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
     return torch.stack(deltas, 1)
 
 
-#: Fill entries the plain version evaluates per step (bounds the size
-#: of its (tiles, batch, pixels) temporaries).
+def _remainder(a, b):
+    """jnp.remainder for floats: the truncated fmod, moved into the sign
+    of ``b`` (exact, as the kernel's fmodf and sign fix)."""
+    m = torch.fmod(a, b)
+    return torch.where((m != 0.0) & ((m < 0.0) != (b < 0.0)), m + b, m)
+
+
+def _atan2(y, x):
+    """The reference's atan2: a degree-17 odd minimax polynomial on
+    [0, 1] and an octant reduction, op for op (the kernel's
+    ``atan2_poly``; never the library atan2)."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    lo = torch.minimum(ax, ay)
+    a = lo / torch.clamp(hi, min=1e-30)
+    s = a * a
+    r = s * 2.90188402868554e-3 - 1.62907683983662e-2
+    r = r * s + 4.30330487210615e-2
+    r = r * s - 7.53012846110272e-2
+    r = r * s + 1.06614349190831e-1
+    r = r * s - 1.42070654521002e-1
+    r = r * s + 1.99934912843697e-1
+    r = r * s - 3.33331017859204e-1
+    r = r * s * a + a
+    r = torch.where(ay > ax, 0.5 * math.pi - r, r)
+    r = torch.where(x < 0.0, math.pi - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _cap_mask(cap_type, tex_x, tex_y):
+    """The analytic cap predicates (shaders.wgsl:165-189) as a
+    where-chain over every cap type; ``cap_type`` is per entry or per
+    sample.  For one cap type this is the reference's
+    ``_cap_mask_scalar`` as well: both give the case's boolean."""
+    ax = torch.abs(tex_x)
+    out = (cap_type == int(Cap.BUTT)) & (tex_y < 0.0)
+    cases = (
+        tex_y <= 0.5,                                   # SQUARE
+        tex_x * tex_x + tex_y * tex_y < 0.25,           # ROUND
+        0.5 - tex_y > ax,                               # OUT
+        tex_y < ax,                                     # IN
+        0.5 - tex_y > tex_x,                            # RIGHT
+        tex_y - 0.5 < tex_x,                            # LEFT
+    )
+    for value, case in enumerate(cases):
+        out = out | ((cap_type == value) & case)
+    return out
+
+
+def _dash_mask_single(df, di, tex_x, tex_y):
+    """Dashed coverage for a single-interval pattern; ``df``/``di`` are
+    the entries' descriptor rows (..., DESC_F) and (..., DESC_I)."""
+    pattern_len = df[..., 4:5]
+    position = _remainder(tex_y - df[..., 8:9], pattern_len)
+    past = position - df[..., 0:1]
+    in_dash = past <= 0.0
+    cap_a = _cap_mask(di[..., 0:1], tex_x, past)
+    cap_b = _cap_mask(di[..., 4:5], tex_x, pattern_len - position)
+    return in_dash | cap_a | cap_b
+
+
+def _dash_mask_general(df, di, tex_x, tex_y):
+    """Dashed coverage (shaders.wgsl:205-231) at pattern position
+    ``tex_y``: the interval search and per-sample cap types."""
+    last = di[..., 8:9]
+    phase = df[..., 8:9]
+    gap_start = [df[..., i:i + 1] for i in range(MAX_DASH_INTERVALS)]
+    gap_end = [df[..., 4 + i:5 + i] for i in range(MAX_DASH_INTERVALS)]
+    end_caps = [di[..., i:i + 1] for i in range(MAX_DASH_INTERVALS)]
+    start_caps = [di[..., 4 + i:5 + i] for i in range(MAX_DASH_INTERVALS)]
+    pattern_len = gap_end[0]
+    for i in range(1, MAX_DASH_INTERVALS):
+        pattern_len = torch.where(last == i, gap_end[i], pattern_len)
+    position = _remainder(tex_y - phase, pattern_len)
+    interval = torch.zeros_like(position, dtype=torch.int32) + last
+    for i in range(MAX_DASH_INTERVALS - 1, -1, -1):
+        hit = (gap_end[i] - position >= 0.0) & (i <= last)
+        interval = torch.where(hit, i, interval)
+    g_s = torch.zeros_like(position)
+    g_e = torch.zeros_like(position)
+    e_cap = torch.zeros_like(interval)
+    s_cap = torch.zeros_like(interval)
+    for i in range(MAX_DASH_INTERVALS):
+        sel = interval == i
+        g_s = torch.where(sel, gap_start[i], g_s)
+        g_e = torch.where(sel, gap_end[i], g_e)
+        e_cap = torch.where(sel, end_caps[i], e_cap)
+        s_cap = torch.where(sel, start_caps[i], s_cap)
+    past = position - g_s
+    in_dash = past <= 0.0
+    cap_a = _cap_mask(e_cap, tex_x, past)
+    cap_b = _cap_mask(s_cap, tex_x, g_e - position)
+    return in_dash | cap_a | cap_b
+
+
+def _stroke_keep(joint, dash_mode, df, di, flags, end_y, tex):
+    """Whether each sample's texcoords lie on the stroke: the join
+    predicate (joints), the dash pattern, or the start and end caps."""
+    dash = (None, _dash_mask_single, _dash_mask_general)[dash_mode]
+    if joint:
+        radius = torch.sqrt(tex[0] * tex[0] + tex[1] * tex[1])
+        join = di[..., 10:11]
+        is_tip = (flags & FLAG_JOINT_TIP) != 0
+        is_bevel = join == int(Join.BEVEL)
+        is_round = join == int(Join.ROUND)
+        # Miter keeps everything, bevel drops tip triangles, round keeps
+        # the half-width disc (shaders.wgsl:191-203).
+        keep = (
+            ((~is_bevel & ~is_round) & (radius >= 0.0))
+            | ((is_bevel & ~is_tip) & (radius >= 0.0))
+            | (is_round & (radius <= 0.5))
+        )
+        if dash_mode:
+            angle = _atan2(tex[1], tex[0]) * (1.0 / TAU)
+            keep = keep & dash(df, di, radius, tex[2] + angle)
+        return keep
+    if dash_mode:
+        return dash(df, di, tex[0], tex[1])
+    end_cap = _cap_mask(di[..., 12:13], tex[0], tex[1] - end_y)
+    start_cap = _cap_mask(di[..., 11:12], tex[0], -tex[1])
+    end_flag = (flags & FLAG_END_CAP) != 0
+    return (end_flag & end_cap) | (~end_flag & ((tex[1] >= 0.0) | start_cap))
+
+
+def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
+                  offsets):
+    """Per-sample coverage (T, S, P) of a batch of stroke entries of one
+    class: rf (T, B, D_F), ri (T, B, D_I), ok (T, B) marks the entries
+    inside their range; pxc/pyc (T, 1, P) pixel centres.  A sample is
+    covered when any entry covers it (the stroke stencil is an OR).
+    Perspective-correct texcoords as in the kernel, step for step: the
+    linear numerators and 1/w at the pixel centre, shifted to each
+    sample, then one divide."""
+
+    def cf(i):
+        return rf[..., i:i + 1]                          # (T, B, 1)
+
+    ea = [cf(0), cf(3), cf(6)]
+    eb = [cf(1), cf(4), cf(7)]
+    ec = [ea[k] * pxc + eb[k] * pyc + cf(2 + 3 * k) for k in range(3)]
+    inv_a = cf(RF_INV_AREA)
+    lc = [e * inv_a for e in ec]
+
+    def at_centre(w):
+        return lc[0] * w[0] + lc[1] * w[1] + lc[2] * w[2]
+
+    def slope(e, w):
+        return inv_a * (e[0] * w[0] + e[1] * w[1] + e[2] * w[2])
+
+    n_ch = 3 if joint else 2
+    aw = [[cf(RF_AW + 4 * k + cc) for k in range(3)] for cc in range(n_ch)]
+    ch_c = [at_centre(w) for w in aw]
+    gx = [slope(ea, w) for w in aw]
+    gy = [slope(eb, w) for w in aw]
+    iwv = [cf(RF_IW + k) for k in range(3)]
+    iw_c = at_centre(iwv)
+    gxw = slope(ea, iwv)
+    gyw = slope(eb, iwv)
+    flags = ri[..., RI_FLAGS:RI_FLAGS + 1]
+    tl = [(flags & (1 << k)) != 0 for k in range(3)]
+    group = torch.clamp(ri[..., RI_GROUP], 0, desc_f.shape[0] - 1).long()
+    df = desc_f[group]                                   # (T, B, DESC_F)
+    di = desc_i[group]
+    end_y = cf(RF_END_Y)
+    covered = []
+    for ox, oy in offsets:
+        dx = float(ox) - 0.5
+        dy = float(oy) - 0.5
+        inside = ok[..., None]
+        for k in range(3):
+            nt = -(ea[k] * dx + eb[k] * dy)
+            inside = inside & ((ec[k] > nt) | ((ec[k] == nt) & tl[k]))
+        iws = iw_c + (gxw * dx + gyw * dy)
+        inv = 1.0 / torch.where(iws != 0.0, iws, 1.0)
+        tex = [(ch_c[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv
+               for cc in range(n_ch)]
+        keep = _stroke_keep(joint, dash_mode, df, di, flags, end_y, tex)
+        covered.append((inside & keep).any(1))
+    return torch.stack(covered, 1)
+
+
+#: Entries the plain version evaluates per step (bounds the size of its
+#: (tiles, batch, pixels) temporaries).
 PLAIN_BATCH = 8
 
 
-def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
+def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
+                    desc_f, desc_i):
     """The plain torch version of coverage_raster (same arguments, same
     output).  Vectorised over tiles: it walks the units in draw order,
-    and each tile applies a unit only where the unit is in its active
-    list, which is the kernel's per-tile walk over ``aclist``."""
+    and applies each unit to the tiles whose active list holds it, which
+    is the kernel's per-tile walk over ``aclist``."""
     check_supported(spec)
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
@@ -1250,6 +1503,8 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
     winding_mask = (1 << spec.winding_bits) - 1
     blend_color, blend_alpha = _canonical_blend(spec.blending)
     uses_const = blend_uses_constant(spec.blending)
+    has_clip, has_alpha = clip_alpha_ops(spec)
+    n_layers = max(1, spec.n_layers)
 
     # Pixel coordinates of each lane (strip layout: lane l of row r is
     # screen pixel (x0 + l % lw, y0 + (l // lw)·th + r)).
@@ -1282,72 +1537,134 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw):
 
     wind = torch.zeros((n_tiles, S, P), dtype=i32, device=dev)
     color = torch.zeros((4, n_tiles, S, P), dtype=f32, device=dev)
+    clip = torch.zeros((n_tiles, S, P), dtype=i32, device=dev) if has_clip else None
+    layer = (
+        torch.zeros((n_layers, n_tiles, S, P), dtype=f32, device=dev)
+        if has_alpha else None
+    )
     off = prepared.off.reshape(n_tiles, -1).long()
     g_off = prepared.g_off.reshape(n_tiles, -1).long()
-    tri = (prepared.tri_f, prepared.tri_i, off)
-    g_tri = (prepared.g_tri_f, prepared.g_tri_i, g_off)
-    tiles = t[:, None]
+    tables = (
+        (prepared.tri_f, prepared.tri_i, off),
+        (prepared.g_tri_f, prepared.g_tri_i, g_off),
+    )
+
+    def batches(sel, code):
+        """(rows_f, rows_i, ok) of the class-``code`` entries of the
+        tiles ``sel``, local then global, PLAIN_BATCH at a time."""
+        for rows_f, rows_i, ranges in tables:
+            lo = ranges[sel, code]
+            hi = ranges[sel, code + 1]
+            n = int((hi - lo).max())
+            for j0 in range(0, n, PLAIN_BATCH):
+                j = lo[:, None] + j0 + torch.arange(PLAIN_BATCH, device=dev)
+                ok = j < hi[:, None]
+                j = torch.clamp(j, max=rows_f.shape[1] - 1)
+                yield rows_f[sel[:, None], j], rows_i[sel[:, None], j], ok
+
+    def stencil(sel, c, w, clip_ok):
+        base = N_CLASSES * c
+        pxs, pys = pxc[sel], pyc[sel]
+        for code, joint, dash_mode in STROKE_CLASSES:
+            for rf, ri, ok in batches(sel, base + code):
+                cov = _stroke_cover(
+                    rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxs, pys,
+                    offsets,
+                )
+                if clip_ok is not None:
+                    cov = cov & clip_ok
+                w = torch.where(cov & (w == 0), 1, w)
+        for code in FILL_CLASSES:
+            for rf, ri, ok in batches(sel, base + code):
+                delta = _fill_delta(rf, ri, ok, code, pxs, pys, offsets)
+                if clip_ok is not None:
+                    delta = torch.where(clip_ok, delta, 0)
+                w = w + delta
+        bulk = prepared.bulk[sel, 0, c][:, None, None]
+        if clip_ok is not None:
+            bulk = torch.where(clip_ok, bulk, 0)
+        return w + bulk
+
+    def hull_mask(sel, d):
+        """Samples of the tiles ``sel`` inside cover draw d's hull."""
+        cl = prepared.cls[sel, 0, d]
+        in_hull = (cl == 2)[:, None, None].expand(len(sel), S, P)
+        boundary = cl == 1
+        if bool(boundary.any()):
+            bits = prepared.hbits[sel, 0, d]
+            lines = prepared.hull_lines[d]
+            pxs, pys = px[sel], py[sel]
+            ok = torch.ones((len(sel), S, P), dtype=torch.bool, device=dev)
+            for h in range(lines.shape[0]):
+                use = ((bits >> h) & 1) != 0
+                if not bool((use & boundary).any()):
+                    continue
+                he = lines[h, 0] * pxs + lines[h, 1] * pys + lines[h, 2]
+                ok = ok & (~use[:, None, None] | (he >= 0.0))
+            in_hull = in_hull | (boundary[:, None, None] & ok)
+        return in_hull
 
     unit_cmd_h = unit_cmd.tolist()
     unit_draw_h = unit_draw.tolist()
     cmd_i_h = cmd_i.tolist()
     for u in range(U):
-        act = active[:, u]
         c, d = unit_cmd_h[u], unit_draw_h[u]
-        op, depth = cmd_i_h[c][0], cmd_i_h[c][1]
-        if depth != 0 or not bool(act.any()):
+        op, depth, layer_ix = cmd_i_h[c][:3]
+        if not has_clip and depth != 0:
             continue
+        sel = torch.nonzero(active[:, u]).reshape(-1)
+        if sel.numel() == 0:
+            continue
+        w = wind[sel]
+        clip_ok = (clip[sel] == depth) if has_clip else None
         if op == OP_STENCIL:
-            base = N_CLASSES * c
-            for cls_code in (CLS_FILL_SOLID, CLS_FILL_QUAD, CLS_FILL_CUBIC):
-                for rows_f, rows_i, ranges in (tri, g_tri):
-                    lo = ranges[:, base + cls_code]
-                    hi = torch.where(act, ranges[:, base + cls_code + 1], lo)
-                    n = int((hi - lo).max())
-                    for j0 in range(0, n, PLAIN_BATCH):
-                        j = lo[:, None] + j0 + torch.arange(PLAIN_BATCH, device=dev)
-                        ok = j < hi[:, None]
-                        j = torch.clamp(j, max=rows_f.shape[1] - 1)
-                        wind += _fill_delta(
-                            rows_f[tiles, j], rows_i[tiles, j], ok,
-                            cls_code, pxc, pyc, offsets,
-                        )
-            bulk = torch.where(act, prepared.bulk[:, 0, c], 0)
-            wind += bulk[:, None, None]
-        else:
-            cl = torch.where(act, prepared.cls[:, 0, d], 0)
-            bits = prepared.hbits[:, 0, d]
-            lines = prepared.hull_lines[d]
-            in_hull = (cl == 2)[:, None, None].expand(n_tiles, S, P)
-            boundary = cl == 1
-            if bool(boundary.any()):
-                ok = torch.ones((n_tiles, S, P), dtype=torch.bool, device=dev)
-                for h in range(lines.shape[0]):
-                    use = ((bits >> h) & 1) != 0
-                    if not bool((use & boundary).any()):
-                        continue
-                    he = lines[h, 0] * px + lines[h, 1] * py + lines[h, 2]
-                    ok = ok & (~use[:, None, None] | (he >= 0.0))
-                in_hull = in_hull | (boundary[:, None, None] & ok)
-            if op == OP_COLOR:
-                row = cmd_f[d]
-                ca = row[3]
-                src = (row[0] * ca, row[1] * ca, row[2] * ca, ca)
-                const = tuple(row[20:24]) if uses_const else None
-                mask = in_hull & ((wind & winding_mask) != 0)
-                da = color[3]
-                color = torch.stack([
-                    torch.where(
-                        mask,
-                        _blend_channel(
-                            blend_alpha if chan == 3 else blend_color,
-                            src[chan], color[chan], ca, da, chan, const,
-                        ),
-                        color[chan],
-                    )
-                    for chan in range(4)
-                ])
-                wind = torch.where(mask, 0, wind)
+            wind[sel] = stencil(sel, c, w, clip_ok)
+            continue
+        in_hull = hull_mask(sel, d)
+        nonzero = (w & winding_mask) != 0
+        ca = cmd_f[d, 3]
+        if op == OP_COLOR:
+            mask = in_hull & nonzero
+            if clip_ok is not None:
+                mask = mask & clip_ok
+            row = cmd_f[d]
+            src = (row[0] * ca, row[1] * ca, row[2] * ca, ca)
+            const = tuple(row[20:24]) if uses_const else None
+            dst = color[:, sel]
+            color[:, sel] = torch.stack([
+                torch.where(
+                    mask,
+                    _blend_channel(
+                        blend_alpha if chan == 3 else blend_color,
+                        src[chan], dst[chan], ca, dst[3], chan, const,
+                    ),
+                    dst[chan],
+                )
+                for chan in range(4)
+            ])
+            wind[sel] = torch.where(mask, 0, w)
+        elif op in (OP_CLIP, OP_UNCLIP):
+            # Clip promotes winding != 0 into the clip counter, unclip
+            # demotes deeper samples; neither is gated by clip_ok.
+            cd = clip[sel]
+            mask = in_hull & (nonzero if op == OP_CLIP else cd > depth)
+            clip[sel] = torch.where(mask, depth, cd)
+            wind[sel] = torch.where(mask, 0, w)
+        elif op in ALPHA_OPS:
+            mask = in_hull if clip_ok is None else in_hull & clip_ok
+            # _validate bounds the layer of every alpha op; the clamp
+            # keeps an unvalidated one inside the state, as the kernel.
+            li = min(max(layer_ix, 0), n_layers - 1)
+            a0 = color[3, sel]
+            saved = layer[li, sel]
+            if op in (OP_SAVE_ALPHA, OP_SAVE_SCALE):
+                layer[li, sel] = torch.where(mask, a0, saved)
+            if op in (OP_SCALE_ALPHA, OP_SAVE_SCALE):
+                color[3, sel] = torch.where(mask, (1.0 - ca) + ca * a0, a0)
+            if op == OP_RESTORE_ALPHA:
+                color[3, sel] = torch.where(
+                    mask, a0 - (1.0 - saved) * (1.0 - ca), a0
+                )
 
     # Resolve: the sample mean, summed in sample order as the kernel does.
     inv_s = 1.0 / S
@@ -1380,15 +1697,15 @@ def make_rasterize(spec: FrameSpec):
     units = {}
 
     def rasterize(prepared: PreparedFrame, cmd_i, cmd_f, desc_f, desc_i):
-        # desc_f/desc_i carry the dash descriptors of the stroke bodies,
-        # which this slice does not run.
         dev = prepared.tri_f.device
         if dev not in units:
             units[dev] = (
                 torch.as_tensor(draws.unit_cmd, device=dev),
                 torch.as_tensor(draws.unit_draw, device=dev),
             )
-        tiles = coverage_raster(spec, prepared, cmd_i, cmd_f, *units[dev])
+        tiles = coverage_raster(
+            spec, prepared, cmd_i, cmd_f, *units[dev], desc_f, desc_i
+        )
         if spec.out_uint8:
             # De-strip: lane l of row r is screen pixel ((l // lw)·th + r,
             # l % lw) of the tile's footprint; then bytes per pixel.

@@ -14,10 +14,13 @@ names and attributes.  A frame runs in three stages:
    (``ops/coverage.make_rasterize``); on a CPU device its plain torch
    version runs instead.
 
-This slice renders filled paths with solid colour.  Frames with clip or
-alpha ops, a depth test or write, gradient or user paints, or stroke
-rows in a stencil draw raise ``NotImplementedError`` before anything
-runs, naming the ROADMAP item that ports them.
+The port renders filled and stroked paths (solid and dashed strokes,
+all caps and joins) with solid colour, inside nested clips and alpha
+groups.  Frames with a depth test or write, or gradient or user paints,
+raise ``NotImplementedError`` before anything runs, naming the ROADMAP
+item that ports them.  Clip and alpha frames render ungated: the
+reference's per-tile bracket gating (``gate_spans``) leaves the image
+unchanged by its own contract and is not ported yet.
 """
 
 from __future__ import annotations

@@ -233,6 +233,7 @@ def test_plain_rasterizer_is_the_cpu_path():
     args = (
         spec, prepared, torch.as_tensor(f["cmd_i"]), torch.as_tensor(f["cmd_f"]),
         torch.as_tensor(draws.unit_cmd), torch.as_tensor(draws.unit_draw),
+        torch.as_tensor(f["desc_f"]), torch.as_tensor(f["desc_i"]),
     )
     before = port_cov.raster_launches
     tiles = port_cov.coverage_raster(*args)

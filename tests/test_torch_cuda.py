@@ -1,6 +1,8 @@
 """The CUDA raster kernel on the card: held against its plain torch
 version across sample counts, strip layouts, output modes and blend
-states, and the whole slice on the card against the slice on the CPU.
+states; each of the six stroke classes; clip and alpha frames with alpha
+layers in registers and in the global scratch; the cap golden; and the
+whole path on the card against the path on the CPU.
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -10,6 +12,7 @@ repository's conftest:
 """
 
 from dataclasses import replace
+from pathlib import Path as FsPath
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from contrast_renderer_tpu.path import Path
 from contrast_renderer_tpu_torch import scenes
+from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.ops import coverage
 from contrast_renderer_tpu_torch.renderer import (
     BlendComponent,
@@ -32,6 +36,7 @@ pytestmark = pytest.mark.cuda
 # The scene keeps to the left 256 columns, so the right tiles are empty.
 SIZE = 256
 WIDTH, HEIGHT = 384, 256
+GOLDEN = FsPath(__file__).parent / "golden" / "cap_styles_96x72.npy"
 
 
 @pytest.fixture(scope="module")
@@ -87,45 +92,158 @@ def test_kernel_matches_plain(card, samples, strips, blending):
     )
     renderer.set_blend_constant((0.25, 0.5, 0.75, 0.5))
     spec, _, runtime = renderer._prepare(frame_commands())
-    prepared, cmd_i, cmd_f = runtime[:3]
+    assert_kernel_matches_plain(spec, *runtime)
+    assert int((runtime[0].acount == 0).sum()) > 0  # empty tiles were taken
+
+
+def assert_kernel_matches_plain(spec, prepared, cmd_i, cmd_f, desc_f, desc_i):
+    """The kernel and rasterize_plain on the same tensors, float and
+    packed RGBA8: equal to the bit, and the frame is not empty."""
     draws = coverage.draw_tables(spec)
     units = (
-        torch.as_tensor(draws.unit_cmd, device=card),
-        torch.as_tensor(draws.unit_draw, device=card),
+        torch.as_tensor(draws.unit_cmd, device=prepared.tri_f.device),
+        torch.as_tensor(draws.unit_draw, device=prepared.tri_f.device),
     )
     for u8 in (False, True):
-        args = (replace(spec, out_uint8=u8), prepared, cmd_i, cmd_f, *units)
+        args = (replace(spec, out_uint8=u8), prepared, cmd_i, cmd_f, *units,
+                desc_f, desc_i)
         before = coverage.raster_launches
         got = coverage.coverage_raster(*args)
         want = coverage.rasterize_plain(*args)
         torch.cuda.synchronize()
         assert coverage.raster_launches == before + 1
-        assert torch.equal(got, want), (samples, strips, u8)
-    assert int((prepared.acount == 0).sum()) > 0  # empty tiles were taken
+        assert torch.equal(got, want), u8
+        assert bool((want != 0).any())
 
 
-def test_slice_on_card_matches_slice_on_cpu(card):
+def only_class(prepared, command, code):
+    """``prepared`` with every local and global entry range emptied but
+    class ``code`` of stencil command ``command``, and no bulk winding."""
+    b = coverage.N_CLASSES * command + code
+
+    def keep(ranges):
+        return torch.clamp(ranges, ranges[..., b:b + 1], ranges[..., b + 1:b + 2])
+
+    return prepared._replace(
+        off=keep(prepared.off).contiguous(),
+        g_off=keep(prepared.g_off).contiguous(),
+        bulk=torch.zeros_like(prepared.bulk),
+    )
+
+
+@pytest.mark.parametrize("samples", [1, 4, 16])
+@pytest.mark.parametrize(
+    "code", [code for code, _, _ in coverage.STROKE_CLASSES],
+    ids=["line", "line_dash1", "line_dashn", "joint", "joint_dash1",
+         "joint_dashn"],
+)
+def test_stroke_class_matches_plain(card, samples, code):
+    """Each stroke class alone (the other classes' ranges emptied), on
+    scenes.stroke_sampler at 256², bit for bit."""
+    size = 256
+    shape = Shape(*scenes.stroke_sampler(size))
+    t = scenes.ortho(size, size)
+    renderer = Renderer(
+        Configuration(msaa_sample_count=samples), size, size, device=card
+    )
+    spec, _, runtime = renderer._prepare([
+        DrawCommand(RenderOperation.STENCIL, shape, t),
+        DrawCommand(RenderOperation.COLOR, shape, t, color=(0.9, 0.8, 0.2, 0.9)),
+    ])
+    prepared = only_class(runtime[0], 0, code)
+    entries = sum(
+        int((r[..., code + 1] - r[..., code]).sum())
+        for r in (prepared.off, prepared.g_off)
+    )
+    assert entries > 0
+    assert_kernel_matches_plain(spec, prepared, *runtime[1:])
+
+
+@pytest.mark.parametrize(
+    "build, layers, samples",
+    [
+        (scenes.nested_clip_commands, 1, 4),
+        (scenes.nested_clip_commands, 2, 4),
+        (scenes.nested_clip_commands, 5, 4),
+        (scenes.nested_clip_commands, 1, 16),
+        (scenes.nested_group_commands, 2, 4),
+        (scenes.nested_group_commands, 5, 4),
+        (scenes.nested_group_commands, 2, 16),
+    ],
+    ids=["clip-L1", "clip-L2", "clip-L5", "clip-L1-msaa16", "groups-L2",
+         "groups-L5", "groups-L2-msaa16"],
+)
+def test_clip_alpha_matches_plain(card, build, layers, samples):
+    """Clip and alpha frames at 256²: the layer in registers (L = 1) and
+    layers in the global scratch (L = 2, 5), bit for bit."""
+    size = 256
+    renderer = Renderer(
+        Configuration(alpha_layer_count=layers, blending="front_to_back",
+                      msaa_sample_count=samples),
+        size, size, device=card,
+    )
+    spec, _, runtime = renderer._prepare(build(port, size))
+    assert coverage.layer_mode(spec) == (1 if layers == 1 else 0)
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+def test_cap_sheet_on_card_matches_golden(card):
+    """All seven cap styles through Renderer.render on the card, against
+    the reference's golden, bit for bit."""
+    w, h = scenes.CAP_SHEET_SIZE
+    shape = Shape(*scenes.cap_sheet())
+    t = scenes.ortho(w, h)
+    image = Renderer(Configuration(), w, h, device=card).render([
+        DrawCommand(RenderOperation.STENCIL, shape, t),
+        DrawCommand(RenderOperation.COLOR, shape, t, color=(1.0, 1.0, 1.0, 1.0)),
+    ])
+    assert np.array_equal(image[..., 3], np.load(GOLDEN))
+
+
+@pytest.mark.parametrize("frame", ["fills", "strokes", "clip_alpha"])
+def test_slice_on_card_matches_slice_on_cpu(card, frame):
     """Renderer.render on the card (torch binning on the card, CUDA
     kernel) against Renderer.render on the CPU (torch binning, plain
     rasterizer): packed RGBA8 identical."""
-    commands = frame_commands()
-    want = Renderer(Configuration(), WIDTH, HEIGHT).render(commands, as_uint8=True)
-    got = Renderer(Configuration(), WIDTH, HEIGHT, device=card).render(
+    config = Configuration()
+    if frame == "fills":
+        commands = frame_commands()
+    elif frame == "strokes":
+        shape = Shape(*scenes.stroke_sampler(SIZE))
+        t = scenes.ortho(WIDTH, HEIGHT)
+        commands = [
+            DrawCommand(RenderOperation.STENCIL, shape, t),
+            DrawCommand(RenderOperation.COLOR, shape, t),
+        ]
+    else:
+        config = Configuration(alpha_layer_count=1, blending="front_to_back")
+        commands = scenes.nested_clip_commands(port, SIZE)
+    want = Renderer(config, WIDTH, HEIGHT).render(commands, as_uint8=True)
+    got = Renderer(config, WIDTH, HEIGHT, device=card).render(
         commands, as_uint8=True
     )
     assert np.array_equal(got, want)
+    assert want[..., 3].any()
 
 
 def test_bad_arguments_raise(card):
     renderer = Renderer(Configuration(), WIDTH, HEIGHT, device=card)
     spec, _, runtime = renderer._prepare(frame_commands())
-    prepared, cmd_i, cmd_f = runtime[:3]
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
     draws = coverage.draw_tables(spec)
     units = (
         torch.as_tensor(draws.unit_cmd, device=card),
         torch.as_tensor(draws.unit_draw, device=card),
     )
     with pytest.raises(ValueError, match="cmd_f"):
-        coverage.coverage_raster(spec, prepared, cmd_i, cmd_f[:, :4], *units)
+        coverage.coverage_raster(
+            spec, prepared, cmd_i, cmd_f[:, :4], *units, desc_f, desc_i
+        )
     with pytest.raises(ValueError, match="cmd_i is on cpu"):
-        coverage.coverage_raster(spec, prepared, cmd_i.cpu(), cmd_f, *units)
+        coverage.coverage_raster(
+            spec, prepared, cmd_i.cpu(), cmd_f, *units, desc_f, desc_i
+        )
+    with pytest.raises(ValueError, match="desc_i"):
+        coverage.coverage_raster(
+            spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i[:, :8]
+        )
