@@ -4,14 +4,18 @@
 Usage, from the repository root on a machine with a CUDA device and the
 CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ptxas-report]
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. a CUDA device is visible; print its name and power limit
    (nvidia-smi);
-2. build the coverage raster kernel (csrc/coverage_raster.cu) with nvcc
-   and print ptxas' registers and spills per instantiation;
+2. build the coverage raster kernel (csrc/coverage_raster.cu) with nvcc,
+   one library per feature set the frames below need (4× MSAA: the base
+   build, depth, gradients, gradients and the checker user paint), all
+   at once; with ``--ptxas-report`` also the depth and gradient builds
+   at 1, 2, 8 and 16 samples, which no frame uses; print each library's
+   build seconds and ptxas' registers and spills per instantiation;
 3. on the BASELINE config-2 frame (1,000 integral quadratic and cubic
    Bézier fills, 1920×1080, 4× MSAA), binned by the port on the card,
    hold the kernel against its plain torch version on the same tensors,
@@ -37,11 +41,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    golden (tests/golden/cap_styles_96x72.npy), bit for bit;
 10. time the kernel, its plain version, the cached-binning frame (CUDA
    events, and the host clock around the call with no synchronise) and
-   the binning of each frame of phases 7-8.
+   the binning of each frame of phases 7-8;
+11. the showcase with text at 3840×2160 under the reference showcase's
+   own depth state (LessEqual, depth write): kernel against plain, then
+   ``Renderer.render``; the pixels that differ from the frame without
+   depth (phase 8) show the depth body fired;
+12. the gradient card (``scenes.gradient_card``, the frame of
+   examples/gradients.py) at 3840×2160: kernel against plain, then
+   ``Renderer.render``; the card's colour near its two ends against its
+   first and last stop;
+13. the mixed-paints frame (``scenes.mixed_paints``: a gradient, an
+   instanced solid pair, the checker ``UserPaint`` compiled into the
+   kernel) at 1920×1080 under LessEqual with depth write: kernel against
+   plain, then ``Renderer.render``; both checker colours show;
+14. time phases 11-13's frames as in phase 10.
 
+Kernel against plain is equality to the bit, float and packed RGBA8.
 The line before the last is ``{"kernels": [...]}``, one entry per ported
-body of the kernel with the frame that exercised it; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+body of the kernel with the frame that exercised it, its launches on the
+main path, its time, its plain version's, and its bound: the least time
+the card could take for the work this frame's data needs
+(``kernel_bound``: each entry over the samples in its bounding box, each
+cover body over the samples its mask passed); no single PyTorch call
+computes this function, so ``library_ms`` is null.  The last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import json
@@ -57,8 +80,76 @@ CIRCLE_SIZE = 256
 KERNEL_SOURCE = "contrast_renderer_tpu_torch/csrc/coverage_raster.cu"
 TPU_KERNEL = "contrast_renderer_tpu/ops/coverage.py"
 CAP_GOLDEN = "tests/golden/cap_styles_96x72.npy"
-FLOAT_TOL = 1e-6
-U8_MAX_FRACTION = 1e-4
+#: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
+#: float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+
+# Float operations (a multiply, add, compare, divide, square root, min,
+# max or floor is one) that the kernel's arithmetic in
+# csrc/coverage_raster.cu needs, per pixel or per sample.  Terms that
+# depend on the entry or draw alone (edge gradients, a sample's offset
+# along an edge, 1 - alpha of a solid colour), integer and boolean logic,
+# and the sample positions bx + sample_x are not counted.
+#
+# Per pixel of a binned entry, in coverage.CLS_* order (stroke_cover,
+# fill_entry): the three edge functions a*px + b*py + c (12); with
+# interpolated channels, the barycentrics e*inv_area (3) and each
+# channel's l0*w0 + l1*w1 + l2*w2 (5); strokes also 1/w at the centre (5).
+ENTRY_PIXEL_OPS = (
+    30, 30, 30,   # line: 12 + 3 + 2 texcoords * 5 + 5
+    35, 35, 35,   # joint: 12 + 3 + 3 texcoords * 5 + 5
+    12, 30, 35,   # fill: solid 12; quadratic 12 + 3 + 3 * 5; cubic + 4 * 5
+)
+# Per sample of a binned entry: the edge tests, e > nt and e == nt for
+# three edges (6).  Strokes: 1/w at the sample (an add), its zero guard
+# and the divide (3), each texcoord's add and multiply by 1/w (2 each);
+# joints add the radius (2 multiplies, an add, a square root) and the
+# join compare (5), and with a dash the atan2 polynomial (30: two fabs,
+# max, min, the floored max, a divide, a square, the polynomial's 17
+# multiplies and adds, three octant compares and their three
+# subtractions or negations)
+# scaled by 1/tau and added to the texcoord (2).  The dash remainder
+# (a subtract, fmodf, two sign compares and the fix-up add: 5) and
+# past, past <= 0 and the distance to the interval's end (3); the
+# general dash also searches its four intervals (a subtract and a
+# compare each: 8) and takes one cap predicate per side (at least 1
+# each, as the cap varies by sample).  Quadratic fills: three channel
+# adds, x*x - y*z and its test (7); cubic: four adds, x*x*x - y*z*w and
+# its test (10).  Cap predicates are added per entry below.
+ENTRY_SAMPLE_OPS = (
+    6 + 3 + 4,                  # line, solid (+ the one cap its flag picks)
+    6 + 3 + 4 + 5 + 3,          # line, single dash (+ two caps)
+    6 + 3 + 4 + 5 + 3 + 8 + 2,  # line, general dash
+    6 + 3 + 6 + 5,              # joint, solid
+    6 + 3 + 6 + 5 + 32 + 5 + 3,  # joint, single dash (+ two caps)
+    6 + 3 + 6 + 5 + 32 + 5 + 3 + 8 + 2,  # joint, general dash
+    6, 6 + 7, 6 + 10,           # fill: solid, quadratic, cubic
+)
+#: cap_mask per cap code (square, round, out, in, right, left, butt):
+#: y <= .5; x*x + y*y < .25; .5 - y > |x|; y < |x|; .5 - y > x;
+#: y - .5 < x; y < 0.
+CAP_OPS = (1, 4, 3, 2, 2, 2, 1)
+#: A solid line's end cap (tex.y - end_y and its predicate) or start cap
+#: (-tex.y, its predicate and tex.y >= 0), by the entry's end-cap flag.
+END_CAP_OPS, START_CAP_OPS = 1, 2
+#: One hull-line test at a sample: h0*x + h1*y + h2 >= 0.
+HULL_LINE_OPS = 5
+#: The depth plane at a sample, (a*x + b*y) + c, and its compare.
+DEPTH_PLANE_OPS, DEPTH_COMPARE_OPS = 4, 1
+#: gradient_paint per sample: rel_x, rel_y (2); linear t, a dot product
+#: and a divide (4), or radial t, a squared length, a divide and a
+#: square root (5); clip to [0, 1] (2); and the premultiply (3).  Per
+#: ramp segment whose two stops differ: t minus its offset, the divide,
+#: the clip (4) and four channels' multiply-add (8).
+GRADIENT_OPS = {1: 2 + 4 + 2 + 3, 2: 2 + 5 + 2 + 3}
+GRADIENT_SEGMENT_OPS = 12
+#: scenes.CHECKER_CUDA per sample: two divides by 4, two floors, the
+#: float conversion and 1 - v (6); then the premultiply (3).
+CHECKER_OPS = 6 + 3
+#: Alpha ops per updated sample: scale (1 - g) + g*a (2), restore
+#: a - (1 - saved)*(1 - g) (3), save+scale as scale; save copies.
+ALPHA_OP_OPS = {4: 0, 5: 2, 6: 3, 7: 2}
 
 
 def fail(message):
@@ -122,9 +213,8 @@ def raster_args(coverage, spec, runtime):
 
 def kernel_vs_plain(coverage, spec, runtime, label):
     """Hold the kernel against rasterize_plain on the same tensors, float
-    (max abs error ≤ FLOAT_TOL) and packed RGBA8 (at most U8_MAX_FRACTION
-    of pixels differ, by at most 1 LSB).  Returns the float max abs
-    error."""
+    and packed RGBA8: equal to the bit.  Returns the float max abs error
+    (0.0)."""
     from dataclasses import replace
 
     import torch
@@ -144,18 +234,167 @@ def kernel_vs_plain(coverage, spec, runtime, label):
             n_px = int(px.sum())
             print(f"{label}: kernel vs plain, packed RGBA8: {n_px} of "
                   f"{px.numel()} pixels differ, max {worst} LSB", flush=True)
-            if n_px > U8_MAX_FRACTION * px.numel() or worst > 1:
+            if n_px:
                 fail(f"{label}: packed RGBA8 output disagrees with the plain version")
         else:
             max_abs_err = float((got - want).abs().max())
             print(f"{label}: kernel vs plain, float: max abs err "
                   f"{max_abs_err:.3g}, bit-identical "
                   f"{bool(torch.equal(got, want))}", flush=True)
-            if not max_abs_err <= FLOAT_TOL:
-                fail(f"{label}: float output off by {max_abs_err} > {FLOAT_TOL}")
+            if not torch.equal(got, want):
+                fail(f"{label}: float output off by {max_abs_err}")
             if not bool((want[:, 3] > 0).any()):
                 fail(f"{label}: the plain version covered nothing")
     return max_abs_err
+
+
+def blend_ops(coverage, blending):
+    """Float operations of one blended sample (blend_channel over four
+    channels): a multiply per factor other than zero and one, the add or
+    subtract of two nonzero terms, one op for min and max, the saturated
+    factor's min, and 1 - dst alpha once where a factor uses it."""
+    color, alpha = coverage._canonical_blend(blending)
+    ops, one_minus_da = 0, False
+    for chan in range(4):
+        src, op, dst = alpha if chan == 3 else color
+        if op in ("min", "max"):
+            ops += 1
+            continue
+        terms = 0
+        for f in (src, dst):
+            if f == "zero":
+                continue
+            terms += 1
+            if f == "one" or (f == "src_alpha_saturated" and chan == 3):
+                continue
+            ops += 2 if f == "src_alpha_saturated" else 1
+            one_minus_da |= f in ("one_minus_dst_alpha", "src_alpha_saturated")
+        ops += terms == 2
+    return ops + one_minus_da
+
+
+def entry_ops(coverage, spec, prepared, desc_i):
+    """Float operations of the frame's binned entries: each entry's
+    ENTRY_PIXEL_OPS over the pixels, and its ENTRY_SAMPLE_OPS and cap
+    predicates over the samples, that lie in its bounding box (RF_AABB)
+    clipped to its tile."""
+    import torch
+
+    dev = prepared.tri_f.device
+    S, lw, lh = spec.samples, spec.screen_tile_w, spec.screen_tile_h
+    offsets = coverage.SAMPLE_PATTERNS[S]
+    t = torch.arange(spec.n_tiles, device=dev)
+    x0 = ((t % spec.ntx) * lw).double()[:, None]
+    y0 = ((t // spec.ntx) * lh).double()[:, None]
+    pixel_ops = torch.tensor(ENTRY_PIXEL_OPS, device=dev, dtype=torch.float64)
+    sample_ops = torch.tensor(ENTRY_SAMPLE_OPS, device=dev, dtype=torch.float64)
+    cap_ops = torch.tensor(CAP_OPS + (0,), device=dev, dtype=torch.float64)
+    desc_i = desc_i.long()
+
+    def span(lo, hi, origin, size, o_lo, o_hi):
+        """Pixels p of [origin, origin + size) with lo <= p + o <= hi for
+        some offset o in [o_lo, o_hi]."""
+        first = torch.maximum(torch.ceil(lo - o_hi), origin)
+        last = torch.minimum(torch.floor(hi - o_lo), origin + size - 1)
+        return torch.clamp(last - first + 1, min=0)
+
+    def cap(code):
+        return cap_ops[torch.clamp(code, 0, len(CAP_OPS))]
+
+    total = 0.0
+    for rows_f, rows_i, off in (
+        (prepared.tri_f, prepared.tri_i, prepared.off),
+        (prepared.g_tri_f, prepared.g_tri_i, prepared.g_off),
+    ):
+        n_rows = off[:, 0, -1].long()
+        live = torch.arange(rows_f.shape[1], device=dev)[None, :] < n_rows[:, None]
+        box = rows_f[..., coverage.RF_AABB:coverage.RF_AABB + 4].double()
+        xs = [o[0] for o in offsets]
+        ys = [o[1] for o in offsets]
+        pixels = (span(box[..., 0], box[..., 2], x0, lw, min(xs), max(xs))
+                  * span(box[..., 1], box[..., 3], y0, lh, min(ys), max(ys)))
+        samples = sum(
+            span(box[..., 0], box[..., 2], x0, lw, ox, ox)
+            * span(box[..., 1], box[..., 3], y0, lh, oy, oy)
+            for ox, oy in offsets
+        )
+        cls = rows_i[..., coverage.RI_CLASS].long().clamp(0, coverage.N_CLASSES - 1)
+        group = rows_i[..., coverage.RI_GROUP].long().clamp(0, desc_i.shape[0] - 1)
+        di = desc_i[group]                                  # (T, K, 16)
+        end_flag = (rows_i[..., coverage.RI_FLAGS] & coverage.FLAG_END_CAP) != 0
+        per_sample = sample_ops[cls] + torch.where(
+            cls == coverage.CLS_LINE_SOLID,
+            torch.where(end_flag, END_CAP_OPS + cap(di[..., 12]),
+                        START_CAP_OPS + cap(di[..., 11])),
+            0.0,
+        ) + torch.where(
+            (cls == coverage.CLS_LINE_SOLID + 1) | (cls == coverage.CLS_JOINT_SOLID + 1),
+            cap(di[..., 0]) + cap(di[..., 4]),
+            0.0,
+        )
+        ops = pixels * pixel_ops[cls] + samples * per_sample
+        total += float(torch.where(live, ops, 0.0).sum())
+    return total
+
+
+def cover_ops(coverage, spec, runtime, draws, work):
+    """Float operations of the cover bodies and the resolve, from the
+    samples the plain version's masks passed (rasterize_plain's
+    ``work``)."""
+    prepared, cmd_i, cmd_f, _, _ = runtime
+    ops = work.get("hull", 0) * HULL_LINE_OPS
+    compare = spec.depth_compare not in ("always", "never")
+    ops += work.get("depth", 0) * (DEPTH_PLANE_OPS + DEPTH_COMPARE_OPS * compare)
+    ops += work.get("blend", 0) * blend_ops(coverage, spec.blending)
+    for d, n in work.get("paint", {}).items():
+        code = int(cmd_i[int(draws.c_cmd[d]), 3])
+        if code >= 3:
+            ops += n * CHECKER_OPS
+            continue
+        stops = cmd_f[d, :16].reshape(4, 4)
+        segments = int((stops[1:] != stops[:-1]).any(-1).sum())
+        ops += n * (GRADIENT_OPS[code] + segments * GRADIENT_SEGMENT_OPS)
+    for op, n in work.get("alpha", {}).items():
+        ops += n * ALPHA_OP_OPS[op]
+    # Resolve: per pixel of an active tile and channel, S adds and a
+    # multiply; packed RGBA8 adds the clamp, scale, round and floor (5).
+    active = int((prepared.acount > 0).sum())
+    per_channel = spec.samples + 1 + (5 if spec.out_uint8 else 0)
+    ops += active * spec.tile_h * spec.tile_w * 4 * per_channel
+    return ops
+
+
+def kernel_bound(coverage, spec, runtime):
+    """The least time the card could take for coverage_raster's work on
+    this prepared frame: the larger of the bytes it must move (every
+    entry row in the tiles' ranges, the active tiles' range and class
+    tables, the per-draw tables, each read once, and the output written
+    once) over PEAK_BYTES_S, and the float operations this frame's data
+    needs (entry_ops over each entry's own samples, cover_ops over the
+    samples the plain version's masks passed) over PEAK_F32_OPS_S.
+    Returns (bound_ms, "bytes" or "operations", bytes, operations)."""
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    draws = coverage.draw_tables(spec)
+    work = {}
+    coverage.rasterize_plain(*raster_args(coverage, spec, runtime), work=work)
+    ops = entry_ops(coverage, spec, prepared, desc_i)
+    ops += cover_ops(coverage, spec, runtime, draws, work)
+    C = spec.n_commands
+    active = int((prepared.acount > 0).sum())
+    rows = int(prepared.off[:, 0, -1].long().sum() + prepared.g_off[:, 0, -1].long().sum())
+    tables = sum(int(t.numel()) * t.element_size() for t in (
+        prepared.hull_lines, prepared.paint_xy, prepared.zplane, cmd_i,
+        cmd_f, desc_f, desc_i,
+    ))
+    nbytes = (
+        rows * 4 * (coverage.D_F + coverage.D_I)
+        + active * 4 * (2 * (coverage.N_CLASSES * C + 1) + C
+                        + 2 * len(draws.c_cmd) + len(draws.unit_cmd) + 1)
+        + tables
+        + spec.n_tiles * spec.tile_h * spec.tile_w * (4 if spec.out_uint8 else 16)
+    )
+    byte_s, op_s = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s else "operations"), nbytes, ops
 
 
 def check_frame(image, height, width, label):
@@ -241,11 +480,25 @@ def main():
         fail(f"the port does not import from beside this script: {exc}")
 
     # ---- 2. build -------------------------------------------------------
+    KF = coverage.KernelFeatures
+    features = [
+        KF(4),                                   # phases 3-10
+        KF(4, depth=True),                       # showcase + depth
+        KF(4, paint_mode=1),                     # gradient card
+        KF(4, True, 2, (scenes.CHECKER_CUDA,)),  # mixed paints
+    ]
+    if "--ptxas-report" in sys.argv[1:]:
+        # For ptxas' report only: the depth and gradient builds at the
+        # other sample counts, where their registers and spills differ.
+        features += [KF(s, depth=True) for s in (1, 2, 8, 16)]
+        features += [KF(s, paint_mode=1) for s in (1, 2, 8, 16)]
     start = time.perf_counter()
-    coverage.build_kernel()
+    coverage.build_kernels(features)
     build_s = time.perf_counter() - start
-    print(f"build: coverage_raster loaded in {build_s:.1f} s", flush=True)
-    for _, log in cuda_build.build_logs.values():
+    print(f"build: {len(features)} coverage_raster libraries "
+          f"loaded in {build_s:.1f} s", flush=True)
+    for name, (seconds, log) in cuda_build.build_logs.items():
+        print(f"  {name}: built in {seconds:.1f} s", flush=True)
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
@@ -304,9 +557,6 @@ def main():
           f"rasterize_plain {plain_ms:.3f} ms, frame (cached binning) "
           f"median {frame_ms:.3f} ms, binning median {bin_ms:.3f} ms",
           flush=True)
-    fill_entry = dict(frame="config 2 (1,000 Bézier fills, 1920x1080)",
-                      launches=launches, max_abs_err=max_abs_err,
-                      ms=kernel_ms, plain_ms=plain_ms)
 
     # ---- 7. config 3: dashed strokes --------------------------------------
     paths, options = scenes.dashed_strokes(WIDTH, HEIGHT, seed=1)
@@ -407,8 +657,155 @@ def main():
     # ---- 10. timing of the new frames ---------------------------------------
     timed = {"config 3": (renderer3, commands3, spec3, runtime3, err3, launches3)}
     timed.update({k: v[:6] for k, v in shown.items()})
+    times = time_frames(coverage, timed, card)
+
+    # ---- 11. the showcase under the reference's depth state ----------------
+    paint_frames = {}
+    depth_cmds = shown["showcase"][1]
+    r = Renderer(
+        Configuration(depth_compare="less_equal", depth_write_enabled=True),
+        SHOWCASE_W, SHOWCASE_H, device="cuda",
+    )
+    depth_image = frame_phase(coverage, r, depth_cmds, "showcase + depth",
+                              SHOWCASE_H, SHOWCASE_W, paint_frames)
+    if not coverage.kernel_features(paint_frames["showcase + depth"][2]).depth:
+        fail("showcase + depth: the frame does not take the depth build")
+    changed = int((depth_image != shown["showcase"][6]).any(-1).sum())
+    print(f"showcase + depth: {changed} pixels differ from the frame without "
+          f"depth", flush=True)
+    if changed == 0:
+        fail("showcase + depth: the depth test changed no pixel")
+
+    # ---- 12. the gradient card -------------------------------------------------
+    card_cmds, (start_pt, end_pt) = scenes.gradient_card(SHOWCASE_W, SHOWCASE_H)
+    r = Renderer(Configuration(), SHOWCASE_W, SHOWCASE_H, device="cuda")
+    card_image = frame_phase(coverage, r, card_cmds, "gradient card",
+                             SHOWCASE_H, SHOWCASE_W, paint_frames)
+    if coverage.paint_mode(paint_frames["gradient card"][2]) != 1:
+        fail("gradient card: the frame does not take the gradient build")
+    # The card's two ends along its axis: on each end's corner arc, 3 px
+    # inside the card, where t is nearest 0 and 1.
+    axis = np.subtract(end_pt, start_pt)
+    unit = axis / np.linalg.norm(axis)
+    inset = scenes.CARD_RADIUS * SHOWCASE_H
+    corners = np.array([inset, -inset])
+    for sign, centre, (_, stop) in (
+        (-1.0, np.add(start_pt, corners), scenes.CARD_STOPS[0]),
+        (1.0, np.subtract(end_pt, corners), scenes.CARD_STOPS[-1]),
+    ):
+        x, y = centre + sign * (inset - 3.0) * unit
+        t_end = float(np.dot((x, y) - np.asarray(start_pt), axis) / np.dot(axis, axis))
+        got = card_image[int(SHOWCASE_H - y), int(x)].tolist()
+        off = max(abs(a - b) for a, b in zip(got, stop))
+        print(f"gradient card: colour at t = {t_end:.4f} of its axis "
+              f"{[round(v, 4) for v in got]}, stop {list(stop)}, max channel "
+              f"difference {off:.4f}", flush=True)
+        if not off <= 0.02:
+            fail("gradient card: the card's end does not match its stop")
+
+    # ---- 13. mixed paints with a user paint, under depth -----------------------
+    mixed_cmds = scenes.mixed_paints(WIDTH, HEIGHT)
+    r = Renderer(
+        Configuration(depth_compare="less_equal", depth_write_enabled=True),
+        WIDTH, HEIGHT, device="cuda",
+    )
+    mixed_image = frame_phase(coverage, r, mixed_cmds, "mixed paints",
+                              HEIGHT, WIDTH, paint_frames)
+    features = coverage.kernel_features(paint_frames["mixed paints"][2])
+    if features.user_sources != (scenes.CHECKER_CUDA,) or not features.depth:
+        fail("mixed paints: the frame does not take the user-paint build")
+    rgba8 = Renderer._quantize(mixed_image)
+    for rgb in ((204, 0, 204), (0, 204, 0)):
+        hits = int((rgba8[..., :3] == torch.tensor(rgb, device=rgba8.device,
+                                                   dtype=torch.uint8)).all(-1).sum())
+        print(f"mixed paints: checker colour {rgb}: {hits} pixels", flush=True)
+        if hits == 0:
+            fail(f"mixed paints: the checker colour {rgb} is missing")
+
+    # ---- 14. timing of the depth and paint frames ------------------------------
+    times.update(time_frames(coverage, paint_frames, card))
+
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        fail("jax was imported")
+    if any(m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
+           for m in sys.modules):
+        fail("a module of the JAX package was imported")
+
+    frames = {"config 2": (spec, runtime, launches, max_abs_err)}
+    frames.update({k: (v[2], v[3], v[5], v[4]) for k, v in timed.items()})
+    frames.update({k: (v[2], v[3], v[5], v[4]) for k, v in paint_frames.items()})
+    times["config 2"] = (kernel_ms, plain_ms)
+    bounds = {}
+    for label, (spec_v, runtime_v, _, _) in frames.items():
+        bounds[label] = kernel_bound(coverage, spec_v, runtime_v)
+        b_ms, b_by, nbytes, ops = bounds[label]
+        print(f"bound {label}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP "
+              f"-> {b_ms:.4f} ms ({b_by}); kernel {times[label][0]:.3f} ms",
+              flush=True)
+
+    def entry(name, line, label, frame):
+        _, _, launches_v, err_v = frames[label]
+        b_ms, b_by, _, _ = bounds[label]
+        return {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{TPU_KERNEL}:{line}", "frame": frame,
+            "launches": launches_v, "max_abs_err": err_v,
+            "ms": times[label][0], "plain_ms": times[label][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+
+    config2 = ("config 2", "config 2 (1,000 Bézier fills, 1920x1080)")
+    clip_alpha = ("showcase clip/alpha", "showcase clip/alpha variant, 3840x2160")
+    print(json.dumps({"kernels": [
+        entry("coverage_raster: tile driver and resolve", 1446, *config2),
+        entry("coverage_raster: fill stencil", 1672, *config2),
+        entry("coverage_raster: solid colour cover", 1894, *config2),
+        entry("coverage_raster: stroke stencil", 1511, "config 3",
+              "config 3 (60 dashed polylines, 1920x1080)"),
+        entry("coverage_raster: clip", 2109, *clip_alpha),
+        entry("coverage_raster: alpha groups", 2126, *clip_alpha),
+        entry("coverage_raster: depth", 1938, "showcase + depth",
+              "showcase with text, LessEqual + depth write, 3840x2160"),
+        entry("coverage_raster: gradient paints", 2037, "gradient card",
+              "gradient card (examples/gradients.py), 3840x2160"),
+        entry("coverage_raster: user paints", 2016, "mixed paints",
+              "mixed paints with the checker UserPaint, depth, 1920x1080"),
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+def frame_phase(coverage, renderer, commands, label, height, width, frames):
+    """Bin a frame on the card, hold the kernel against plain on it,
+    render it through Renderer.render (counting launches), and record it
+    in ``frames`` for timing.  Returns the rendered frame."""
+    import torch
+
+    start = time.perf_counter()
+    spec_v, _, runtime_v = renderer._prepare(commands)
+    torch.cuda.synchronize()
+    print(f"{label}: {len(commands)} commands, binned in "
+          f"{time.perf_counter() - start:.2f} s; spec tile "
+          f"{spec_v.tile_h}x{spec_v.tile_w} strips {spec_v.tile_strips}; "
+          f"build {coverage.kernel_features(spec_v).name}; stats "
+          f"{renderer.stats}", flush=True)
+    err_v = kernel_vs_plain(coverage, spec_v, runtime_v, label)
+    image, launches_v = render_main_path(
+        coverage, renderer, commands, label, height, width
+    )
+    frames[label] = (renderer, commands, spec_v, runtime_v, err_v, launches_v)
+    return image
+
+
+def time_frames(coverage, frames, card):
+    """Kernel, plain version, cached-binning frame (CUDA events and the
+    host clock with no synchronise) and one binning of each frame;
+    returns {label: (kernel ms, plain ms)}."""
     times = {}
-    for label, (r, cmds, spec_v, runtime_v, err_v, launches_v) in timed.items():
+    for label, (r, cmds, spec_v, runtime_v, _, _) in frames.items():
         args = raster_args(coverage, spec_v, runtime_v)
         k_ms = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
         p_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 1, 1, 0)
@@ -420,40 +817,7 @@ def main():
               f"rasterize_plain {p_ms:.3f} ms, frame (cached binning) "
               f"median {f_ms:.3f} ms, its host time median {h_ms:.3f} ms, "
               f"binning median {b_ms:.3f} ms", flush=True)
-
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
-
-    def entry(name, line, frame, launches, max_abs_err, ms, plain_ms):
-        return {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{TPU_KERNEL}:{line}", "frame": frame,
-            "launches": launches, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms,
-        }
-
-    def measured(label, frame):
-        _, _, _, _, err_v, launches_v = timed[label]
-        return dict(frame=frame, launches=launches_v, max_abs_err=err_v,
-                    ms=times[label][0], plain_ms=times[label][1])
-
-    config3 = measured("config 3", "config 3 (60 dashed polylines, 1920x1080)")
-    clip_alpha = measured(
-        "showcase clip/alpha", "showcase clip/alpha variant, 3840x2160"
-    )
-    print(json.dumps({"kernels": [
-        entry("coverage_raster: tile driver and resolve", 1446, **fill_entry),
-        entry("coverage_raster: fill stencil", 1672, **fill_entry),
-        entry("coverage_raster: solid colour cover", 1894, **fill_entry),
-        entry("coverage_raster: stroke stencil", 1511, **config3),
-        entry("coverage_raster: clip", 2109, **clip_alpha),
-        entry("coverage_raster: alpha groups", 2126, **clip_alpha),
-    ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    return times
 
 
 if __name__ == "__main__":

@@ -3,19 +3,20 @@
 
 The JAX package stays the reference.  This package reproduces its
 rendering path in PyTorch, with the coverage kernel written by hand in
-CUDA C++ for Hopper (``csrc/``).  It imports torch and never jax; the
-host modules that never import jax (``path``, ``curve``, ``fill``,
-``stroke``, ``vertex``, ``convex_hull``, ``dynamic_stroke``, ``error``,
-``oracle``, ``assets``, ``native``, ``utils``) are shared from
-``contrast_renderer_tpu`` rather than copied.
+CUDA C++ for Hopper (``csrc/``).  It imports torch and never jax, and
+nothing of the JAX package: the host modules it needs (``path``,
+``curve``, ``fill``, ``stroke``, ``vertex``, ``convex_hull``,
+``dynamic_stroke``, ``error``, ``oracle``, ``native``, ``text`` (layout
+only), ``ttf``, ``assets``, ``utils``) are its own copies.
 
-Ported so far: filled paths with solid colour through
-``Renderer.render`` (see ROADMAP.md for what follows).
+Ported so far: filled and stroked paths with solid, gradient and user
+paints, clips, alpha groups and depth, through ``Renderer.render`` (see
+ROADMAP.md for what follows).
 """
 
 __version__ = "0.1.0"
 
-from contrast_renderer_tpu.error import (  # noqa: F401
+from .error import (  # noqa: F401
     ERROR_MARGIN,
     ClipStackOverflow,
     ContrastError,
@@ -28,7 +29,8 @@ from contrast_renderer_tpu.error import (  # noqa: F401
 
 _RENDERER_NAMES = {
     "BlendComponent", "BlendState", "Configuration", "DrawCommand",
-    "RenderOperation", "Renderer", "Shape",
+    "LinearGradient", "RadialGradient", "RenderOperation", "Renderer",
+    "Shape", "UserPaint",
 }
 
 

@@ -1,8 +1,7 @@
 // coverage_raster: the coverage kernel, hand-written for Hopper (sm_90a).
 //
-// Replaces contrast_renderer_tpu/ops/coverage.py::make_rasterize.kernel for
-// frames without a depth test and with solid colour paints.  The bodies
-// ported here:
+// Replaces contrast_renderer_tpu/ops/coverage.py::make_rasterize.kernel,
+// every body of it:
 //   - the per-tile walk: the empty-tile path (acount == 0 writes zeros), the
 //     walk over the tile's active units (`aclist`), and the MSAA resolve to
 //     float or to packed RGBA8 (one int32 per pixel);
@@ -19,15 +18,24 @@
 //     unclip ops, gating every stencil update, colour cover and alpha op;
 //   - alpha groups: save, scale, save+scale and restore of frame alpha
 //     through L per-sample layer slots;
-//   - the solid colour cover: the tile's cover class, the hull lines set in
+//   - the colour cover: the tile's cover class, the hull lines set in
 //     `hbits`, the winding rule, the generic wgpu blend algebra (integer
 //     factor and operation codes, blend constant from cmd_f columns 20:24),
-//     and the winding reset of covered samples.
-// The wrapper (ops/coverage.py::coverage_raster) refuses every frame that
-// needs another body (depth, gradient and user paints).
+//     and the winding reset of covered samples;
+//   - depth: per sample the draw's NDC-z plane, one of the eight wgpu
+//     compare functions against the pixel's S depth values (cleared to 1.0
+//     per tile), joined into the cover mask, and the write of passing
+//     samples; only the colour cover tests and writes depth;
+//   - paints: solid colour, linear and radial gradients (t along the
+//     projected paint points, a ramp of up to four stops, premultiplied),
+//     and user paints, device functions that a generated compile unit
+//     defines before it includes this file (`user_paint`, see
+//     ops/coverage.py::_user_paint_unit).
 //
 // What bounds it on this card: ALU work per binned entry over the tile's
-// samples.  A fill entry costs each pixel three edge functions, up to four
+// samples.  A gradient cover adds per covered sample two or three divides,
+// a square root for radial paints, and the ramp (~40 operations); depth
+// adds three per sample for the plane and one compare.  A fill entry costs each pixel three edge functions, up to four
 // interpolated curve weights and S sample tests (~40-120 float operations).
 // A stroke entry costs far more: per sample a divide, two or three
 // texcoords and the cap, join and dash predicates (~60-250 operations,
@@ -68,8 +76,14 @@
 //     stroke rows compile the stroke classes out, as the reference's
 //     static specialisation does: the stroke code would otherwise raise
 //     the register count of fill-only frames (at S=4, 64 -> 128).  That
-//     makes six instantiations per sample count, 30 in all; each sample
-//     count compiles in its own nvcc process, all five at once.
+//     makes six instantiations per build.  A build holds one sample count
+//     and one feature set, chosen by the defines RASTER_SAMPLES,
+//     RASTER_DEPTH (the S depth registers and the test) and RASTER_PAINT (0
+//     solid only, 1 gradients, 2 gradients and user paints): a frame loads
+//     only the build it needs, and the depth and paint bodies never enter
+//     the registers of frames without them.  The compare function is a
+//     runtime argument, uniform over the grid and switched outside the
+//     sample loop, not a template parameter (eight times the builds).
 //   - Control flow depends only on the tile and the unit, never on the
 //     pixel, so the warps of a block never diverge on it; per-sample
 //     decisions are selects.  The one exception is the general dash's cap
@@ -84,6 +98,13 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef RASTER_DEPTH
+#define RASTER_DEPTH 0
+#endif
+#ifndef RASTER_PAINT
+#define RASTER_PAINT 0
+#endif
 
 namespace {
 
@@ -142,13 +163,18 @@ constexpr int F_ZERO = 0, F_ONE = 1, F_SRC_ALPHA = 2, F_ONE_MINUS_SRC_ALPHA = 3,
               F_SRC_ALPHA_SATURATED = 6, F_CONSTANT = 7,
               F_ONE_MINUS_CONSTANT = 8;
 constexpr int B_ADD = 0, B_SUBTRACT = 1, B_MIN = 3, B_MAX = 4;
+// Depth compare function codes (ops/coverage.py DEPTH_COMPARE_CODES).
+constexpr int CMP_NEVER = 0, CMP_LESS = 1, CMP_EQUAL = 2, CMP_LESS_EQUAL = 3,
+              CMP_GREATER = 4, CMP_NOT_EQUAL = 5, CMP_GREATER_EQUAL = 6;
+constexpr int MAX_STOPS = 4;
+constexpr int PAINT_RADIAL = 2;
 
 }  // namespace
 
 // Mirrored field for field by ops/coverage.py::_RasterArgs.
 struct RasterArgs {
-  const int* cmd_i;      // (C, 4): op, clip depth, alpha layer, paint
-  const float* cmd_f;    // (Rc, draw_cols): RGBA at columns 0:4
+  const int* cmd_i;      // (C, 4): op, clip depth, alpha layer, paint code
+  const float* cmd_f;    // (Rc, draw_cols): stop colours 0:16, offsets 16:20
   const float* hull;     // (Rc, hull_rows, 4) inward pixel-space lines
   const int* unit_cmd;   // (U,)
   const int* unit_draw;  // (U,) cover draw, -1 for a stencil unit
@@ -165,6 +191,8 @@ struct RasterArgs {
   const int* g_tri_i;    // (n_tiles, kgp, 8)
   const float* desc_f;   // (n_groups, 12) dash gaps, phase
   const int* desc_i;     // (n_groups, 16) caps, last interval, join
+  const float* paint_xy;  // (Rc, 4) paint points in pixels
+  const float* zplane;    // (Rc, 3) NDC-z plane a, b, c
   float* layers;         // layer_mode 0 with alpha ops: (L, S, n_tiles*th*tw)
   void* out;             // f32 (n_tiles, 4, th, tw) or i32 (n_tiles, th, tw)
   int n_tiles, ntx, th, tw, strips, lw, lh;
@@ -176,6 +204,8 @@ struct RasterArgs {
   // or alpha ops; 1, one alpha layer in registers; 0, layers in `layers`.
   // has_strokes: some stencil draw carries stroke rows.
   int has_clip, layer_mode, n_layers, has_strokes;
+  // depth_compare: a CMP_* code; depth_write: write passing samples.
+  int depth_compare, depth_write;
   float sample_x[MAX_SAMPLES];
   float sample_y[MAX_SAMPLES];
 };
@@ -217,6 +247,64 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+__device__ __forceinline__ float clip01(float x) {
+  return nan_min(nan_max(x, 0.0f), 1.0f);
+}
+
+// The depth test of one colour draw: bit s is set where the compare
+// function passes for the sample's fragment depth z[s] against buf[s].
+// cmp is uniform over the grid; the switch sits outside the sample loops.
+template <int S>
+__device__ __forceinline__ unsigned depth_pass(int cmp, const float (&z)[S],
+                                               const float (&buf)[S]) {
+  unsigned bits = 0u;
+#define DEPTH_CASE(CODE, OP)                                     \
+  case CODE:                                                     \
+    _Pragma("unroll") for (int s = 0; s < S; ++s)                \
+        bits |= (unsigned)(z[s] OP buf[s]) << s;                 \
+    break;
+  switch (cmp) {
+    case CMP_NEVER: break;
+    DEPTH_CASE(CMP_LESS, <)
+    DEPTH_CASE(CMP_EQUAL, ==)
+    DEPTH_CASE(CMP_LESS_EQUAL, <=)
+    DEPTH_CASE(CMP_GREATER, >)
+    DEPTH_CASE(CMP_NOT_EQUAL, !=)
+    DEPTH_CASE(CMP_GREATER_EQUAL, >=)
+    default: bits = ~0u;  // always
+  }
+#undef DEPTH_CASE
+  return bits;
+}
+
+// Gradient paint (reference _gradient_cover), straight RGBA at (px, py): t
+// along the draw's projected paint points (linear: start to end; radial:
+// centre to rim) clipped to [0, 1], then the piecewise-linear ramp of the
+// MAX_STOPS stops of its cmd_f row, each segment's length floored at 1e-6
+// (a hard stop).  Op for op as the reference, IEEE divide and sqrt.
+__device__ __forceinline__ void gradient_paint(const float* cf, const float* pxy,
+                                               bool radial, float px, float py,
+                                               float (&rgba)[4]) {
+  const float pax = pxy[0], pay = pxy[1];
+  const float pdx = pxy[2] - pax, pdy = pxy[3] - pay;
+  const float pden = nan_max(pdx * pdx + pdy * pdy, (float)1e-12);
+  const float rel_x = px - pax, rel_y = py - pay;
+  const float t = clip01(radial ? sqrtf((rel_x * rel_x + rel_y * rel_y) / pden)
+                                : (rel_x * pdx + rel_y * pdy) / pden);
+  float fs[MAX_STOPS - 1];
+#pragma unroll
+  for (int i = 0; i < MAX_STOPS - 1; ++i)
+    fs[i] = clip01((t - cf[16 + i]) / nan_max(cf[17 + i] - cf[16 + i], (float)1e-6));
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    float v = cf[ch];
+#pragma unroll
+    for (int i = 0; i < MAX_STOPS - 1; ++i)
+      v = v + (cf[4 * (i + 1) + ch] - cf[4 * i + ch]) * fs[i];
+    rgba[ch] = v;
+  }
 }
 
 // jnp.remainder: the truncated remainder moved into the sign of b.
@@ -544,7 +632,9 @@ __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
 // one alpha layer in registers; NL = 0: clip counters, alpha layers (if
 // any) in a.layers.  STROKES: the frame has stroke rows (without, the
 // stroke classes compile out and leave the fill path's registers alone).
-template <int S, int NL, bool STROKES>
+// DEPTH: the colour cover tests (and may write) S depth values per pixel.
+// PAINT: 0 solid colour only; 1 gradients; 2 gradients and user paints.
+template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
 __global__ void __launch_bounds__(BLOCK)
     coverage_raster_kernel(const RasterArgs a) {
   constexpr bool CA = NL >= 0;
@@ -599,9 +689,12 @@ __global__ void __launch_bounds__(BLOCK)
   float color[4][S];
   int clip[CA ? S : 1];
   float layer[NL > 0 ? NL : 1][S];
+  // The reference render pass clears depth to 1.0.
+  float zbuf[DEPTH ? S : 1];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     wind[s] = 0;
+    if constexpr (DEPTH) zbuf[s] = 1.0f;
 #pragma unroll
     for (int chan = 0; chan < 4; ++chan) color[chan][s] = 0.0f;
     if constexpr (CA) clip[s] = 0;
@@ -703,25 +796,71 @@ __global__ void __launch_bounds__(BLOCK)
     const float ca = cf[3];
 
     if (op == OP_COLOR) {
-      const float src[4] = {cf[0] * ca, cf[1] * ca, cf[2] * ca, ca};
+      // A solid colour (paint code 0) is premultiplied once per draw,
+      // outside the sample loop (inside it, fill-only frames ran 3% slower);
+      // other paints premultiply per sample.
+      const float solid[4] = {cf[0] * ca, cf[1] * ca, cf[2] * ca, ca};
       const float konst[4] = {
           a.uses_constant ? cf[20] : 0.0f, a.uses_constant ? cf[21] : 0.0f,
           a.uses_constant ? cf[22] : 0.0f, a.uses_constant ? cf[23] : 0.0f};
+      // Fragment depth: the draw's plane at each sample, (a*px + b*py) + c;
+      // the stencil pass op fires only where depth passes too, so the
+      // winding reset below takes the combined mask (depth_fail_op Keep).
+      float zv[DEPTH ? S : 1];
+      unsigned zpass = ~0u;
+      if constexpr (DEPTH) {
+        const float* zp = a.zplane + (size_t)d * 3;
+        const float za = zp[0], zb = zp[1], zc = zp[2];
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          zv[s] = za * (bx + a.sample_x[s]) + zb * (by + a.sample_y[s]) + zc;
+        zpass = depth_pass<S>(a.depth_compare, zv, zbuf);
+      }
+      // Paint code: 0 solid, 1 linear, 2 radial, 3 + i user paint i.
+      const int pk = PAINT > 0 ? a.cmd_i[c * 4 + 3] : 0;
+      const float* pxy = a.paint_xy + (size_t)d * 4;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         bool mask = in_hull[s] && (wind[s] & a.winding_mask) != 0;
         if constexpr (CA) mask = mask && clip[s] == depth;
+        if constexpr (DEPTH) mask = mask && ((zpass >> s) & 1u) != 0;
         if (!mask) continue;
+        float src[4] = {solid[0], solid[1], solid[2], solid[3]};
+        if constexpr (PAINT > 0) {
+          if (pk != 0) {
+            // Straight RGBA of the paint at the sample, premultiplied.
+            const float px = bx + a.sample_x[s], py = by + a.sample_y[s];
+            float rgba[4];
+#if RASTER_PAINT == 2
+            if (pk >= 3) {
+              const float4 u =
+                  user_paint(pk - 3, px, py, pxy[0], pxy[1], pxy[2], pxy[3]);
+              rgba[0] = u.x;
+              rgba[1] = u.y;
+              rgba[2] = u.z;
+              rgba[3] = u.w;
+            } else
+#endif
+              gradient_paint(cf, pxy, pk == PAINT_RADIAL, px, py, rgba);
+            src[0] = rgba[0] * rgba[3];
+            src[1] = rgba[1] * rgba[3];
+            src[2] = rgba[2] * rgba[3];
+            src[3] = rgba[3];
+          }
+        }
         const float da = color[3][s];
 #pragma unroll
         for (int chan = 0; chan < 4; ++chan) {
           const bool alpha = chan == 3;
           color[chan][s] = blend_channel(
               alpha ? a.alpha_src : a.color_src, alpha ? a.alpha_op : a.color_op,
-              alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], ca,
+              alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], src[3],
               da, chan, konst);
         }
         wind[s] = 0;
+        if constexpr (DEPTH) {
+          if (a.depth_write) zbuf[s] = zv[s];
+        }
       }
       continue;
     }
@@ -805,16 +944,21 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <int S, bool STROKES>
 cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
+  constexpr bool DEPTH = RASTER_DEPTH != 0;
+  constexpr int PAINT = RASTER_PAINT;
   const dim3 grid(a.n_tiles, (a.th * a.tw) / BLOCK);
   switch (a.layer_mode) {
     case -1:
-      coverage_raster_kernel<S, -1, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      coverage_raster_kernel<S, -1, STROKES, DEPTH, PAINT>
+          <<<grid, BLOCK, 0, stream>>>(a);
       break;
     case 0:
-      coverage_raster_kernel<S, 0, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>
+          <<<grid, BLOCK, 0, stream>>>(a);
       break;
     case 1:
-      coverage_raster_kernel<S, 1, STROKES><<<grid, BLOCK, 0, stream>>>(a);
+      coverage_raster_kernel<S, 1, STROKES, DEPTH, PAINT>
+          <<<grid, BLOCK, 0, stream>>>(a);
       break;
     default: return cudaErrorInvalidValue;
   }
@@ -823,29 +967,13 @@ cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The kernels of one sample count S (six instantiations: three layer
-// modes, with and without strokes) are compiled in a unit of their own,
-// built from this file with -DRASTER_SAMPLES=S; the five units and the
-// entry points (built without it) compile in parallel (cuda_build.py).
-template <int S>
-cudaError_t launch_samples(const RasterArgs& a, cudaStream_t stream);
-
-#ifdef RASTER_SAMPLES
-
-template <>
-cudaError_t launch_samples<RASTER_SAMPLES>(const RasterArgs& a,
-                                           cudaStream_t stream) {
-  return a.has_strokes ? launch_layers<RASTER_SAMPLES, true>(a, stream)
-                       : launch_layers<RASTER_SAMPLES, false>(a, stream);
-}
-
-#else
-
-template <> cudaError_t launch_samples<1>(const RasterArgs&, cudaStream_t);
-template <> cudaError_t launch_samples<2>(const RasterArgs&, cudaStream_t);
-template <> cudaError_t launch_samples<4>(const RasterArgs&, cudaStream_t);
-template <> cudaError_t launch_samples<8>(const RasterArgs&, cudaStream_t);
-template <> cudaError_t launch_samples<16>(const RasterArgs&, cudaStream_t);
+// One build holds the six instantiations (three layer modes, with and
+// without strokes) of the sample count RASTER_SAMPLES and the feature set
+// of RASTER_DEPTH and RASTER_PAINT; ops/coverage.py::build_kernel builds
+// and loads one per feature set a frame needs.
+#ifndef RASTER_SAMPLES
+#error "build with -DRASTER_SAMPLES=S (1, 2, 4, 8 or 16)"
+#endif
 
 extern "C" int coverage_raster_block_size() { return BLOCK; }
 
@@ -856,17 +984,10 @@ extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   const RasterArgs& a = *args;
   if (a.n_tiles <= 0 || (a.th * a.tw) % BLOCK != 0 ||
       a.th * a.tw / BLOCK > 65535 || a.n_groups < 1 || a.n_layers < 1 ||
-      (a.layer_mode > 0 && a.n_layers > a.layer_mode))
+      (a.layer_mode > 0 && a.n_layers > a.layer_mode) ||
+      a.samples != RASTER_SAMPLES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.samples) {
-    case 1: return (int)launch_samples<1>(a, s);
-    case 2: return (int)launch_samples<2>(a, s);
-    case 4: return (int)launch_samples<4>(a, s);
-    case 8: return (int)launch_samples<8>(a, s);
-    case 16: return (int)launch_samples<16>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(a.has_strokes ? launch_layers<RASTER_SAMPLES, true>(a, s)
+                             : launch_layers<RASTER_SAMPLES, false>(a, s));
 }
-
-#endif  // RASTER_SAMPLES

@@ -2,12 +2,15 @@
 
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) at first
 use, into ``contrast_renderer_tpu_torch/build/`` under a name keyed by a
-hash of its compile units and flags, and loaded with ``ctypes``.  A
-library is a list of compile units, each a source with its preprocessor
-defines; every unit gets its own ``nvcc``, all started together, and the
-objects are linked into one shared library.  The sources expose plain C
-entry points, so the build includes no PyTorch header.  A failed build
-raises; nothing falls back.
+hash of its compile units, the sources under ``csrc/`` and the flags,
+and loaded with ``ctypes``.  A library is a list of compile units, each
+a source with its preprocessor defines: a file under ``csrc/``, or one
+generated into ``build/`` (``generated_source``) that may include them.
+Every unit gets its own ``nvcc``, all started together, and the objects
+are linked into one shared library; libraries of different names build
+concurrently from several threads.  The sources expose plain C entry
+points, so the build includes no PyTorch header.  A failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR),
 )
 
 _lock = threading.Lock()
+#: One lock per library name: a library builds once, others meanwhile.
+_name_locks = {}
 _libraries = {}
 #: nvcc's output (ptxas register and spill report) and wall seconds of
 #: the builds this process ran, by library name.
@@ -56,11 +61,32 @@ def find_nvcc() -> str:
     )
 
 
+def generated_source(stem: str, text: str) -> Path:
+    """Write a generated compile unit into ``build/``, named by a hash of
+    its text, and return its path."""
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"{stem}-{digest}.cu"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".cu", dir=BUILD_DIR)
+        with os.fdopen(fd, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, path)
+    return path
+
+
+def _unit_path(src) -> Path:
+    return Path(src) if Path(src).is_absolute() else CSRC_DIR / src
+
+
 def library_path(name: str, units) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src, defines in units:
-        digest.update(" ".join((src, *defines)).encode())
-        digest.update((CSRC_DIR / src).read_bytes())
+        digest.update(" ".join((Path(src).name, *defines)).encode())
+        digest.update(_unit_path(src).read_bytes())
+    # A unit may include any source under csrc/.
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -76,7 +102,7 @@ def _build(name: str, units, path: Path) -> str:
         procs = [
             subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c",
-                 "-o", str(tmp / f"unit{i}.o"), str(CSRC_DIR / src)],
+                 "-o", str(tmp / f"unit{i}.o"), str(_unit_path(src))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for i, (src, defines) in enumerate(units)
@@ -101,17 +127,20 @@ def _build(name: str, units, path: Path) -> str:
 
 
 def load_library(name: str, units) -> ctypes.CDLL:
-    """The library built from ``units``, ``(source in csrc/, defines)``
-    pairs, compiled on first use."""
+    """The library built from ``units``, ``(source, defines)`` pairs (a
+    source is a file name under csrc/ or a generated unit's path),
+    compiled on first use."""
     with _lock:
-        lib = _libraries.get(name)
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        path = library_path(name, units)
+        lib = _libraries.get(path)
         if lib is not None:
             return lib
-        path = library_path(name, units)
         if not path.exists():
             start = time.perf_counter()
             log = _build(name, units, path)
             build_logs[name] = (time.perf_counter() - start, log)
         lib = ctypes.CDLL(str(path))
-        _libraries[name] = lib
+        _libraries[path] = lib
         return lib

@@ -3,7 +3,8 @@ World" glyphs, 46 instances under a perspective camera.
 
 The counterpart of ``contrast_renderer_tpu/models/showcase.py``, built on
 the port's Shape and DrawCommand; paths, text layout, the font and the
-camera matrices come from the shared jax-free modules.
+camera matrices come from this package's copies of the reference's host
+modules.
 
 Mirrors the reference's showcase example (examples/showcase/main.rs):
 the same paths (main.rs:59-94), the same dashed stroke group with
@@ -19,8 +20,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from contrast_renderer_tpu.assets import load_default_font
-from contrast_renderer_tpu.path import (
+from ..assets import load_default_font
+from ..path import (
     Cap,
     CurveApproximation,
     DashInterval,
@@ -29,16 +30,15 @@ from contrast_renderer_tpu.path import (
     Path,
     StrokeOptions,
 )
-from contrast_renderer_tpu.text import (
+from ..renderer import DrawCommand, RenderOperation, Shape
+from ..text import (
     Alignment,
     Font,
     Layout,
     Orientation,
     paths_of_text,
 )
-from contrast_renderer_tpu.utils import matrix
-
-from ..renderer import DrawCommand, RenderOperation, Shape
+from ..utils import matrix
 
 ROWS = 9
 COLUMNS = 5

@@ -16,12 +16,13 @@ match so that a reader finds each piece in both packages.
    (``csrc/coverage_raster.cu``) on CUDA tensors and runs
    ``rasterize_plain``, its plain torch version, on CPU tensors.
 
-The kernel bodies ported so far: the fill stencil, the stroke stencil
-(lines and joints; solid, single-interval and general dashes; caps and
-joins), clip and unclip, the alpha-group ops, and the solid colour
-cover.  Frames that need another body (a depth test or write, gradient
-or user paints, gate spans) raise ``NotImplementedError`` before any
-launch (``check_supported``).
+Every body of the reference kernel is ported: the fill stencil, the
+stroke stencil (lines and joints; solid, single-interval and general
+dashes; caps and joins), clip and unclip, the alpha-group ops, the depth
+test and write, and the colour cover with solid, gradient and user
+paints.  Frames with gate spans (host-side bracket gating, not a kernel
+body) raise ``NotImplementedError`` before any launch
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -30,14 +31,16 @@ import ctypes
 import dataclasses
 import functools
 import math
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from contrast_renderer_tpu.path import MAX_DASH_INTERVALS, TAU, Cap, Join
-from contrast_renderer_tpu.vertex import (
+from .. import cuda_build
+from ..path import MAX_DASH_INTERVALS, TAU, Cap, Join
+from ..vertex import (
     KIND_INTEGRAL_QUADRATIC,
     KIND_RATIONAL_CUBIC,
     KIND_RATIONAL_QUADRATIC,
@@ -45,8 +48,6 @@ from contrast_renderer_tpu.vertex import (
     KIND_STROKE_JOINT,
     KIND_STROKE_LINE,
 )
-
-from .. import cuda_build
 
 OP_STENCIL = 0
 OP_CLIP = 1
@@ -239,18 +240,49 @@ class FrameSpec:
 
 def check_supported(spec: FrameSpec):
     """Raise NotImplementedError, naming the ROADMAP item that ports it,
-    when ``spec`` needs a kernel body this slice does not have."""
-    reason = None
-    if spec.depth_write or spec.depth_compare != "always":
-        reason = "a depth test or depth write (ROADMAP.md, Queue 2 item 4: depth)"
-    elif any(spec.paints):
-        reason = "gradient or user paints (ROADMAP.md, Queue 2 item 5: non-solid paints)"
-    elif spec.gate_spans:
-        reason = "gate spans (ROADMAP.md, Queue 1 item 2: gate spans)"
-    if reason is not None:
+    when ``spec`` needs what the port does not have yet: gate spans."""
+    if spec.gate_spans:
         raise NotImplementedError(
-            f"the PyTorch/CUDA port cannot render {reason} yet"
+            "the PyTorch/CUDA port cannot render gate spans yet "
+            "(ROADMAP.md, Queue 1 item 1: gate spans)"
         )
+
+
+#: wgpu::CompareFunction names in the order of their kernel codes.
+DEPTH_COMPARE_CODES = {
+    name: code for code, name in enumerate((
+        "never", "less", "equal", "less_equal", "greater", "not_equal",
+        "greater_equal", "always",
+    ))
+}
+
+
+def has_depth(spec: FrameSpec) -> bool:
+    """Whether the frame tests or writes depth (the reference's static
+    ``has_depth``): the colour cover then keeps S depth values per
+    pixel, cleared to 1.0 per tile."""
+    return spec.depth_write or spec.depth_compare != "always"
+
+
+def user_paints(spec: FrameSpec):
+    """The frame's user paints with distinct ``fn``, in first-appearance
+    order: paint code 3 + i selects entry i (the reference's
+    ``user_fns``; renderer._pack_commands_runtime assigns the codes)."""
+    out, seen = [], set()
+    for p in spec.paints:
+        fn = getattr(p, "fn", None)
+        if fn is not None and id(fn) not in seen:
+            seen.add(id(fn))
+            out.append(p)
+    return out
+
+
+def paint_mode(spec: FrameSpec) -> int:
+    """The paint bodies a frame compiles in: 0 solid colour only, 1 with
+    gradients, 2 with gradients and user paints."""
+    if not any(spec.paints):
+        return 0
+    return 2 if user_paints(spec) else 1
 
 
 ALPHA_OPS = (OP_SAVE_ALPHA, OP_SCALE_ALPHA, OP_RESTORE_ALPHA, OP_SAVE_SCALE)
@@ -381,8 +413,9 @@ class PreparedFrame(NamedTuple):
     aclist: torch.Tensor   # (n_tiles, 1, U) active unit indices
     acount: torch.Tensor   # (n_tiles, 1, 1)
     hull_lines: torch.Tensor  # (Rc, Hm+2, 4) inward-oriented pixel lines
-    paint_xy: torch.Tensor    # (Rc, 4) gradient endpoints (zeros here)
-    zplane: torch.Tensor      # (Rc, 3) NDC-z planes (zeros here)
+    paint_xy: torch.Tensor    # (Rc, 4) paint points in pixels (zeros
+    #                           without paints)
+    zplane: torch.Tensor      # (Rc, 3) NDC-z planes (zeros without depth)
     overflow: torch.Tensor    # (4,) max local count, global count,
     #                           max tile globals, near-plane crossings
 
@@ -485,10 +518,84 @@ def _scatter_rows(n_rows, slots, values):
     return out
 
 
+def _det3(a):
+    """jnp.linalg.det of (..., 3, 3): the rule of Sarrus, term for term."""
+    return (a[..., 0, 0] * a[..., 1, 1] * a[..., 2, 2]
+            + a[..., 0, 1] * a[..., 1, 2] * a[..., 2, 0]
+            + a[..., 0, 2] * a[..., 1, 0] * a[..., 2, 1]
+            - a[..., 0, 2] * a[..., 1, 1] * a[..., 2, 0]
+            - a[..., 0, 0] * a[..., 1, 2] * a[..., 2, 1]
+            - a[..., 0, 1] * a[..., 1, 0] * a[..., 2, 2])
+
+
+def _solve3(a, b):
+    """x with a @ x = b for (R, 3, 3) ``a`` and (R, 3) ``b``: LU with
+    partial pivoting (LAPACK getrf: pivot on the largest magnitude,
+    scale the column by the pivot's reciprocal), then the unit-lower and
+    upper triangular solves, every step an elementwise torch op, so
+    that the CPU and the card round alike."""
+    a = a.clone()
+    b = b.clone()
+    rows = torch.arange(a.shape[0], device=a.device)
+    for k in range(3):
+        piv = k + torch.argmax(torch.abs(a[:, k:, k]), dim=1)
+        for m in (a, b):
+            head = m[rows, k].clone()
+            m[rows, k] = m[rows, piv]
+            m[rows, piv] = head
+        inv = 1.0 / a[:, k, k]
+        for i in range(k + 1, 3):
+            lik = a[:, i, k] * inv
+            a[:, i, k] = lik
+            for j in range(k + 1, 3):
+                a[:, i, j] = a[:, i, j] - lik * a[:, k, j]
+    y = [b[:, 0]]
+    for i in (1, 2):
+        acc = b[:, i]
+        for j in range(i):
+            acc = acc - a[:, i, j] * y[j]
+        y.append(acc)
+    x = [None, None, None]
+    for i in (2, 1, 0):
+        acc = y[i]
+        for j in range(i + 1, 3):
+            acc = acc - a[:, i, j] * x[j]
+        x[i] = acc / a[:, i, i]
+    return torch.stack(x, -1)
+
+
+def _project_points(points, ctf, W, H):
+    """Model-space (x, y) points (Rc, P, 2) through the draws' transforms
+    (Rc, 4, 4) into pixels (Rc, P, 2), with the homogeneous divide
+    guarded at |w| <= 1e-6 (the reference's gradient endpoints)."""
+    clip = _transform_points(points[..., 0], points[..., 1], ctf[:, None])
+    w = clip[..., 3]
+    inv_w = torch.where(torch.abs(w) > 1e-6, 1.0 / w, 0.0)
+    ndc = clip[..., :2] * inv_w[..., None]
+    return torch.stack(
+        [(ndc[..., 0] + 1.0) * (0.5 * W), (1.0 - ndc[..., 1]) * (0.5 * H)], -1
+    )
+
+
+def _depth_planes(ctf, W, H):
+    """Per cover draw, the NDC-z plane z = a·px + b·py + c (Rc, 3) of
+    planar model geometry (z = 0), solved from the transform rows with
+    no perspective divide: px·w = (x_clip + w)·W/2 and py·w = (w −
+    y_clip)·H/2 are affine over the model plane, so matching the
+    coefficients of (x, y, 1) in Z = a·(X + W)·W/2 + b·(W − Y)·H/2 + c·W
+    gives a 3×3 system.  A draw whose system is singular (|det| ≤ 1e-30)
+    gets the zero plane (reference coverage.py:1007-1043)."""
+    cols = [0, 1, 3]                       # coefficients over (x, y, 1)
+    xr, yr, zr, wr = (ctf[:, r][:, cols] for r in range(4))
+    a = torch.stack([(xr + wr) * (0.5 * W), (wr - yr) * (0.5 * H), wr], -1)
+    safe = torch.abs(_det3(a)) > 1e-30
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand_as(a)
+    solved = _solve3(torch.where(safe[:, None, None], a, eye), zr)
+    return torch.where(safe[:, None], solved, 0.0)
+
+
 def make_prepare(spec: FrameSpec):
-    # Bracket gating and depth planes are not ported.
-    if spec.gate_spans or spec.depth_write or spec.depth_compare != "always":
-        check_supported(spec)
+    check_supported(spec)
     C = spec.n_commands
     draws = draw_tables(spec)
     _row_base = draws.row_base
@@ -525,12 +632,9 @@ def make_prepare(spec: FrameSpec):
                 paint_model=None):
         """xy (Ns,T,3,2) aux (Ns,T,3,4) kind (Ns,T) meta (Ns,T,2)
         gbase (Ns,) hull (Ns,Hm,2) transforms (R,4,4) desc_static
-        (n_groups, 2), all tensors on one device."""
-        if paint_model is not None:
-            raise NotImplementedError(
-                "the PyTorch/CUDA port cannot bin gradient paints yet "
-                "(ROADMAP.md, Queue 2 item 5: non-solid paints)"
-            )
+        (n_groups, 2), all tensors on one device; paint_model (Rc,2,2)
+        the model-space paint points of each cover draw, or None when
+        every paint is solid."""
         dev = xy.device
         f32 = torch.float32
         i32 = torch.int32
@@ -896,10 +1000,16 @@ def make_prepare(spec: FrameSpec):
         hp = hull[idx(c_shape_np)]                       # (Rc, Hm, 2)
         ctf = transforms[idx(draws.c_row)]               # (Rc, 4, 4)
         Cc = Rc
-        # No paint model and no depth in this slice: zeros, as the
-        # reference leaves them when both are compiled out.
-        paint_xy = torch.zeros((Rc, 4), dtype=f32, device=dev)
-        zplane = torch.zeros((Rc, 3), dtype=f32, device=dev)
+        # Paint points projected as the hulls are, so paints ride the
+        # camera; zeros without paints, as in the reference.
+        if paint_model is None:
+            paint_xy = torch.zeros((Rc, 4), dtype=f32, device=dev)
+        else:
+            paint_xy = _project_points(paint_model, ctf, W, H).reshape(Rc, 4)
+        if has_depth(spec):
+            zplane = _depth_planes(ctf, W, H)
+        else:
+            zplane = torch.zeros((Rc, 3), dtype=f32, device=dev)
         hclip = _transform_points(hp[..., 0], hp[..., 1], ctf[:, None])
         # Sutherland–Hodgman clip of the convex hull against w > eps.
         H2 = Hm + 2
@@ -1033,11 +1143,6 @@ def make_prepare(spec: FrameSpec):
 #: wrapper adds one where it launches and nowhere else.
 raster_launches = 0
 
-#: The raster library's compile units: the entry points, and the
-#: kernels of each sample count in a unit of their own.
-_KERNEL_UNITS = (("coverage_raster.cu", ()),) + tuple(
-    ("coverage_raster.cu", (f"RASTER_SAMPLES={s}",)) for s in sorted(SAMPLE_PATTERNS)
-)
 _MAX_SAMPLES = 16
 
 
@@ -1048,8 +1153,8 @@ class _RasterArgs(ctypes.Structure):
         (name, ctypes.c_void_p) for name in (
             "cmd_i", "cmd_f", "hull", "unit_cmd", "unit_draw", "acount",
             "aclist", "off", "g_off", "bulk", "cls", "hbits", "tri_f",
-            "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i", "layers",
-            "out",
+            "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i", "paint_xy",
+            "zplane", "layers", "out",
         )
     ] + [
         (name, ctypes.c_int) for name in (
@@ -1059,6 +1164,7 @@ class _RasterArgs(ctypes.Structure):
             "color_src", "color_op", "color_dst",
             "alpha_src", "alpha_op", "alpha_dst", "uses_constant",
             "has_clip", "layer_mode", "n_layers", "has_strokes",
+            "depth_compare", "depth_write",
         )
     ] + [
         ("sample_x", ctypes.c_float * _MAX_SAMPLES),
@@ -1066,23 +1172,96 @@ class _RasterArgs(ctypes.Structure):
     ]
 
 
-_library = None
+class KernelFeatures(NamedTuple):
+    """What one build of the raster kernel holds: the kernels of one
+    sample count, with or without the depth body, with the paint bodies
+    of ``paint_mode`` and, in mode 2, the device functions of these user
+    paint sources (paint code 3 + i runs source i).  Each library holds
+    six instantiations: three layer modes, with and without strokes."""
+
+    samples: int
+    depth: bool = False
+    paint_mode: int = 0
+    user_sources: tuple = ()
+
+    @property
+    def name(self):
+        return f"coverage_raster_s{self.samples}_d{int(self.depth)}_p{self.paint_mode}"
 
 
-def build_kernel():
-    """The raster kernel's library, typed for ctypes; the first call
-    builds it with nvcc (or loads the cached build)."""
-    global _library
-    if _library is None:
-        lib = cuda_build.load_library("coverage_raster", _KERNEL_UNITS)
+def kernel_features(spec: FrameSpec) -> KernelFeatures:
+    """The library a frame needs.  Raises ValueError for a user paint
+    without a ``cuda`` source: it has no kernel, and the card never
+    falls back to the plain version."""
+    mode = paint_mode(spec)
+    sources = []
+    for paint in user_paints(spec) if mode == 2 else ():
+        if getattr(paint, "cuda", None) is None:
+            raise ValueError(
+                "a UserPaint without a `cuda` device function cannot be "
+                "rendered on a CUDA device"
+            )
+        sources.append(paint.cuda)
+    return KernelFeatures(spec.samples, has_depth(spec), mode, tuple(sources))
+
+
+def _user_paint_unit(sources):
+    """The generated compile unit of a user-paint library: each source
+    in a namespace of its own, a switch on the paint index, then the
+    kernel source itself."""
+    parts = ["// Generated by coverage.py::_user_paint_unit.",
+             "#include <cuda_runtime.h>"]
+    for i, src in enumerate(sources):
+        parts += [f"namespace user_paint_{i} {{", src, f"}}  // namespace user_paint_{i}"]
+    parts += [
+        "__device__ __forceinline__ float4 user_paint(int index, float px, float py,",
+        "                                             float x0, float y0, float x1,",
+        "                                             float y1) {",
+        "  switch (index) {",
+    ]
+    parts += [f"    case {i}: return user_paint_{i}::paint(px, py, x0, y0, x1, y1);"
+              for i in range(len(sources))]
+    parts += ["    default: return make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+              "  }", "}", '#include "coverage_raster.cu"', ""]
+    return "\n".join(parts)
+
+
+_libraries = {}
+
+
+def build_kernel(features: KernelFeatures):
+    """The raster kernel's library for ``features``, typed for ctypes;
+    the first call builds it with nvcc (or loads the cached build)."""
+    lib = _libraries.get(features)
+    if lib is None:
+        defines = (
+            f"RASTER_SAMPLES={features.samples}",
+            f"RASTER_DEPTH={int(features.depth)}",
+            f"RASTER_PAINT={features.paint_mode}",
+        )
+        if features.paint_mode == 2:
+            unit = cuda_build.generated_source(
+                "user_paints", _user_paint_unit(features.user_sources)
+            )
+        else:
+            unit = "coverage_raster.cu"
+        lib = cuda_build.load_library(features.name, ((unit, defines),))
         lib.coverage_raster_launch.argtypes = [
             ctypes.POINTER(_RasterArgs), ctypes.c_void_p,
         ]
         lib.coverage_raster_launch.restype = ctypes.c_int
         lib.coverage_raster_block_size.argtypes = []
         lib.coverage_raster_block_size.restype = ctypes.c_int
-        _library = lib
-    return _library
+        _libraries[features] = lib
+    return lib
+
+
+def build_kernels(features):
+    """Build the libraries of several feature sets at once (one nvcc
+    each, all started together); returns them in order."""
+    features = list(features)
+    with ThreadPoolExecutor(max_workers=max(1, len(features))) as pool:
+        return list(pool.map(build_kernel, features))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1117,6 +1296,8 @@ def _raster_shapes(spec: FrameSpec, draws: DrawTables):
         "aclist": ((n_tiles, 1, U), i32),
         "acount": ((n_tiles, 1, 1), i32),
         "hull_lines": ((Rc, spec.h_max + 2, 4), f32),
+        "paint_xy": ((Rc, 4), f32),
+        "zplane": ((Rc, 3), f32),
         "cmd_i": ((C, 4), i32),
         "cmd_f": ((Rc, 24 if blend_uses_constant(spec.blending) else 20), f32),
         "unit_cmd": ((U,), i32),
@@ -1175,7 +1356,8 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     f32 and (G, DESC_I) i32.
 
     CUDA tensors launch the kernel of csrc/coverage_raster.cu on the
-    current stream; CPU tensors run ``rasterize_plain``."""
+    current stream (the build of ``kernel_features(spec)``); CPU tensors
+    run ``rasterize_plain``."""
     global raster_launches
     check_supported(spec)
     draws, expected = _raster_plan(spec)
@@ -1191,7 +1373,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         )
     if device.type != "cuda":
         raise ValueError(f"coverage_raster takes CPU or CUDA tensors, not {device}")
-    lib = build_kernel()
+    lib = build_kernel(kernel_features(spec))
     block = lib.coverage_raster_block_size()
     if (spec.tile_h * spec.tile_w) % block:
         raise ValueError(
@@ -1219,6 +1401,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             "cmd_i", "cmd_f", "hull_lines", "unit_cmd", "unit_draw",
             "acount", "aclist", "off", "g_off", "bulk", "cls", "hbits",
             "tri_f", "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i",
+            "paint_xy", "zplane",
         )),
         None if layers is None else layers.data_ptr(),
         out.data_ptr(),
@@ -1231,6 +1414,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
         *codes, int(blend_uses_constant(spec.blending)),
         int(has_clip), mode, n_layers, int(spec.has_strokes),
+        DEPTH_COMPARE_CODES[spec.depth_compare], int(spec.depth_write),
     )
     args.sample_x[:spec.samples] = offsets[:, 0].tolist()
     args.sample_y[:spec.samples] = offsets[:, 1].tolist()
@@ -1296,6 +1480,14 @@ def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
                 keep = keep & (xs * xs * xs - ys * zs * ws <= 0.0)
         deltas.append(torch.where(keep, contrib, 0).sum(1, dtype=torch.int32))
     return torch.stack(deltas, 1)
+
+
+def _sqrt(x):
+    """The correctly rounded float32 square root (the kernel's sqrtf and
+    the reference's XLA sqrt): torch.sqrt on the CPU may be off by one
+    ulp, so the root is taken in float64 and rounded once to float32,
+    which is exact for float32 inputs."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _remainder(a, b):
@@ -1399,7 +1591,7 @@ def _stroke_keep(joint, dash_mode, df, di, flags, end_y, tex):
     predicate (joints), the dash pattern, or the start and end caps."""
     dash = (None, _dash_mask_single, _dash_mask_general)[dash_mode]
     if joint:
-        radius = torch.sqrt(tex[0] * tex[0] + tex[1] * tex[1])
+        radius = _sqrt(tex[0] * tex[0] + tex[1] * tex[1])
         join = di[..., 10:11]
         is_tip = (flags & FLAG_JOINT_TIP) != 0
         is_bevel = join == int(Join.BEVEL)
@@ -1480,17 +1672,73 @@ def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
     return torch.stack(covered, 1)
 
 
+def _depth_pass(compare, zval, zbuf):
+    """The depth test of the colour cover: where ``compare`` (a
+    wgpu::CompareFunction name) passes for the fragment depth ``zval``
+    against the buffer."""
+    if compare == "never":
+        return torch.zeros_like(zval, dtype=torch.bool)
+    if compare == "always":
+        return torch.ones_like(zval, dtype=torch.bool)
+    return {
+        "less": torch.lt, "equal": torch.eq, "less_equal": torch.le,
+        "greater": torch.gt, "not_equal": torch.ne, "greater_equal": torch.ge,
+    }[compare](zval, zbuf)
+
+
+def _gradient(kind, row, anchor, px, py):
+    """Straight RGBA of a gradient paint at the sample positions: t
+    along the projected points (1 linear: start to end; 2 radial: centre
+    to rim), clipped to [0, 1], through the piecewise-linear ramp of the
+    MAX_STOPS stops in ``row`` (colours at columns 0:16, offsets at
+    16:20; an empty segment is a hard stop, its length floored at 1e-6).
+    The reference's ``_gradient_cover``, op for op."""
+    pax, pay = anchor[0], anchor[1]
+    pdx = anchor[2] - pax
+    pdy = anchor[3] - pay
+    pden = torch.clamp(pdx * pdx + pdy * pdy, min=1e-12)
+    rel_x = px - pax
+    rel_y = py - pay
+    if kind == 2:
+        t = _sqrt((rel_x * rel_x + rel_y * rel_y) / pden)
+    else:
+        t = (rel_x * pdx + rel_y * pdy) / pden
+    t = torch.clamp(t, 0.0, 1.0)
+    fs = [
+        torch.clamp(
+            (t - row[16 + i]) / torch.clamp(row[17 + i] - row[16 + i], min=1e-6),
+            0.0, 1.0,
+        )
+        for i in range(MAX_STOPS - 1)
+    ]
+    out = []
+    for ch in range(4):
+        value = row[ch]
+        for i in range(MAX_STOPS - 1):
+            value = value + (row[4 * (i + 1) + ch] - row[4 * i + ch]) * fs[i]
+        out.append(value)
+    return out
+
+
 #: Entries the plain version evaluates per step (bounds the size of its
 #: (tiles, batch, pixels) temporaries).
 PLAIN_BATCH = 8
 
 
 def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
-                    desc_f, desc_i):
+                    desc_f, desc_i, work=None):
     """The plain torch version of coverage_raster (same arguments, same
     output).  Vectorised over tiles: it walks the units in draw order,
     and applies each unit to the tiles whose active list holds it, which
-    is the kernel's per-tile walk over ``aclist``."""
+    is the kernel's per-tile walk over ``aclist``.
+
+    ``work``, where given, is a dict that receives how many samples each
+    part of the cover bodies needed on this frame (chip_smoke.py's bound
+    counts operations from it): ``"hull"``, hull-line tests at the
+    samples whose other cover conditions hold; ``"depth"``, depth tests
+    at the samples inside the hull with a nonzero winding; ``"blend"``,
+    blended samples; ``"paint"``, {cover draw: blended samples} for
+    non-solid paints; ``"alpha"``, {op: updated samples} for alpha ops."""
     check_supported(spec)
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
@@ -1505,6 +1753,8 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     uses_const = blend_uses_constant(spec.blending)
     has_clip, has_alpha = clip_alpha_ops(spec)
     n_layers = max(1, spec.n_layers)
+    with_depth = has_depth(spec)
+    user_fns = [p.fn for p in user_paints(spec)]
 
     # Pixel coordinates of each lane (strip layout: lane l of row r is
     # screen pixel (x0 + l % lw, y0 + (l // lw)·th + r)).
@@ -1542,6 +1792,8 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         torch.zeros((n_layers, n_tiles, S, P), dtype=f32, device=dev)
         if has_alpha else None
     )
+    # The reference render pass clears depth to 1.0.
+    zbuf = torch.ones((n_tiles, S, P), dtype=f32, device=dev) if with_depth else None
     off = prepared.off.reshape(n_tiles, -1).long()
     g_off = prepared.g_off.reshape(n_tiles, -1).long()
     tables = (
@@ -1604,6 +1856,24 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             in_hull = in_hull | (boundary[:, None, None] & ok)
         return in_hull
 
+    def count(key, n, sub=None):
+        if sub is None:
+            work[key] = work.get(key, 0) + int(n)
+        else:
+            table = work.setdefault(key, {})
+            table[sub] = table.get(sub, 0) + int(n)
+
+    def count_hull(sel, d, pre):
+        """Hull-line tests of the samples ``pre`` in draw d's boundary
+        tiles: one per line set in the tile's ``hbits``."""
+        bits = prepared.hbits[sel, 0, d].long() & 0xFFFFFFFF
+        lines = sum((bits >> h) & 1 for h in range(prepared.hull_lines.shape[1]))
+        lines = lines * (prepared.cls[sel, 0, d] == 1)
+        if pre is None:
+            count("hull", lines.sum() * S * P)
+        else:
+            count("hull", (lines[:, None, None] * pre).sum())
+
     unit_cmd_h = unit_cmd.tolist()
     unit_draw_h = unit_draw.tolist()
     cmd_i_h = cmd_i.tolist()
@@ -1624,11 +1894,36 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         nonzero = (w & winding_mask) != 0
         ca = cmd_f[d, 3]
         if op == OP_COLOR:
-            mask = in_hull & nonzero
-            if clip_ok is not None:
-                mask = mask & clip_ok
+            pre = nonzero if clip_ok is None else nonzero & clip_ok
+            mask = in_hull & pre
+            if work is not None:
+                count_hull(sel, d, pre)
+                if with_depth:
+                    count("depth", mask.sum())
+            if with_depth:
+                zp = prepared.zplane[d]
+                zval = zp[0] * px[sel] + zp[1] * py[sel] + zp[2]
+                mask = mask & _depth_pass(spec.depth_compare, zval, zbuf[sel])
             row = cmd_f[d]
-            src = (row[0] * ca, row[1] * ca, row[2] * ca, ca)
+            pk = cmd_i_h[c][3]
+            if work is not None:
+                count("blend", mask.sum())
+                if pk != 0:
+                    count("paint", mask.sum(), d)
+            if pk == 0:
+                src, sa = (row[0] * ca, row[1] * ca, row[2] * ca, ca), ca
+            else:
+                anchor = tuple(prepared.paint_xy[d])
+                if pk >= 3:
+                    rgba = user_fns[pk - 3](px[sel], py[sel], anchor)
+                else:
+                    rgba = _gradient(pk, row, anchor, px[sel], py[sel])
+                rgba = torch.broadcast_tensors(
+                    *(torch.as_tensor(v, dtype=f32, device=dev) for v in rgba),
+                    mask,
+                )[:4]
+                sa = rgba[3]
+                src = (rgba[0] * sa, rgba[1] * sa, rgba[2] * sa, sa)
             const = tuple(row[20:24]) if uses_const else None
             dst = color[:, sel]
             color[:, sel] = torch.stack([
@@ -1636,22 +1931,30 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                     mask,
                     _blend_channel(
                         blend_alpha if chan == 3 else blend_color,
-                        src[chan], dst[chan], ca, dst[3], chan, const,
+                        src[chan], dst[chan], sa, dst[3], chan, const,
                     ),
                     dst[chan],
                 )
                 for chan in range(4)
             ])
             wind[sel] = torch.where(mask, 0, w)
+            if with_depth and spec.depth_write:
+                zbuf[sel] = torch.where(mask, zval, zbuf[sel])
         elif op in (OP_CLIP, OP_UNCLIP):
             # Clip promotes winding != 0 into the clip counter, unclip
             # demotes deeper samples; neither is gated by clip_ok.
             cd = clip[sel]
-            mask = in_hull & (nonzero if op == OP_CLIP else cd > depth)
+            pre = nonzero if op == OP_CLIP else cd > depth
+            mask = in_hull & pre
+            if work is not None:
+                count_hull(sel, d, pre)
             clip[sel] = torch.where(mask, depth, cd)
             wind[sel] = torch.where(mask, 0, w)
         elif op in ALPHA_OPS:
             mask = in_hull if clip_ok is None else in_hull & clip_ok
+            if work is not None:
+                count_hull(sel, d, clip_ok)
+                count("alpha", mask.sum(), op)
             # _validate bounds the layer of every alpha op; the clamp
             # keeps an unvalidated one inside the state, as the kernel.
             li = min(max(layer_ix, 0), n_layers - 1)

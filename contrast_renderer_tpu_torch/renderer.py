@@ -15,12 +15,11 @@ names and attributes.  A frame runs in three stages:
    version runs instead.
 
 The port renders filled and stroked paths (solid and dashed strokes,
-all caps and joins) with solid colour, inside nested clips and alpha
-groups.  Frames with a depth test or write, or gradient or user paints,
-raise ``NotImplementedError`` before anything runs, naming the ROADMAP
-item that ports them.  Clip and alpha frames render ungated: the
-reference's per-tile bracket gating (``gate_spans``) leaves the image
-unchanged by its own contract and is not ported yet.
+all caps and joins) with solid colour, linear and radial gradients and
+user paints, under any depth state, inside nested clips and alpha
+groups.  Clip and alpha frames render ungated: the reference's per-tile
+bracket gating (``gate_spans``) leaves the image unchanged by its own
+contract and is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,24 +33,23 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from contrast_renderer_tpu import dynamic_stroke as ds
-from contrast_renderer_tpu import native
-from contrast_renderer_tpu.convex_hull import andrew, outer_polygon
-from contrast_renderer_tpu.error import (
+from . import dynamic_stroke as ds
+from . import native
+from .convex_hull import andrew, outer_polygon
+from .error import (
     ClipStackOverflow,
     DynamicStrokeOptionsIndexOutOfBounds,
     NumberOfStencilBitsIsUnsupported,
     TooManyNestedOpacityGroups,
     require_finite,
 )
-from contrast_renderer_tpu.fill import FillBuilder
-from contrast_renderer_tpu.path import DynamicStrokeOptions, Path, SegmentType
-from contrast_renderer_tpu.stroke import StrokeBuilder
-from contrast_renderer_tpu.vertex import (
+from .fill import FillBuilder
+from .ops import coverage
+from .path import DynamicStrokeOptions, Path, SegmentType
+from .stroke import StrokeBuilder
+from .vertex import (
     KIND_INTEGRAL_QUADRATIC, KIND_SOLID, KIND_STROKE_LINE, TriangleTable,
 )
-
-from .ops import coverage
 
 logger = logging.getLogger("contrast_renderer_tpu_torch")
 
@@ -131,8 +129,122 @@ class BlendState:
         )
 
 
-#: Gradient stop budget per paint.
-MAX_GRADIENT_STOPS = 4
+#: Gradient stop budget per paint (the kernel's unrolled ramp).
+MAX_GRADIENT_STOPS = coverage.MAX_STOPS
+
+
+def _normalize_stops(color0, color1, stops):
+    """(offsets (4,), colors (4, 4)) from either the 2-color shorthand
+    or an explicit ``stops`` sequence of (offset, rgba)."""
+    if stops is None:
+        stops = ((0.0, color0), (1.0, color1))
+    if not 2 <= len(stops) <= MAX_GRADIENT_STOPS:
+        raise ValueError(
+            f"gradients take 2..{MAX_GRADIENT_STOPS} stops, got {len(stops)}"
+        )
+    offsets = np.asarray([s[0] for s in stops], np.float32)
+    if np.any(np.diff(offsets) < 0.0):
+        raise ValueError("gradient stop offsets must be non-decreasing")
+    if offsets[0] < 0.0 or offsets[-1] > 1.0:
+        # The kernel clamps t to [0, 1]; stops outside it are
+        # unreachable or degenerate.
+        raise ValueError("gradient stop offsets must lie in [0, 1]")
+    colors = np.asarray([s[1] for s in stops], np.float32)
+    if colors.shape != (len(stops), 4):
+        raise ValueError("gradient stop colors must be RGBA")
+    pad = MAX_GRADIENT_STOPS - len(stops)
+    offsets = np.concatenate([offsets, np.repeat(offsets[-1:], pad)])
+    colors = np.concatenate([colors, np.repeat(colors[-1:], pad, axis=0)])
+    return offsets, colors
+
+
+@dataclass(frozen=True)
+class LinearGradient:
+    """Linear gradient paint for COLOR covers: ``start``/``end`` are
+    model-space points, projected with the draw's transform; the paint
+    ramps from ``color0`` at or before ``start`` to ``color1`` at or
+    after ``end``, per MSAA sample, then is premultiplied.  ``stops``
+    (up to MAX_GRADIENT_STOPS ``(offset, rgba)`` pairs, offsets
+    non-decreasing in [0, 1]) replaces the 2-color shorthand.  Pass as
+    ``DrawCommand(color=LinearGradient(...))``."""
+
+    start: Tuple[float, float]
+    end: Tuple[float, float]
+    color0: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
+    color1: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    stops: object = None
+    kind = 1
+
+    def __post_init__(self):
+        self.stop_table()  # validate stop count and order at construction
+
+    def points(self):
+        return np.asarray([self.start, self.end], np.float32)
+
+    def stop_table(self):
+        return _normalize_stops(self.color0, self.color1, self.stops)
+
+
+@dataclass(frozen=True)
+class RadialGradient:
+    """Radial gradient paint: ``color0`` at ``center`` ramping to
+    ``color1`` at or beyond the rim point ``edge`` (model space; a rim
+    point, not a radius, projects correctly under the draw transform).
+    ``stops`` as in :class:`LinearGradient`, offsets centre to rim."""
+
+    center: Tuple[float, float]
+    edge: Tuple[float, float]
+    color0: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
+    color1: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    stops: object = None
+    kind = 2
+
+    def __post_init__(self):
+        self.stop_table()  # validate stop count and order at construction
+
+    def points(self):
+        return np.asarray([self.center, self.edge], np.float32)
+
+    def stop_table(self):
+        return _normalize_stops(self.color0, self.color1, self.stops)
+
+
+class UserPaint:
+    """A user-defined paint of screen position, for COLOR covers: the
+    reference's user-defined fragment shaders, as a function evaluated
+    per MSAA sample inside the colour cover.  It comes in two forms, one
+    per device:
+
+    - ``fn(px, py, anchor) -> (r, g, b, a)`` runs with the plain version
+      on the CPU: ``px``/``py`` are float32 tensors of sample positions
+      in pixels, ``anchor`` four scalar tensors (x0, y0, x1, y1), the two
+      model-space ``points`` projected through the draw's transform per
+      instance, as gradient endpoints are.  It returns straight
+      (non-premultiplied) RGBA, tensors or floats broadcastable against
+      ``px``, computed elementwise in float32.
+    - ``cuda`` runs in the kernel on the card: the CUDA C++ source of
+      ``__device__ float4 paint(float px, float py, float x0, float y0,
+      float x1, float y1)`` returning the same straight RGBA, built
+      with ``--fmad=false`` into the kernel (each distinct source once,
+      keyed by its text).  Render it on a CUDA device only with it: a
+      UserPaint without ``cuda`` raises there before anything runs.
+
+    The two should compute the same function, step for step, for the
+    card to match the CPU.  The kernel premultiplies by the returned
+    alpha and feeds the active blend state.  UserPaints sharing one
+    ``fn`` object share a paint code (the anchor stays per draw)."""
+
+    kind = 3
+
+    def __init__(self, fn, points=((0.0, 0.0), (1.0, 0.0)), cuda=None):
+        self.fn = fn
+        self.cuda = cuda
+        self._points = np.asarray(points, np.float32)
+        if self._points.shape != (2, 2):
+            raise ValueError("UserPaint points must be two (x, y) pairs")
+
+    def points(self):
+        return self._points
 
 
 def _paint_kind(color) -> int:
@@ -141,9 +253,10 @@ def _paint_kind(color) -> int:
 
 def _spec_paint(color):
     """FrameSpec.paints entry for a command color: the builtin kind
-    int, or the paint object itself for user paints."""
+    int, or the UserPaint itself (its ``fn`` identity selects the code
+    path, its ``cuda`` source the kernel build)."""
     kind = _paint_kind(color)
-    return color if kind >= 3 else kind
+    return color if kind >= UserPaint.kind else kind
 
 
 #: The named shorthands as BlendStates.
@@ -217,7 +330,7 @@ def _is_glyph_style(path: Path) -> bool:
 
 
 def _native_fill_batch(paths, proto_hull):
-    """Tessellate glyph-style paths with the shared native C++ kernel in
+    """Tessellate glyph-style paths with the native C++ tessellator in
     one batched call (bit-equivalent to FillBuilder's output)."""
     offsets = [0]
     starts, kinds, points = [], [], []
@@ -258,9 +371,11 @@ def _native_fill_batch(paths, proto_hull):
 class Shape:
     """A set of paths always rendered together (reference Shape,
     renderer.rs:163-249): one triangle table (stroke triangles first)
-    and the convex hull the cover operations use.  Tessellation is the
-    shared FillBuilder, StrokeBuilder and native tessellator, so the
-    tables equal the JAX package's bit for bit."""
+    and the convex hull the cover operations use.  Tessellation is this
+    package's copy of the reference's FillBuilder, StrokeBuilder and
+    native tessellator, so the tables equal the JAX package's bit for
+    bit.  Paths must be this package's ``path.Path``: the builders
+    dispatch on its segment types by identity."""
 
     _uid_counter = iter(range(1, 1 << 62))
 
@@ -283,6 +398,12 @@ class Shape:
     ):
         """Re-tessellate this Shape in place; renderers notice via the
         geometry version and re-upload only this shape's tables."""
+        for path in paths:
+            if not isinstance(path, Path):
+                raise TypeError(
+                    "Shape takes contrast_renderer_tpu_torch.path.Path, got "
+                    f"{type(path).__module__}.{type(path).__qualname__}"
+                )
         proto_hull: List = []
         stroke_builder = StrokeBuilder()
         fill_builder = FillBuilder()
@@ -632,10 +753,20 @@ class Renderer:
             ) and command.alpha_layer >= config.alpha_layer_count:
                 raise TooManyNestedOpacityGroups(str(command.alpha_layer))
             if _paint_kind(command.color):
-                raise NotImplementedError(
-                    "the PyTorch/CUDA port cannot render gradient or user "
-                    "paints yet (ROADMAP.md, Queue 2 item 5: non-solid paints)"
-                )
+                if command.operation != RenderOperation.COLOR:
+                    raise ValueError(
+                        "gradient paints apply only to Color commands"
+                    )
+                if (
+                    self.device.type == "cuda"
+                    and _paint_kind(command.color) >= UserPaint.kind
+                    and command.color.cuda is None
+                ):
+                    raise ValueError(
+                        "a UserPaint without a `cuda` device function "
+                        "cannot be rendered on a CUDA device"
+                    )
+                continue
             color = np.asarray(command.color)
             if color.ndim == 2 and color.shape[0] not in (
                 1, command.n_instances
@@ -785,14 +916,28 @@ class Renderer:
     def _pack_commands_runtime(commands, blend_constant=None):
         """cmd_i (C, 4) = [op, clip depth, alpha layer, paint code] per
         command; cmd_f holds one row per cover draw, in the order
-        coverage.draw_tables enumerates them: the solid color broadcast
-        to the MAX_STOPS stop colors, then zero stop offsets, plus the
-        blend constant in columns 20:24 when the state reads it.  Solid
-        colors only (_validate refuses paints)."""
+        coverage.draw_tables enumerates them: up to MAX_STOPS stop colors
+        (a solid color broadcast to all, so every ramp delta is zero),
+        then the stop offsets, plus the blend constant in columns 20:24
+        when the state reads it.
+
+        User paints pack as code 3 + i, with i the first-appearance
+        index of the paint's ``fn`` in the command walk, the order
+        coverage.user_paints derives from FrameSpec.paints."""
+        user_codes = {}
+
+        def paint_code(color):
+            kind = _paint_kind(color)
+            if kind < UserPaint.kind:
+                return kind
+            return UserPaint.kind + user_codes.setdefault(
+                id(color.fn), len(user_codes)
+            )
+
         cmd_i = np.array(
             [
                 [int(c.operation), c.clip_depth, c.alpha_layer,
-                 _paint_kind(c.color)]
+                 paint_code(c.color)]
                 for c in commands
             ],
             np.int32,
@@ -800,6 +945,15 @@ class Renderer:
         rows = []
         for c in commands:
             if c.operation == RenderOperation.STENCIL:
+                continue
+            if _paint_kind(c.color) >= UserPaint.kind:
+                # User paints read the sample position and the anchor.
+                rows.append(np.zeros((c.n_instances, 20), np.float32))
+                continue
+            if _paint_kind(c.color):
+                offsets, colors = c.color.stop_table()
+                row = np.concatenate([colors.reshape(-1), offsets])[None]
+                rows.append(np.broadcast_to(row, (c.n_instances, 20)))
                 continue
             color = np.asarray(c.color, np.float32).reshape(-1, 4)
             color = (
@@ -831,6 +985,25 @@ class Renderer:
                 np.concatenate([cmd_f, const], axis=1)
             )
         return cmd_i, cmd_f
+
+    @staticmethod
+    def _pack_paints(commands):
+        """Model-space paint points, one (2, 2) row per cover draw
+        (coverage.draw_tables order), or None when every paint is
+        solid."""
+        if not any(_paint_kind(c.color) for c in commands):
+            return None
+        rows = []
+        for c in commands:
+            if c.operation == RenderOperation.STENCIL:
+                continue
+            pts = (
+                c.color.points()
+                if _paint_kind(c.color)
+                else np.zeros((2, 2), np.float32)
+            )
+            rows.append(np.broadcast_to(pts[None], (c.n_instances, 2, 2)))
+        return np.ascontiguousarray(np.concatenate(rows), dtype=np.float32)
 
     def _dev_cached(self, name: str, arr: np.ndarray, digest=None):
         """Device copy of ``arr``, re-uploaded only when its bytes
@@ -882,6 +1055,7 @@ class Renderer:
         inst = tuple(c.n_instances for c in commands)
         cmd_inst = inst if any(n != 1 for n in inst) else ()
         paints = tuple(_spec_paint(c.color) for c in commands)
+        paint_model = self._pack_paints(commands)
         transforms = self._pack_transforms(commands)
         tf_digest = hashlib.blake2b(transforms, digest_size=16).digest()
         if tf_digest not in self._finite_ok:
@@ -894,16 +1068,16 @@ class Renderer:
 
         for _attempt in range(4):
             spec = self._spec(ops, cmd_shape, cmd_inst, scene, paints)
-            # Frames this slice cannot render stop here, before any work
-            # reaches the device.
-            coverage.check_supported(spec)
             prepare, rasterize = self._get_executors(spec)
             raster_spec = (
                 replace(spec, out_uint8=True) if uint8_kernel else spec
             )
             if uint8_kernel:
                 rasterize = self._get_executors(raster_spec)[1]
-            pkey = (spec, scene_key, tf_digest, desc_static.tobytes())
+            pkey = (
+                spec, scene_key, tf_digest, desc_static.tobytes(),
+                None if paint_model is None else paint_model.tobytes(),
+            )
             cached = self._prepared_cache.get(pkey)
             if cached is not None:
                 prepared, self.stats = cached
@@ -912,6 +1086,8 @@ class Renderer:
                 *scene.arrays,
                 self._dev_cached("transforms", transforms, digest=tf_digest),
                 self._dev_cached("desc_static", desc_static),
+                None if paint_model is None
+                else self._dev_cached("paints", paint_model),
             )
             limits = (
                 spec.capacity,

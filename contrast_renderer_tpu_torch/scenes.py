@@ -1,25 +1,29 @@
-"""Scenes the port is checked and measured on, built from the shared
-``path`` module so that both packages can tessellate the same paths,
-and the shared scalar oracle that their coverage is held against.
-``Path`` is re-exported for scripts that build scenes through the port."""
+"""Scenes the port is checked and measured on, and the scalar oracle
+that their coverage is held against.  ``Path`` is re-exported for
+scripts that build scenes through the port.
+
+Every path builder takes ``geometry``: the module whose ``Path``,
+segments, stroke options, caps and joins it builds with; this package's
+``path`` module by default.  The builders that return commands take
+``api`` as well, the renderer module giving Shape, DrawCommand and
+RenderOperation, and ``mixed_paints`` takes ``user_paint``.  These
+parameters exist only for the parity tests, which pass the JAX
+package's modules to build the same scene for the reference (each
+package's tessellator takes only its own Path, since it dispatches on
+segment types by identity); other callers leave them at their
+defaults."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.path import (
-    Cap,
-    CurveApproximation,
-    DashInterval,
-    DynamicStrokeOptions,
-    IntegralCubicCurveSegment,
-    IntegralQuadraticCurveSegment,
-    Join,
-    LineSegment,
-    Path,
-    StrokeOptions,
-)
+from . import oracle
+from . import path as _path
+from .path import Cap, Join, Path  # noqa: F401
+
+def _geo(geometry):
+    """The scene's path module: the argument, or this package's."""
+    return _path if geometry is None else geometry
 
 
 def ortho(width, height):
@@ -39,13 +43,14 @@ def oracle_coverage(triangles, width, height):
 
 
 def bezier_fill_paths(n, width, height, seed=0, margin=40.0,
-                      radius=(8.0, 30.0)):
+                      radius=(8.0, 30.0), geometry=None):
     """``n`` closed fills, alternately one integral quadratic and one
     integral cubic Bézier closed by a line, with random centres, radii
     and control points from ``np.random.default_rng(seed)``.
 
     With the defaults and (1000, 1920, 1080, 0) this is BASELINE config 2
     (benchmarks/run_configs.py::config2), draw for draw."""
+    g = _geo(geometry)
     rng = np.random.default_rng(seed)
     paths = []
     for i in range(n):
@@ -55,18 +60,18 @@ def bezier_fill_paths(n, width, height, seed=0, margin=40.0,
         pts = np.stack(
             [cx + rng.uniform(-r, r, 4), cy + rng.uniform(-r, r, 4)], axis=1
         )
-        p = Path(start=(cx - r, cy))
+        p = g.Path(start=(cx - r, cy))
         if i % 2 == 0:
             p.push_integral_quadratic_curve(
-                IntegralQuadraticCurveSegment([tuple(pts[0]), tuple(pts[1])])
+                g.IntegralQuadraticCurveSegment([tuple(pts[0]), tuple(pts[1])])
             )
         else:
             p.push_integral_cubic_curve(
-                IntegralCubicCurveSegment(
+                g.IntegralCubicCurveSegment(
                     [tuple(pts[0]), tuple(pts[1]), tuple(pts[2])]
                 )
             )
-        p.push_line(LineSegment([(cx - r, cy)]))
+        p.push_line(g.LineSegment([(cx - r, cy)]))
         paths.append(p)
     return paths
 
@@ -75,23 +80,24 @@ def bezier_fill_paths(n, width, height, seed=0, margin=40.0,
 DASHED_JOINS = (Join.MITER, Join.BEVEL, Join.ROUND)
 
 
-def dashed_options(join, phase):
+def dashed_options(join, phase, geometry=None):
     """The dashed-stroke scene's two-interval dash pattern (a round-to-
     out dash then a butt dash) with ``join``, at pattern phase
     ``phase``."""
-    return DynamicStrokeOptions.make_dashed(
-        join,
+    g = _geo(geometry)
+    return g.DynamicStrokeOptions.make_dashed(
+        g.Join(int(join)),
         [
-            DashInterval(gap_start=2.0, gap_end=3.0,
-                         dash_start=Cap.ROUND, dash_end=Cap.OUT),
-            DashInterval(gap_start=5.0, gap_end=5.5,
-                         dash_start=Cap.BUTT, dash_end=Cap.BUTT),
+            g.DashInterval(gap_start=2.0, gap_end=3.0,
+                           dash_start=g.Cap.ROUND, dash_end=g.Cap.OUT),
+            g.DashInterval(gap_start=5.0, gap_end=5.5,
+                           dash_start=g.Cap.BUTT, dash_end=g.Cap.BUTT),
         ],
         phase=phase,
     )
 
 
-def dashed_strokes(width, height, seed=1):
+def dashed_strokes(width, height, seed=1, geometry=None):
     """60 open polylines of 6 random segments each, stroked 10 px wide
     with a mitre clip of 2, in three dash groups (one per join of
     DASHED_JOINS, path i in group i % 3).  Returns ``(paths, options)``,
@@ -100,22 +106,23 @@ def dashed_strokes(width, height, seed=1):
 
     With (1920, 1080, 1) this is BASELINE config 3
     (benchmarks/run_configs.py::config3), path for path."""
+    g = _geo(geometry)
     rng = np.random.default_rng(seed)
     paths = []
     for i in range(60):
-        p = Path(start=(rng.uniform(100, width - 100),
-                        rng.uniform(100, height - 100)))
+        p = g.Path(start=(rng.uniform(100, width - 100),
+                          rng.uniform(100, height - 100)))
         for _ in range(6):
-            p.push_line(LineSegment([
+            p.push_line(g.LineSegment([
                 (rng.uniform(50, width - 50), rng.uniform(50, height - 50))
             ]))
-        p.stroke_options = StrokeOptions(
+        p.stroke_options = g.StrokeOptions(
             width=10.0, offset=0.0, miter_clip=2.0, closed=False,
             dynamic_stroke_options_group=i % 3,
-            curve_approximation=CurveApproximation.uniform_tangent_angle(0.1),
+            curve_approximation=g.CurveApproximation.uniform_tangent_angle(0.1),
         )
         paths.append(p)
-    return paths, [dashed_options(join, 0.0) for join in DASHED_JOINS]
+    return paths, [dashed_options(join, 0.0, g) for join in DASHED_JOINS]
 
 
 #: The cap sheet's frame size.
@@ -126,26 +133,28 @@ CAP_SHEET_CAPS = (
 )
 
 
-def cap_sheet():
+def cap_sheet(geometry=None):
     """The scene of the cap golden (tests/golden/cap_styles_96x72.npy):
     one 6 px horizontal line per cap style, each its own solid group
     with that cap at both ends.  Returns ``(paths, options)``; render
     it white under ``ortho(*CAP_SHEET_SIZE)`` at 4× MSAA."""
+    g = _geo(geometry)
     paths, options = [], []
     for i, cap in enumerate(CAP_SHEET_CAPS):
         y = 8.0 + 8.0 * i
-        p = Path(start=(24.0, y))
-        p.push_line(LineSegment([(72.0, y)]))
-        p.stroke_options = StrokeOptions(
+        p = g.Path(start=(24.0, y))
+        p.push_line(g.LineSegment([(72.0, y)]))
+        p.stroke_options = g.StrokeOptions(
             width=6.0, offset=0.0, miter_clip=1.0, closed=False,
             dynamic_stroke_options_group=i,
         )
         paths.append(p)
-        options.append(DynamicStrokeOptions.make_solid(Join.MITER, cap, cap))
+        cap = g.Cap(int(cap))
+        options.append(g.DynamicStrokeOptions.make_solid(g.Join.MITER, cap, cap))
     return paths, options
 
 
-def stroke_sampler(size=128, seed=7):
+def stroke_sampler(size=128, seed=7, geometry=None):
     """A scene that reaches all six stroke classes, with every join and
     several caps: three random open polylines of five segments (from
     ``np.random.default_rng(seed)``), one per group — a solid bevel group
@@ -153,21 +162,23 @@ def stroke_sampler(size=128, seed=7):
     two-interval round-join dash — and a quadratic curve stroke in the
     solid group, flattened by uniform tangent angle.  Returns ``(paths,
     options)`` for a ``size``² frame under ``ortho``."""
+    g = _geo(geometry)
+    cap, join = g.Cap, g.Join
     options = [
-        DynamicStrokeOptions.make_solid(Join.BEVEL, Cap.ROUND, Cap.SQUARE),
-        DynamicStrokeOptions.make_dashed(
-            Join.MITER,
-            [DashInterval(gap_start=4.0, gap_end=6.5,
-                          dash_start=Cap.OUT, dash_end=Cap.BUTT)],
+        g.DynamicStrokeOptions.make_solid(join.BEVEL, cap.ROUND, cap.SQUARE),
+        g.DynamicStrokeOptions.make_dashed(
+            join.MITER,
+            [g.DashInterval(gap_start=4.0, gap_end=6.5,
+                            dash_start=cap.OUT, dash_end=cap.BUTT)],
             phase=0.75,
         ),
-        DynamicStrokeOptions.make_dashed(
-            Join.ROUND,
+        g.DynamicStrokeOptions.make_dashed(
+            join.ROUND,
             [
-                DashInterval(gap_start=2.0, gap_end=3.0,
-                             dash_start=Cap.ROUND, dash_end=Cap.IN),
-                DashInterval(gap_start=5.0, gap_end=5.5,
-                             dash_start=Cap.LEFT, dash_end=Cap.RIGHT),
+                g.DashInterval(gap_start=2.0, gap_end=3.0,
+                               dash_start=cap.ROUND, dash_end=cap.IN),
+                g.DashInterval(gap_start=5.0, gap_end=5.5,
+                               dash_start=cap.LEFT, dash_end=cap.RIGHT),
             ],
             phase=0.25,
         ),
@@ -176,68 +187,72 @@ def stroke_sampler(size=128, seed=7):
     rng = np.random.default_rng(seed)
     paths = []
     for group, width in enumerate((5.0, 4.0, 6.0)):
-        p = Path(start=tuple(rng.uniform(12 * s, size - 12 * s, 2)))
+        p = g.Path(start=tuple(rng.uniform(12 * s, size - 12 * s, 2)))
         for _ in range(5):
-            p.push_line(LineSegment(
+            p.push_line(g.LineSegment(
                 [tuple(rng.uniform(12 * s, size - 12 * s, 2))]
             ))
-        p.stroke_options = StrokeOptions(
+        p.stroke_options = g.StrokeOptions(
             width=width * s, offset=0.0, miter_clip=2.0, closed=False,
             dynamic_stroke_options_group=group,
         )
         paths.append(p)
-    curve = Path(start=(16.0 * s, 110.0 * s))
+    curve = g.Path(start=(16.0 * s, 110.0 * s))
     curve.push_integral_quadratic_curve(
-        IntegralQuadraticCurveSegment([(64.0 * s, 20.0 * s), (112.0 * s, 100.0 * s)])
+        g.IntegralQuadraticCurveSegment(
+            [(64.0 * s, 20.0 * s), (112.0 * s, 100.0 * s)]
+        )
     )
-    curve.stroke_options = StrokeOptions(
+    curve.stroke_options = g.StrokeOptions(
         width=3.0 * s, offset=0.0, miter_clip=1.0, closed=False,
         dynamic_stroke_options_group=0,
-        curve_approximation=CurveApproximation.uniform_tangent_angle(0.1),
+        curve_approximation=g.CurveApproximation.uniform_tangent_angle(0.1),
     )
     paths.append(curve)
     return paths, options
 
 
-def _content(api, size):
+def _content(api, size, g):
     """Bézier fills and a mitred zig-zag stroke over most of a ``size``²
     frame, as ``api``'s Shapes."""
     s = size / 96.0
     fills = api.Shape(bezier_fill_paths(
-        24, size, size, seed=5, margin=8.0 * s, radius=(6.0 * s, 18.0 * s)
+        24, size, size, seed=5, margin=8.0 * s, radius=(6.0 * s, 18.0 * s),
+        geometry=g,
     ))
-    zigzag = Path(start=(6.0 * s, 20.0 * s))
+    zigzag = g.Path(start=(6.0 * s, 20.0 * s))
     for i in range(1, 7):
-        zigzag.push_line(LineSegment(
+        zigzag.push_line(g.LineSegment(
             [((6.0 + 14.0 * i) * s, (20.0 + 56.0 * (i % 2)) * s)]
         ))
-    zigzag.stroke_options = StrokeOptions(
+    zigzag.stroke_options = g.StrokeOptions(
         width=5.0 * s, offset=0.0, miter_clip=2.0, closed=False,
         dynamic_stroke_options_group=0,
     )
     stroke = api.Shape(
         [zigzag],
-        [DynamicStrokeOptions.make_solid(Join.MITER, Cap.ROUND, Cap.OUT)],
+        [g.DynamicStrokeOptions.make_solid(g.Join.MITER, g.Cap.ROUND, g.Cap.OUT)],
     )
     return fills, stroke
 
 
-def nested_clip_commands(api, size=96):
+def nested_clip_commands(api, size=96, geometry=None):
     """Two nested clips (a rounded rect, then a circle inside it), one
     group of opacity 0.6 on layer 0 (save and scale fuse into one op),
     fills and a stroke inside them, the unwinding, and a circle drawn
     after the clips.  ``api`` is a renderer module (this package's or the
     reference's) giving Shape, DrawCommand and RenderOperation; render
     with ``alpha_layer_count >= 1`` and front-to-back blending."""
+    g = _geo(geometry)
     op = api.RenderOperation
     s = size / 96.0
-    fills, stroke = _content(api, size)
-    outer = api.Shape([Path.from_rounded_rect(
+    fills, stroke = _content(api, size, g)
+    outer = api.Shape([g.Path.from_rounded_rect(
         (48.0 * s, 48.0 * s), (40.0 * s, 34.0 * s), 10.0 * s
     )])
-    inner = api.Shape([Path.from_circle((52.0 * s, 46.0 * s), 36.0 * s)])
-    cover = api.Shape([Path.from_rect((48.0 * s, 48.0 * s), (48.0 * s, 48.0 * s))])
-    corner = api.Shape([Path.from_circle((8.0 * s, 8.0 * s), 7.0 * s)])
+    inner = api.Shape([g.Path.from_circle((52.0 * s, 46.0 * s), 36.0 * s)])
+    cover = api.Shape([g.Path.from_rect((48.0 * s, 48.0 * s), (48.0 * s, 48.0 * s))])
+    corner = api.Shape([g.Path.from_circle((8.0 * s, 8.0 * s), 7.0 * s)])
     t = ortho(size, size)
     group = (0.0, 0.0, 0.0, 0.6)
     return [
@@ -263,16 +278,17 @@ def nested_clip_commands(api, size=96):
     ]
 
 
-def nested_group_commands(api, size=96):
+def nested_group_commands(api, size=96, geometry=None):
     """Group 0 (opacity 0.7, layer 0; save and scale over two different
     covers, so they stay two ops) around the fills and group 1 (opacity
     0.5, layer 1; save and scale fused) around the stroke.  ``api`` as in
     nested_clip_commands; render with ``alpha_layer_count >= 2``."""
+    g = _geo(geometry)
     op = api.RenderOperation
     s = size / 96.0
-    fills, stroke = _content(api, size)
-    cover = api.Shape([Path.from_rect((48.0 * s, 48.0 * s), (48.0 * s, 48.0 * s))])
-    cover_b = api.Shape([Path.from_rect((48.0 * s, 48.0 * s), (47.0 * s, 47.0 * s))])
+    fills, stroke = _content(api, size, g)
+    cover = api.Shape([g.Path.from_rect((48.0 * s, 48.0 * s), (48.0 * s, 48.0 * s))])
+    cover_b = api.Shape([g.Path.from_rect((48.0 * s, 48.0 * s), (47.0 * s, 47.0 * s))])
     t = ortho(size, size)
     outer_g, inner_g = (0.0, 0.0, 0.0, 0.7), (0.0, 0.0, 0.0, 0.5)
     return [
@@ -289,4 +305,139 @@ def nested_group_commands(api, size=96):
                         color=inner_g),
         api.DrawCommand(op.RESTORE_ALPHA_CONTEXT, cover, t, alpha_layer=0,
                         color=outer_g),
+    ]
+
+
+#: The gradient card's corner radius, as a share of the frame height.
+CARD_RADIUS = 0.08
+#: The gradient card's three stops (offset, straight RGBA), along the
+#: card's diagonal from its upper-left to its lower-right corner.
+CARD_STOPS = (
+    (0.0, (0.08, 0.12, 0.35, 1.0)),
+    (0.55, (0.25, 0.10, 0.45, 1.0)),
+    (1.0, (0.62, 0.18, 0.35, 1.0)),
+)
+
+
+def gradient_card(width, height, with_text=True):
+    """The frame of examples/gradients.py (this package's types): a
+    rounded card filled with a three-stop linear gradient along its
+    diagonal (CARD_STOPS), a radial glow fading from amber to alpha 0,
+    and "Contrast TPU" set in glyphs filled with a two-stop linear
+    gradient.  Returns ``(commands, card_axis)``: the commands under
+    ``ortho(width, height)``, and the card gradient's model-space
+    ``(start, end)``."""
+    from . import renderer as api
+    from .assets import load_default_font
+    from .text import Alignment, Layout, Orientation, paths_of_text
+    from .utils import ga2d
+
+    op = api.RenderOperation
+    t = ortho(width, height)
+    cx, cy = width / 2, height / 2
+    start = (cx - 0.42 * width, cy + 0.38 * height)
+    end = (cx + 0.42 * width, cy - 0.38 * height)
+    card = api.Shape([Path.from_rounded_rect(
+        (cx, cy), (0.42 * width, 0.38 * height), CARD_RADIUS * height
+    )])
+    glow = api.Shape([Path.from_circle((0.72 * width, 0.62 * height),
+                                       0.28 * height)])
+    draws = [
+        (card, api.LinearGradient(start=start, end=end, stops=CARD_STOPS)),
+        (glow, api.RadialGradient(
+            center=(0.72 * width, 0.62 * height),
+            edge=(width, 0.62 * height),
+            color0=(1.0, 0.85, 0.3, 0.9),
+            color1=(1.0, 0.85, 0.3, 0.0),
+        )),
+    ]
+    if with_text:
+        glyphs = paths_of_text(
+            load_default_font().face,
+            Layout(
+                size=0.16 * height,
+                orientation=Orientation.LEFT_TO_RIGHT,
+                major_alignment=Alignment.CENTER,
+                minor_alignment=Alignment.CENTER,
+            ),
+            "Contrast TPU",
+        )
+        center = ga2d.translate2d(np.array([cx, cy]))
+        text = api.Shape([glyph.transform(1.0, center) for glyph in glyphs])
+        draws.append((text, api.LinearGradient(
+            start=(cx - 0.3 * width, cy), end=(cx + 0.3 * width, cy),
+            color0=(1.0, 1.0, 1.0, 1.0), color1=(0.6, 0.9, 1.0, 1.0),
+        )))
+    commands = []
+    for shape, paint in draws:
+        commands += [
+            api.DrawCommand(op.STENCIL, shape, t),
+            api.DrawCommand(op.COLOR, shape, t, color=paint),
+        ]
+    return commands, (start, end)
+
+
+#: The mixed frame's checker colours (straight RGBA): cells of 4 × 4
+#: pixels alternate between these two.
+CHECKER_COLORS = ((1.0, 0.0, 1.0, 0.8), (0.0, 1.0, 0.0, 0.8))
+
+#: The checker as the device function of a UserPaint (``cuda``).
+CHECKER_CUDA = """
+__device__ float4 paint(float px, float py, float x0, float y0, float x1,
+                        float y1) {
+  const int c = ((int)floorf(px / 4.0f) + (int)floorf(py / 4.0f)) % 2;
+  const float v = (float)c;
+  return make_float4(v, 1.0f - v, v, 0.8f);
+}
+"""
+
+
+def checker(px, py, anchor):
+    """The checker as the torch function of a UserPaint (``fn``), the
+    same steps as CHECKER_CUDA: 4-pixel cells, colour c or 1 - c."""
+    import torch
+
+    c = ((px // 4).to(torch.int32) + (py // 4).to(torch.int32)) % 2
+    c = c.to(torch.float32)
+    return c, 1.0 - c, c, torch.full_like(c, 0.8)
+
+
+def mixed_paints(width, height, api=None, geometry=None, user_paint=None):
+    """A frame of every paint kind (tests/test_coverage_exec.py's mixed
+    frame, scaled by min(width, height)/64 into the frame's left
+    square): a disc with a two-stop linear gradient, an instanced pair
+    of squares in solid colour, and a disc painted by the checker
+    UserPaint.  Render it under depth (less_equal, with write) to reach
+    every per-draw table the colour cover reads.  For the parity tests
+    only: ``api`` is a renderer module (default this package's) and
+    ``user_paint`` the checker paint (default this package's UserPaint
+    of ``checker`` and ``CHECKER_CUDA``)."""
+    if api is None:
+        from . import renderer as api
+    g = _geo(geometry)
+    if user_paint is None:
+        user_paint = api.UserPaint(checker, cuda=CHECKER_CUDA)
+    op = api.RenderOperation
+    s = min(width, height) / 64.0
+    disc = api.Shape([g.Path.from_circle((16.0 * s, 16.0 * s), 12.0 * s)])
+    rect = api.Shape([g.Path.from_rect((16.0 * s, 16.0 * s), (10.0 * s, 10.0 * s))])
+    grad = api.LinearGradient(
+        start=(4.0 * s, 16.0 * s), end=(28.0 * s, 16.0 * s),
+        color0=(1.0, 0.0, 0.0, 1.0), color1=(0.0, 0.0, 1.0, 0.5),
+    )
+
+    def t(ox, oy):
+        m = ortho(width, height)
+        m[0, 3] += 2.0 * ox * s / width
+        m[1, 3] += 2.0 * oy * s / height
+        return m
+
+    stacked = np.stack([t(0, 0), t(24, 24)])
+    return [
+        api.DrawCommand(op.STENCIL, disc, t(4, 4)),
+        api.DrawCommand(op.COLOR, disc, t(4, 4), color=grad),
+        api.DrawCommand(op.STENCIL, rect, stacked),
+        api.DrawCommand(op.COLOR, rect, stacked, color=(0.2, 0.9, 0.4, 0.7)),
+        api.DrawCommand(op.STENCIL, disc, t(20, 2)),
+        api.DrawCommand(op.COLOR, disc, t(20, 2), color=user_paint),
     ]

@@ -9,6 +9,7 @@ from dataclasses import replace
 import numpy as np
 import pytest
 
+from contrast_renderer_tpu import path as ref_path
 from contrast_renderer_tpu import renderer as ref
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
@@ -34,7 +35,7 @@ def reference_images():
             ref.Configuration(alpha_layer_count=layers,
                               blending="front_to_back"),
             SIZE, SIZE,
-        ).render(build(ref, SIZE), as_uint8=True)
+        ).render(build(ref, SIZE, geometry=ref_path), as_uint8=True)
         for name, (build, layers) in FRAMES.items()
     }
 
@@ -52,8 +53,10 @@ def test_frame_matches_reference(reference_images, name):
         port.Configuration(alpha_layer_count=layers, blending="front_to_back"),
         SIZE, SIZE,
     )
-    got = renderer.render(interop.scene_from_reference(build(ref, SIZE)),
-                          as_uint8=True)
+    got = renderer.render(
+        interop.scene_from_reference(build(ref, SIZE, geometry=ref_path)),
+        as_uint8=True,
+    )
     want = reference_images[name]
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
     assert (want[..., 3] > 0).mean() > 0.1

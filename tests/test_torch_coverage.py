@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from contrast_renderer_tpu import path as ref_path
 from contrast_renderer_tpu import renderer as ref
 from contrast_renderer_tpu.ops import coverage as ref_cov
 from contrast_renderer_tpu.path import Path
@@ -23,7 +24,8 @@ SIZE = 128
 
 def reference_commands():
     fills = ref.Shape(scenes.bezier_fill_paths(
-        40, SIZE, SIZE, seed=0, margin=8.0, radius=(4.0, 16.0)
+        40, SIZE, SIZE, seed=0, margin=8.0, radius=(4.0, 16.0),
+        geometry=ref_path,
     ))
     circle = ref.Shape([Path.from_circle((64, 64), 45)])
     t = scenes.ortho(SIZE, SIZE)

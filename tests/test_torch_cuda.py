@@ -1,8 +1,10 @@
 """The CUDA raster kernel on the card: held against its plain torch
 version across sample counts, strip layouts, output modes and blend
 states; each of the six stroke classes; clip and alpha frames with alpha
-layers in registers and in the global scratch; the cap golden; and the
-whole path on the card against the path on the CPU.
+layers in registers and in the global scratch; depth under several
+compare functions; linear, radial and multi-stop gradients; a user
+paint compiled into the kernel; the cap golden; and the whole path on
+the card against the path on the CPU.
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -18,18 +20,22 @@ import numpy as np
 import pytest
 import torch
 
-from contrast_renderer_tpu.path import Path
 from contrast_renderer_tpu_torch import scenes
 from contrast_renderer_tpu_torch import renderer as port
+from contrast_renderer_tpu_torch.models import showcase
 from contrast_renderer_tpu_torch.ops import coverage
+from contrast_renderer_tpu_torch.path import Path
 from contrast_renderer_tpu_torch.renderer import (
     BlendComponent,
     BlendState,
     Configuration,
     DrawCommand,
+    LinearGradient,
+    RadialGradient,
     RenderOperation,
     Renderer,
     Shape,
+    UserPaint,
 )
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +49,14 @@ GOLDEN = FsPath(__file__).parent / "golden" / "cap_styles_96x72.npy"
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # The kernel builds this file launches, all at once.
+    KF = coverage.KernelFeatures
+    coverage.build_kernels(
+        [KF(s) for s in (1, 2, 4, 8, 16)]
+        + [KF(s, depth=True) for s in (1, 4, 16)]
+        + [KF(s, paint_mode=1) for s in (1, 4)]
+        + [KF(4, True, 2, (scenes.CHECKER_CUDA,))]
+    )
     return torch.device("cuda")
 
 
@@ -200,7 +214,7 @@ def test_cap_sheet_on_card_matches_golden(card):
     assert np.array_equal(image[..., 3], np.load(GOLDEN))
 
 
-@pytest.mark.parametrize("frame", ["fills", "strokes", "clip_alpha"])
+@pytest.mark.parametrize("frame", ["fills", "strokes", "clip_alpha", "paints"])
 def test_slice_on_card_matches_slice_on_cpu(card, frame):
     """Renderer.render on the card (torch binning on the card, CUDA
     kernel) against Renderer.render on the CPU (torch binning, plain
@@ -215,9 +229,13 @@ def test_slice_on_card_matches_slice_on_cpu(card, frame):
             DrawCommand(RenderOperation.STENCIL, shape, t),
             DrawCommand(RenderOperation.COLOR, shape, t),
         ]
-    else:
+    elif frame == "clip_alpha":
         config = Configuration(alpha_layer_count=1, blending="front_to_back")
         commands = scenes.nested_clip_commands(port, SIZE)
+    else:
+        config = Configuration(depth_compare="less_equal",
+                               depth_write_enabled=True)
+        commands = scenes.mixed_paints(WIDTH, HEIGHT)
     want = Renderer(config, WIDTH, HEIGHT).render(commands, as_uint8=True)
     got = Renderer(config, WIDTH, HEIGHT, device=card).render(
         commands, as_uint8=True
@@ -247,3 +265,126 @@ def test_bad_arguments_raise(card):
         coverage.coverage_raster(
             spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i[:, :8]
         )
+
+
+def ortho_z(z, size):
+    """scenes.ortho with the model plane at NDC depth ``z``."""
+    t = scenes.ortho(size, size)
+    t[2, 3] = z
+    return t
+
+
+def depth_commands(size=SIZE):
+    """Overlapping circles at four depths, drawn at the far plane (z = 1,
+    which passes greater_equal against the cleared buffer), far, near
+    and middle, then two showcase instances under its perspective
+    camera."""
+    s = size / 64.0
+    commands = []
+    for x, z, color in ((46.0, 1.0, (1.0, 1.0, 0.0, 0.7)),
+                        (40.0, 0.7, (0.0, 1.0, 0.0, 1.0)),
+                        (28.0, 0.3, (1.0, 0.0, 0.0, 0.8)),
+                        (34.0, 0.5, (0.0, 0.0, 1.0, 0.6))):
+        shape = Shape([Path.from_circle((x * s, 32.0 * s), 14.0 * s)])
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, shape, ortho_z(z, size)),
+            DrawCommand(RenderOperation.COLOR, shape, ortho_z(z, size),
+                        color=color),
+        ]
+    solid = Shape([Path.from_rounded_rect((0.0, 0.0), (5.8, 1.3), 0.5)])
+    transforms, _ = showcase.instance_transforms_and_colors(size, size)
+    for i, color in ((0, (1.0, 1.0, 1.0, 0.9)), (23, (1.0, 0.5, 0.0, 1.0))):
+        t = np.ascontiguousarray(transforms[i], np.float32)
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, solid, t),
+            DrawCommand(RenderOperation.COLOR, solid, t, color=color),
+        ]
+    return commands
+
+
+@pytest.mark.parametrize("samples", [1, 4, 16])
+@pytest.mark.parametrize(
+    "compare, write",
+    [("less_equal", True), ("less", False), ("greater_equal", True),
+     ("not_equal", True)],
+    ids=["less_equal-write", "less", "greater_equal-write", "not_equal-write"],
+)
+def test_depth_matches_plain(card, samples, compare, write):
+    """The depth body at three sample counts and four compare functions,
+    bit for bit."""
+    renderer = Renderer(
+        Configuration(msaa_sample_count=samples, depth_compare=compare,
+                      depth_write_enabled=write),
+        SIZE, SIZE, device=card,
+    )
+    spec, _, runtime = renderer._prepare(depth_commands())
+    assert coverage.kernel_features(spec).depth
+    assert bool((runtime[0].zplane != 0).any())
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+GRADIENTS = {
+    "linear": LinearGradient(start=(40.0, 60.0), end=(200.0, 180.0),
+                             color0=(1.0, 0.2, 0.0, 1.0),
+                             color1=(0.0, 0.3, 1.0, 0.4)),
+    "linear4-hard": LinearGradient(
+        start=(30.0, 128.0), end=(220.0, 128.0),
+        stops=((0.0, (1.0, 0.0, 0.0, 1.0)), (0.4, (1.0, 1.0, 0.0, 1.0)),
+               (0.4, (0.0, 0.0, 1.0, 0.7)), (1.0, (0.0, 1.0, 0.5, 0.2))),
+    ),
+    "radial": RadialGradient(center=(128.0, 128.0), edge=(228.0, 128.0),
+                             color0=(1.0, 0.85, 0.3, 0.9),
+                             color1=(1.0, 0.85, 0.3, 0.0)),
+}
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+@pytest.mark.parametrize("kind", sorted(GRADIENTS))
+def test_gradient_matches_plain(card, samples, kind):
+    """Gradient covers over Bézier fills and a solid circle (solid and
+    gradient covers in one frame), bit for bit."""
+    fills = Shape(scenes.bezier_fill_paths(
+        60, SIZE, SIZE, seed=4, margin=10.0, radius=(8.0, 30.0)
+    ))
+    disc = Shape([Path.from_circle((128.0, 128.0), 100.0)])
+    t = scenes.ortho(SIZE, SIZE)
+    renderer = Renderer(Configuration(msaa_sample_count=samples), SIZE, SIZE,
+                        device=card)
+    spec, _, runtime = renderer._prepare([
+        DrawCommand(RenderOperation.STENCIL, disc, t),
+        DrawCommand(RenderOperation.COLOR, disc, t, color=GRADIENTS[kind]),
+        DrawCommand(RenderOperation.STENCIL, fills, t),
+        DrawCommand(RenderOperation.COLOR, fills, t, color=(0.1, 0.1, 0.1, 0.5)),
+    ])
+    assert coverage.kernel_features(spec).paint_mode == 1
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+def test_user_paint_matches_plain(card):
+    """The mixed frame (gradient, instanced solid pair, checker UserPaint
+    compiled into the kernel) under less_equal with depth write, bit for
+    bit, and through Renderer.render with one launch."""
+    config = Configuration(depth_compare="less_equal", depth_write_enabled=True)
+    renderer = Renderer(config, SIZE, SIZE, device=card)
+    commands = scenes.mixed_paints(SIZE, SIZE)
+    spec, _, runtime = renderer._prepare(commands)
+    assert coverage.kernel_features(spec).user_sources == (scenes.CHECKER_CUDA,)
+    assert_kernel_matches_plain(spec, *runtime)
+    before = coverage.raster_launches
+    image = renderer.render(commands, as_uint8=True)
+    assert coverage.raster_launches == before + 1
+    for rgb in ((204, 0, 204), (0, 204, 0)):  # the checker's two colours
+        assert (image[..., :3] == rgb).all(-1).any(), rgb
+
+
+def test_user_paint_without_cuda_raises_on_card(card):
+    """A UserPaint with only its torch function has no kernel: the card
+    refuses it before anything runs, and never falls back."""
+    paint = UserPaint(scenes.checker)
+    commands = scenes.mixed_paints(SIZE, SIZE, user_paint=paint)
+    renderer = Renderer(Configuration(), SIZE, SIZE, device=card)
+    before = coverage.raster_launches
+    with pytest.raises(ValueError, match="cuda"):
+        renderer.render(commands)
+    assert coverage.raster_launches == before
+    assert not renderer._prepared_cache

@@ -1,6 +1,6 @@
-"""The PyTorch/CUDA port imports and renders without jax, renders the
-kernel bodies ported so far, and refuses what it cannot render yet
-before anything runs."""
+"""The PyTorch/CUDA port imports and renders without jax and without
+the JAX package, renders every body of the kernel, and refuses what it
+cannot render yet before anything runs."""
 
 import os
 import re
@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from contrast_renderer_tpu.path import (
+from contrast_renderer_tpu import path as ref_path
+from contrast_renderer_tpu_torch import scenes
+from contrast_renderer_tpu_torch.ops import coverage
+from contrast_renderer_tpu_torch.path import (
     Cap,
     DynamicStrokeOptions,
     Join,
@@ -20,13 +23,15 @@ from contrast_renderer_tpu.path import (
     Path,
     StrokeOptions,
 )
-from contrast_renderer_tpu.renderer import LinearGradient
 from contrast_renderer_tpu_torch.renderer import (
     Configuration,
     DrawCommand,
+    LinearGradient,
+    RadialGradient,
     RenderOperation,
     Renderer,
     Shape,
+    UserPaint,
 )
 
 REPO = FsPath(__file__).resolve().parents[1]
@@ -47,7 +52,7 @@ def test_import_and_render_without_jax():
 import sys
 import numpy as np
 import contrast_renderer_tpu_torch as port
-from contrast_renderer_tpu.path import Path
+from contrast_renderer_tpu_torch.path import Path
 from contrast_renderer_tpu_torch.models import showcase
 from contrast_renderer_tpu_torch.renderer import (
     Configuration, DrawCommand, RenderOperation, Renderer, Shape)
@@ -65,6 +70,11 @@ assert float(image[0, 0, 3]) == 0.0
 assert len(showcase.build_shape(with_text=True).triangles) > 200
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
+reference = sorted(
+    m for m in sys.modules
+    if m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
+)
+assert not reference, reference
 print("rendered without jax")
 """
     # Without PYTHONPATH: a site hook found there may import jax at
@@ -79,11 +89,23 @@ print("rendered without jax")
 
 
 def test_package_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax\b)", re.MULTILINE)
-    sources = sorted(PACKAGE.rglob("*.py"))
-    assert sources
+    """No source of the port (nor chip_smoke.py) imports jax or any
+    module of the JAX package."""
+    pattern = re.compile(
+        r"^\s*(import jax|from jax\b|(from|import) contrast_renderer_tpu([. ]|$))",
+        re.MULTILINE,
+    )
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 20
     for path in sources:
         assert not pattern.search(path.read_text()), path
+
+
+def test_shape_refuses_a_reference_path():
+    """The port tessellates only its own Path: the reference's segment
+    types are other enum members, which its builders would misroute."""
+    with pytest.raises(TypeError, match="contrast_renderer_tpu_torch.path.Path"):
+        Shape([ref_path.Path.from_circle((32, 32), 20)])
 
 
 def test_cuda_device_without_card_raises():
@@ -153,12 +175,13 @@ def _gradient_frame():
 
 
 @pytest.mark.parametrize(
-    "frame", [_stroke_frame, _clip_frame, _alpha_frame],
-    ids=["stroke", "clip", "alpha"],
+    "frame",
+    [_stroke_frame, _clip_frame, _alpha_frame, _depth_frame, _gradient_frame],
+    ids=["stroke", "clip", "alpha", "depth", "gradient"],
 )
 def test_ported_bodies_render(frame):
-    """Strokes, clips and alpha groups render on the CPU: finite, alpha
-    in [0, 1], something covered."""
+    """Strokes, clips, alpha groups, depth and gradients render on the
+    CPU: finite, alpha in [0, 1], something covered."""
     config, commands = frame()
     image = Renderer(config, SIZE, SIZE).render(commands)
     assert image.shape == (SIZE, SIZE, 4)
@@ -167,18 +190,47 @@ def test_ported_bodies_render(frame):
     assert (image[..., 3] > 0).sum() > 20
 
 
-@pytest.mark.parametrize(
-    "frame, item",
-    [
-        (_depth_frame, "depth"),
-        (_gradient_frame, "non-solid paints"),
-    ],
-    ids=["depth", "gradient"],
-)
-def test_unported_bodies_raise(frame, item):
-    config, commands = frame()
+def test_unported_bodies_raise():
+    """Gate spans (host-side bracket gating) are the one thing the port
+    refuses, before binning."""
+    spec = coverage.FrameSpec(
+        width=SIZE, height=SIZE, ops=(0, 3), cmd_shape=(0, 0), n_shapes=1,
+        t_max=1, h_max=4, samples=4, winding_bits=4, n_layers=0,
+        blending="back_to_front", gate_spans=((0, 1),),
+    )
+    with pytest.raises(NotImplementedError, match="gate spans"):
+        coverage.make_prepare(spec)
+
+
+def test_user_paint_needs_its_device_function_for_the_card():
+    """A UserPaint renders on the CPU through its torch function; the
+    kernel build of a frame with one needs its ``cuda`` source, and
+    without it the card is refused (kernel_features raises) rather than
+    falling back."""
+    config = Configuration(depth_compare="less_equal", depth_write_enabled=True)
+    image = Renderer(config, SIZE, SIZE).render(
+        scenes.mixed_paints(SIZE, SIZE, user_paint=UserPaint(scenes.checker)),
+        as_uint8=True,
+    )
+    for rgb in ((204, 0, 204), (0, 204, 0)):
+        assert (image[..., :3] == rgb).all(-1).any(), rgb
     renderer = Renderer(config, SIZE, SIZE)
-    with pytest.raises(NotImplementedError, match=item):
-        renderer.render(commands)
-    # Refused before binning: nothing was prepared.
-    assert not renderer._prepared_cache
+    bare = scenes.mixed_paints(SIZE, SIZE, user_paint=UserPaint(scenes.checker))
+    spec, _, _ = renderer._prepare(bare)
+    with pytest.raises(ValueError, match="cuda"):
+        coverage.kernel_features(spec)
+    with_source = scenes.mixed_paints(SIZE, SIZE)
+    spec, _, _ = renderer._prepare(with_source)
+    features = coverage.kernel_features(spec)
+    assert features == coverage.KernelFeatures(
+        4, True, 2, (scenes.CHECKER_CUDA,)
+    )
+
+
+def test_gradient_stops_are_checked():
+    with pytest.raises(ValueError, match="stops"):
+        LinearGradient((0, 0), (1, 0), stops=((0.0, (1, 1, 1, 1)),))
+    with pytest.raises(ValueError, match="non-decreasing"):
+        RadialGradient((0, 0), (1, 0), stops=(
+            (0.5, (1, 1, 1, 1)), (0.2, (0, 0, 0, 1)),
+        ))

@@ -5,8 +5,9 @@ import numpy as np
 import pytest
 
 from contrast_renderer_tpu import oracle
+from contrast_renderer_tpu import path as ref_path
 from contrast_renderer_tpu import renderer as ref
-from contrast_renderer_tpu.path import Path
+from contrast_renderer_tpu_torch import path as port_path
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
@@ -21,9 +22,10 @@ def reference_scene():
     MSAA, rendered once by the reference (JAX on the CPU, Pallas in
     interpret mode)."""
     fills = ref.Shape(scenes.bezier_fill_paths(
-        48, SIZE, SIZE, seed=1, margin=8.0, radius=(4.0, 18.0)
+        48, SIZE, SIZE, seed=1, margin=8.0, radius=(4.0, 18.0),
+        geometry=ref_path,
     ))
-    circle = ref.Shape([Path.from_circle((60, 70), 40)])
+    circle = ref.Shape([ref_path.Path.from_circle((60, 70), 40)])
     t = scenes.ortho(SIZE, SIZE)
     commands = [
         ref.DrawCommand(ref.RenderOperation.STENCIL, fills, t),
@@ -77,7 +79,7 @@ def test_circle_coverage_against_oracle():
     """The README circle (scaled to 128²): the mean per-pixel coverage
     error against the scalar oracle is at most 1e-3 (BASELINE config
     1's bar)."""
-    shape = port.Shape([Path.from_circle((64, 64), 50)])
+    shape = port.Shape([port_path.Path.from_circle((64, 64), 50)])
     t = scenes.ortho(SIZE, SIZE)
     image = port.Renderer(port.Configuration(), SIZE, SIZE).render([
         port.DrawCommand(port.RenderOperation.STENCIL, shape, t),
