@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Interleaved A/B of the coverage kernel between two checkouts of this
+repository, on one CUDA device.
+
+    python3 chip_ab.py ROOT_A ROOT_B
+
+Six fresh processes in the order A, B, B, A, A, B each import
+``contrast_renderer_tpu_torch`` from their root (its kernels built from
+that root's sources into its own ``build/``), bin chip_smoke.py's seven
+frames on the card, and time each: the kernel (``coverage_raster``,
+median of 5 batches of 10 launches, with the batches' least and
+greatest; CUDA events, chip_smoke.py's ``cuda_ms``) and the frame with
+cached binning (``Renderer.render``, median of 10 frames).  Each process
+also hashes each frame's packed RGBA8 kernel output, so that the two
+roots' images are compared bit for bit.  A process that built the kernels prints ptxas' registers
+and spills.  The last lines are one row per frame (each root's kernel
+medians, least and greatest over its processes, whether the images are
+equal) and one JSON object with all of it.  Exits non-zero if a process
+fails, no CUDA device is visible, or the roots' images differ.
+
+The frames use only what both roots offer: ``Renderer`` with an
+explicit device, ``Renderer._prepare``, ``coverage.coverage_raster``,
+``coverage.draw_tables``, ``coverage.build_kernels`` and the scene
+builders of ``scenes`` and ``models.showcase``.  Imports nothing of
+JAX.
+"""
+
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from dataclasses import replace
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ORDER = "ABBAAB"
+
+
+def fail(message):
+    print(f"chip_ab: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def chip_smoke():
+    """chip_smoke.py beside this script (not a root's copy)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py")
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def frames(api, scenes, showcase, smoke):
+    """chip_smoke.py's frames: {label: (configuration, width, height,
+    commands)}; config 3 at dash phase 0."""
+    w, h = smoke.WIDTH, smoke.HEIGHT
+    sw, sh = smoke.SHOWCASE_W, smoke.SHOWCASE_H
+    op, cfg = api.RenderOperation, api.Configuration
+    t = scenes.ortho(w, h)
+    fills = api.Shape(scenes.bezier_fill_paths(1000, w, h, seed=0))
+    dashed = api.Shape(*scenes.dashed_strokes(w, h, seed=1))
+    shape = showcase.build_shape(with_text=True)
+    show = showcase.showcase_commands(shape, sw, sh)
+    depth = cfg(depth_compare="less_equal", depth_write_enabled=True)
+    return {
+        "config 2": (cfg(), w, h, [
+            api.DrawCommand(op.STENCIL, fills, t),
+            api.DrawCommand(op.COLOR, fills, t, color=(0.9, 0.4, 0.1, 1.0)),
+        ]),
+        "config 3": (cfg(), w, h, [
+            api.DrawCommand(op.STENCIL, dashed, t),
+            api.DrawCommand(op.COLOR, dashed, t, color=(1, 1, 1, 1)),
+        ]),
+        "showcase": (cfg(), sw, sh, show),
+        "showcase clip/alpha": (
+            cfg(alpha_layer_count=1, blending="front_to_back"), sw, sh,
+            showcase.showcase_commands_clip_alpha(shape, sw, sh),
+        ),
+        "showcase + depth": (depth, sw, sh, show),
+        "gradient card": (cfg(), sw, sh, scenes.gradient_card(sw, sh)[0]),
+        "mixed paints": (depth, w, h, scenes.mixed_paints(w, h)),
+    }
+
+
+def worker(root):
+    """Time the frames with the port of ``root``; prints one line
+    ``AB {json}``."""
+    root = os.path.abspath(root)
+    smoke = chip_smoke()
+    sys.path.insert(0, root)
+    from contrast_renderer_tpu_torch import cuda_build, scenes
+    from contrast_renderer_tpu_torch import renderer as api
+    from contrast_renderer_tpu_torch.models import showcase
+    from contrast_renderer_tpu_torch.ops import coverage
+
+    if not coverage.__file__.startswith(root + os.sep):
+        fail(f"imported {coverage.__file__}, not the port of {root}")
+    KF = coverage.KernelFeatures
+    coverage.build_kernels([
+        KF(4), KF(4, depth=True), KF(4, paint_mode=1),
+        KF(4, True, 2, (scenes.CHECKER_CUDA,)),
+    ])
+    for name, (seconds, log) in cuda_build.build_logs.items():
+        print(f"  {name}: built in {seconds:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    results = {}
+    for label, (config, w, h, commands) in frames(api, scenes, showcase, smoke).items():
+        renderer = api.Renderer(config, w, h, device="cuda")
+        spec, _, runtime = renderer._prepare(commands)
+        args = smoke.raster_args(coverage, spec, runtime)
+        k_ms, k_lo, k_hi = smoke.cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
+        f_ms = smoke.cuda_ms(lambda: renderer.render(commands, to_host=False), 10, 1, 3)[0]
+        packed = coverage.coverage_raster(replace(spec, out_uint8=True), *args[1:])
+        results[label] = {
+            "kernel_ms": k_ms, "kernel_lo": k_lo, "kernel_hi": k_hi, "frame_ms": f_ms,
+            "rgba8": hashlib.sha256(packed.cpu().numpy().tobytes()).hexdigest()[:16],
+        }
+        print(f"  {label}: kernel {k_ms:.4f} ms [{k_lo:.4f}, {k_hi:.4f}], "
+              f"frame {f_ms:.4f} ms", flush=True)
+    print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
+
+
+def main():
+    argv = sys.argv[1:]
+    if argv[:1] == ["--worker"]:
+        worker(argv[1])
+        return
+    if len(argv) != 2:
+        fail("usage: chip_ab.py ROOT_A ROOT_B")
+    roots = dict(zip("AB", argv))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(smi.stdout.strip(), flush=True)
+    runs = {"A": [], "B": []}
+    for letter in ORDER:
+        print(f"{letter}: {roots[letter]}", flush=True)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", roots[letter]],
+            capture_output=True, text=True, timeout=900,
+        )
+        for line in proc.stdout.splitlines():
+            if line.startswith("AB "):
+                runs[letter].append(json.loads(line[3:])["frames"])
+            else:
+                print(line, flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"the {letter} process exited {proc.returncode}")
+    summary = {}
+    for label in runs[ORDER[0]][0]:
+        row = {}
+        for letter in "AB":
+            done = [r[label] for r in runs[letter]]
+            row[letter] = {
+                "kernel_ms": [d["kernel_ms"] for d in done],
+                "kernel_lo": min(d["kernel_lo"] for d in done),
+                "kernel_hi": max(d["kernel_hi"] for d in done),
+                "frame_ms": [d["frame_ms"] for d in done],
+                "rgba8": sorted({d["rgba8"] for d in done}),
+            }
+        row["equal"] = len({h for r in row.values() for h in r["rgba8"]}) == 1
+        summary[label] = row
+        cells = "; ".join(
+            f"{letter} kernel {', '.join(f'{v:.4f}' for v in row[letter]['kernel_ms'])} "
+            f"[{row[letter]['kernel_lo']:.4f}, {row[letter]['kernel_hi']:.4f}] ms, "
+            f"frame {', '.join(f'{v:.3f}' for v in row[letter]['frame_ms'])} ms"
+            for letter in "AB"
+        )
+        print(f"{label}: {cells}; images equal {row['equal']}", flush=True)
+    print(json.dumps({"ab": summary, "roots": roots, "order": ORDER}), flush=True)
+    if not all(row["equal"] for row in summary.values()):
+        fail("the two roots' images differ")
+
+
+if __name__ == "__main__":
+    main()

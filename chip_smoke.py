@@ -56,6 +56,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    plain, then ``Renderer.render``; both checker colours show;
 14. time phases 11-13's frames as in phase 10.
 
+Kernel times are the median of 5 batches of launches, printed with the
+batches' least and greatest.  Beside each frame's bound it prints what
+the kernel's stencil walk skipped on that frame (``rasterize_plain``'s
+``work``): the (warp, entry) pairs that the box test culled, and the
+stroke sample evaluations that the warp vote skipped.
+
 Kernel against plain is equality to the bit, float and packed RGBA8.
 The line before the last is ``{"kernels": [...]}``, one entry per ported
 body of the kernel with the frame that exercised it, its launches on the
@@ -158,9 +164,9 @@ def fail(message):
 
 
 def cuda_ms(fn, reps, iters, warmup):
-    """Median over ``reps`` batches of the device time per call of
-    ``fn``, each batch ``iters`` calls between two CUDA events, after
-    ``warmup`` calls."""
+    """(median, least, greatest) over ``reps`` batches of the device time
+    per call of ``fn``, each batch ``iters`` calls between two CUDA
+    events, after ``warmup`` calls."""
     import torch
 
     for _ in range(warmup):
@@ -176,7 +182,7 @@ def cuda_ms(fn, reps, iters, warmup):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
 
 
 def host_ms(fn, reps, warmup):
@@ -364,7 +370,7 @@ def cover_ops(coverage, spec, runtime, draws, work):
     return ops
 
 
-def kernel_bound(coverage, spec, runtime):
+def kernel_bound(coverage, spec, runtime, work=None):
     """The least time the card could take for coverage_raster's work on
     this prepared frame: the larger of the bytes it must move (every
     entry row in the tiles' ranges, the active tiles' range and class
@@ -372,10 +378,11 @@ def kernel_bound(coverage, spec, runtime):
     once) over PEAK_BYTES_S, and the float operations this frame's data
     needs (entry_ops over each entry's own samples, cover_ops over the
     samples the plain version's masks passed) over PEAK_F32_OPS_S.
-    Returns (bound_ms, "bytes" or "operations", bytes, operations)."""
+    Returns (bound_ms, "bytes" or "operations", bytes, operations); the
+    plain version's ``work`` counts go into ``work`` where given."""
     prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
     draws = coverage.draw_tables(spec)
-    work = {}
+    work = {} if work is None else work
     coverage.rasterize_plain(*raster_args(coverage, spec, runtime), work=work)
     ops = entry_ops(coverage, spec, prepared, desc_i)
     ops += cover_ops(coverage, spec, runtime, draws, work)
@@ -545,15 +552,16 @@ def main():
 
     # ---- 6. timing --------------------------------------------------------
     args = raster_args(coverage, spec, runtime)
-    kernel_ms = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 20, 5)
-    plain_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 3, 1, 1)
+    kernel_ms, k_lo, k_hi = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 20, 5)
+    plain_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 3, 1, 1)[0]
     # A frame: Renderer.render with the binning cached (unchanged
     # transforms), from the host call to the end of its last kernel.
     frame_ms = cuda_ms(
         lambda: renderer.render(commands, to_host=False), 20, 1, 5
-    )
+    )[0]
     bin_ms = binning_ms(renderer, commands, 5)
-    print(f"timing ({card}): coverage_raster {kernel_ms:.3f} ms, "
+    print(f"timing ({card}): coverage_raster {kernel_ms:.3f} ms "
+          f"[{k_lo:.3f}, {k_hi:.3f}], "
           f"rasterize_plain {plain_ms:.3f} ms, frame (cached binning) "
           f"median {frame_ms:.3f} ms, binning median {bin_ms:.3f} ms",
           flush=True)
@@ -737,10 +745,15 @@ def main():
     times["config 2"] = (kernel_ms, plain_ms)
     bounds = {}
     for label, (spec_v, runtime_v, _, _) in frames.items():
-        bounds[label] = kernel_bound(coverage, spec_v, runtime_v)
+        work = {}
+        bounds[label] = kernel_bound(coverage, spec_v, runtime_v, work)
         b_ms, b_by, nbytes, ops = bounds[label]
         print(f"bound {label}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP "
-              f"-> {b_ms:.4f} ms ({b_by}); kernel {times[label][0]:.3f} ms",
+              f"-> {b_ms:.4f} ms ({b_by}); kernel {times[label][0]:.3f} ms; "
+              f"box test culled {work.get('culled', 0)} of "
+              f"{work.get('entry_warps', 0)} (warp, entry) pairs; warp vote "
+              f"skipped {work.get('vote_skipped', 0)} of "
+              f"{work.get('stroke_samples', 0)} stroke sample evaluations",
               flush=True)
 
     def entry(name, line, label, frame):
@@ -807,13 +820,14 @@ def time_frames(coverage, frames, card):
     times = {}
     for label, (r, cmds, spec_v, runtime_v, _, _) in frames.items():
         args = raster_args(coverage, spec_v, runtime_v)
-        k_ms = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
-        p_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 1, 1, 0)
-        f_ms = cuda_ms(lambda: r.render(cmds, to_host=False), 10, 1, 3)
+        k_ms, k_lo, k_hi = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
+        p_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 1, 1, 0)[0]
+        f_ms = cuda_ms(lambda: r.render(cmds, to_host=False), 10, 1, 3)[0]
         h_ms = host_ms(lambda: r.render(cmds, to_host=False), 20, 3)
         b_ms = binning_ms(r, cmds, 3)
         times[label] = (k_ms, p_ms)
-        print(f"timing {label} ({card}): coverage_raster {k_ms:.3f} ms, "
+        print(f"timing {label} ({card}): coverage_raster {k_ms:.3f} ms "
+              f"[{k_lo:.3f}, {k_hi:.3f}], "
               f"rasterize_plain {p_ms:.3f} ms, frame (cached binning) "
               f"median {f_ms:.3f} ms, its host time median {h_ms:.3f} ms, "
               f"binning median {b_ms:.3f} ms", flush=True)

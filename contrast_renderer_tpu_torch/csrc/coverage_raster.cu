@@ -35,22 +35,24 @@
 // What bounds it on this card: ALU work per binned entry over the tile's
 // samples.  A gradient cover adds per covered sample two or three divides,
 // a square root for radial paints, and the ramp (~40 operations); depth
-// adds three per sample for the plane and one compare.  A fill entry costs each pixel three edge functions, up to four
-// interpolated curve weights and S sample tests (~40-120 float operations).
-// A stroke entry costs far more: per sample a divide, two or three
-// texcoords and the cap, join and dash predicates (~60-250 operations,
-// fmodf and the atan2 polynomial included).  Entry rows and descriptors
-// are read once per block and shared by its 256 threads; their bandwidth
-// is orders of magnitude below the ALU time.  Registers bound occupancy:
-// per pixel the kernel holds S windings, 4*S colours, S clip counters and
-// L*S layer slots.
+// adds three per sample for the plane and one compare.  A fill entry
+// costs each pixel three edge functions, up to four interpolated curve
+// weights and S sample tests (~40-120 float operations).  A stroke entry
+// costs far more: per sample a divide, two or three texcoords and the
+// cap, join and dash predicates (~60-250 operations, fmodf and the atan2
+// polynomial included).  An entry covers few of its tile's 4,096 pixels
+// (a stroke triangle is thin), so most of that work used to end in a
+// false edge test.  Entry rows and descriptors are read once per block and
+// shared by its 256 threads; their bandwidth is orders of magnitude below
+// the ALU time.  Registers bound occupancy: per pixel the kernel holds S
+// windings, 4*S colours, S clip counters and L*S layer slots.
 //
 // What the design does about it:
 //   - One thread owns one pixel for the whole command walk and keeps its
 //     state in registers.  A 32x128 tile's state at 4x MSAA is 320 KiB,
 //     more than a block's shared memory, but the state never crosses
 //     pixels, so no block needs it all: a block is a 256-pixel slab of a
-//     tile, on a grid of (tiles, slabs).
+//     tile (4 rows x 64 lanes), on a grid of (tiles, slabs).
 //   - The block stages the entry rows it is about to walk into shared
 //     memory in chunks, once for all its threads; a stroke row is staged
 //     with its group's descriptor, so the per-entry cap and join codes are
@@ -84,10 +86,61 @@
 //     the registers of frames without them.  The compare function is a
 //     runtime argument, uniform over the grid and switched outside the
 //     sample loop, not a template parameter (eight times the builds).
-//   - Control flow depends only on the tile and the unit, never on the
-//     pixel, so the warps of a block never diverge on it; per-sample
-//     decisions are selects.  The one exception is the general dash's cap
-//     types, which vary by sample: they take the branch-free where-chain.
+//   - Per-warp culling.  A warp is 4 rows x 8 lanes of the tile (with
+//     strips, 8 lanes of one strip), so a thin or diagonal entry meets
+//     fewer warps than a 1x32 run of a row would; its footprint, the union
+//     of its pixels' squares, is the 8x4-pixel rectangle that holds their
+//     samples.  A chunk of entries is staged with each entry's box
+//     (RF_AABB, widened by the margin below and by half a pixel, once per
+//     entry).  Walking the chunk, each lane tests whether the box holds
+//     its pixel's centre, and the warp skips the entry, before any
+//     per-pixel work, unless the OR over its lanes is set.  That OR is a
+//     __reduce_or_sync, whose result lies in a uniform register: the
+//     compiler then knows the branch cannot diverge.  Branching on a
+//     per-thread value instead (a ballot mask walked bit by bit, or one
+//     bit per (entry, warp) staged in shared memory) raised the fill-only
+//     build from 63 to 79-126 registers and the stroke builds' spills to
+//     300-500 B (ptxas, S=4).
+//   - The warp vote.  stroke_cover runs the S edge tests first and ORs
+//     the inside bits over the warp.  A warp where no lane has a sample
+//     inside returns at once; otherwise only the samples that some lane
+//     has inside run the divide, the texcoords and stroke_keep.  The
+//     result is `inside & keep` per sample, so no bit changes.  A lane
+//     with no inside sample still runs its warp's predicates: skipping
+//     them would only mask it, since the warp issues them for the others.
+//   - Control flow depends only on the tile, the unit and the warp-wide
+//     reductions, never on the pixel alone, so no lane diverges from its
+//     warp, and the staging loops and their barriers stay uniform over the
+//     block; per-sample decisions are selects.  The one exception is the
+//     general dash's cap types, which vary by sample: they take the
+//     branch-free where-chain.
+//
+// Why culling by the box is exact.  The box is the min and max of the
+// pixel-space vertices that the edge coefficients (a, b, c) were built
+// from, so in exact arithmetic a sample that passes the three edge tests
+// lies in the closed triangle, inside the box.  In float32 each test is
+// off by at most 10u(X + 1)(|a| + |b|), with u = 2^-24 and X a bound on
+// the coordinates of the vertices and the samples (rounding of the
+// coefficients, of the edge function at the centre and of its shift to
+// the sample).  A passing sample's barycentrics are then at least
+// -eps_k / 2A, which puts it at most sum_k eps_k * w / 2A beyond the box
+// in x (h in y, for a w x h box).  The stored 1/|area| is of the rounded
+// area, which is off from the true 2A by at most 12u w h; so where
+// 2^-20 w h inv_area < 1/2, 1/2A is at most 2.01 inv_area.  cull_box
+// widens the box by one pixel plus k*w in x and k*h in y (and by the half
+// pixel from a sample to its pixel's centre), with k = 2^-18
+// X sum_k (|a_k| + |b_k|) inv_area, over three times that bound, and does
+// not cull where the slack test fails.  The term needs no divide.  It is
+// below 0.1 px for most entries and grows only along a sliver's long
+// side.  tests/test_torch_cull.py checks on three scenes that every pixel
+// with a passing sample has its centre in its entry's box.
+//
+// Measured (chip_ab.py, one H100 80GB HBM3 at 700 W, against this kernel
+// without the culling, the vote and the 4x8 warps, in one run; PERF.md):
+// BASELINE config 3 (dashed strokes, 1080p) 2.04 -> 0.80 ms, as the vote
+// skips 86% of its stroke sample evaluations; the 4K showcase frames
+// 1.26-2.06 -> 0.87-1.72 ms, as the box test culls 73-83% of their (warp,
+// entry) pairs; the fill-only and paint frames no slower.
 //
 // Rounding: built with --fmad=false, so every multiply and add rounds on
 // its own, in the reference's order of operations; divides and square
@@ -97,6 +150,7 @@
 // included.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #ifndef RASTER_DEPTH
@@ -110,6 +164,7 @@ namespace {
 
 constexpr int BLOCK = 256;           // pixels (threads) per block
 constexpr int CHUNK = 64;            // entry rows staged per pass
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int D_F = 32;
 constexpr int D_I = 8;
 constexpr int DESC_F = 12;
@@ -118,6 +173,7 @@ constexpr int RF_INV_AREA = 9;
 constexpr int RF_AW = 10;
 constexpr int RF_IW = 22;
 constexpr int RF_END_Y = 25;
+constexpr int RF_AABB = 26;  // 26..29: pixel-space min x, min y, max x, max y
 constexpr int RI_CONTRIB = 1;
 constexpr int RI_GROUP = 2;
 constexpr int RI_FLAGS = 3;
@@ -129,7 +185,8 @@ constexpr int FILL_F = 22;
 constexpr int FILL_I = 2;
 // Staged stroke row: the row's first 26 floats (edges, 1/area, aux/w, 1/w,
 // end-cap y), then desc_f[0:9] of its group; ints: flags, then
-// desc_i[0:13] of its group.
+// desc_i[0:13] of its group.  Each staged row's box, widened, is staged
+// apart (cull_box).
 constexpr int STROKE_ROW = RF_END_Y + 1;
 constexpr int STROKE_F = STROKE_ROW + 9;
 constexpr int STROKE_I = 1 + 13;
@@ -199,7 +256,6 @@ struct RasterArgs {
   int n_commands, n_draws, n_units, hull_rows, draw_cols, kp, kgp, n_groups;
   int samples, winding_mask, out_u8;
   int color_src, color_op, color_dst, alpha_src, alpha_op, alpha_dst;
-  int uses_constant;
   // has_clip: the frame holds clip or unclip ops.  layer_mode: -1, no clip
   // or alpha ops; 1, one alpha layer in registers; 0, layers in `layers`.
   // has_strokes: some stencil draw carries stroke rows.
@@ -228,6 +284,10 @@ __device__ __forceinline__ float blend_factor(int f, float ca, float da,
 }
 
 // out = op(s * src_factor, d * dst_factor); min/max ignore the factors.
+// k is the blend constant, the draw's cmd_f columns 20:24: only the
+// constant factors read it, and cmd_f has those columns when they occur.
+// Read there, not held in registers: holding it raised the depth and
+// user-paint build from 79 to 103 registers (ptxas, S=4).
 __device__ __forceinline__ float blend_channel(int sf, int op, int df, float s,
                                                float d, float ca, float da,
                                                int chan, const float* k) {
@@ -305,6 +365,56 @@ __device__ __forceinline__ void gradient_paint(const float* cf, const float* pxy
       v = v + (cf[4 * (i + 1) + ch] - cf[4 * i + ch]) * fs[i];
     rgba[ch] = v;
   }
+}
+
+// The rounding term of the cull margin (see the note at the head):
+// 2^-18 = 64u and 2^-20 = 16u, with u = 2^-24 the unit roundoff.
+constexpr float CULL_EPS = 3.814697265625e-06f;
+constexpr float CULL_AREA_EPS = 9.5367431640625e-07f;
+
+// The box that entry row f is culled by, (min x, min y, max x, max y): its
+// RF_AABB widened by one pixel plus the rounding term, and by the half
+// pixel from a pixel's centre to its samples, so that a warp tests it
+// against its pixels' centres.  `coord` bounds every pixel coordinate of
+// the grid (its width plus its height plus one).  A NaN anywhere keeps the
+// entry.  ops/coverage.py::_cull_boxes is the same arithmetic in torch.
+__device__ __forceinline__ float4 cull_box(const float* f, float coord) {
+  const float x0 = f[RF_AABB], y0 = f[RF_AABB + 1];
+  const float x1 = f[RF_AABB + 2], y1 = f[RF_AABB + 3];
+  const float w = x1 - x0, h = y1 - y0;
+  // sum_k |a_k| + |b_k|, the entry's edge normals.
+  const float norm = ((fabsf(f[0]) + fabsf(f[1])) + (fabsf(f[3]) + fabsf(f[4]))) +
+                     (fabsf(f[6]) + fabsf(f[7]));
+  const float xm =
+      fmaxf(fmaxf(fabsf(x0), fabsf(x1)), fmaxf(fabsf(y0), fabsf(y1))) + coord;
+  // Below 1/2, 1/(true |area|) is at most twice the stored 1/|area|.
+  const float inv_area = f[RF_INV_AREA];
+  const float slack = CULL_AREA_EPS * (w * h) * inv_area;
+  const float k = (slack < 0.5f) & (inv_area > 0.0f)
+                      ? CULL_EPS * xm * norm * inv_area
+                      : CUDART_INF_F;
+  const float mx = 1.5f + k * w, my = 1.5f + k * h;
+  return make_float4(x0 - mx, y0 - my, x1 + mx, y1 + my);
+}
+
+// Stage the culling boxes of rows [base, base + n) of a tile's rows, with
+// the rows (before the staging barrier).
+__device__ __forceinline__ void stage_boxes(const float* rows_f, int base,
+                                            int n, const RasterArgs& a,
+                                            float4* sbox) {
+  const float coord =
+      (float)(a.ntx * a.lw + (a.n_tiles / a.ntx) * a.lh + 1);
+  for (int i = threadIdx.x; i < n; i += BLOCK)
+    sbox[i] = cull_box(rows_f + (size_t)(base + i) * D_F, coord);
+}
+
+// Whether culling box b holds the centre (pxc, pyc) of some pixel of this
+// thread's warp.  The OR over the warp (__reduce_or_sync) leaves the
+// answer in a uniform register, so the compiler knows that a branch on it
+// never diverges.
+__device__ __forceinline__ bool warp_meets(const float4 b, float pxc, float pyc) {
+  const bool mine = !((b.z < pxc) | (b.x > pxc) | (b.w < pyc) | (b.y > pyc));
+  return __reduce_or_sync(FULL, (unsigned)mine) != 0u;
 }
 
 // jnp.remainder: the truncated remainder moved into the sign of b.
@@ -436,8 +546,12 @@ __device__ __forceinline__ bool stroke_keep(const float* f, const int* ii,
 }
 
 // One stroke entry against this thread's pixel: bit s of the result is set
-// when the entry covers sample s.  The sample loop stays rolled (offsets
-// from shared memory), so the predicates' code does not grow with S.
+// when the entry covers sample s.  The edge tests come first, for all S
+// samples; a sample's predicates run only where some lane of the warp has
+// it inside (the warp vote), and a warp with no inside sample returns at
+// once.  The result is `inside & keep` per sample either way.  The
+// predicates' loop stays rolled (offsets from shared memory), so their code
+// does not grow with S.  All 32 lanes must call it together.
 template <bool JOINT, int DASH>
 __device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
                                                  float pxc, float pyc,
@@ -450,6 +564,25 @@ __device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
   const float e0 = a0 * pxc + b0 * pyc + c0;
   const float e1 = a1 * pxc + b1 * pyc + c1;
   const float e2 = a2 * pxc + b2 * pyc + c2;
+  const int flags = ii[0];
+  const bool tl0 = (flags & 1) != 0;
+  const bool tl1 = (flags & 2) != 0;
+  const bool tl2 = (flags & 4) != 0;
+  unsigned in_bits = 0u;
+#pragma unroll
+  for (int s = 0; s < n; ++s) {
+    const float dx = sdx[s], dy = sdy[s];
+    const float nt0 = -(a0 * dx + b0 * dy);
+    const float nt1 = -(a1 * dx + b1 * dy);
+    const float nt2 = -(a2 * dx + b2 * dy);
+    const bool inside = ((e0 > nt0) | ((e0 == nt0) & tl0)) &
+                        ((e1 > nt1) | ((e1 == nt1) & tl1)) &
+                        ((e2 > nt2) | ((e2 == nt2) & tl2));
+    in_bits |= (unsigned)inside << s;
+  }
+  // The samples that some lane of the warp has inside.
+  const unsigned warp_in = __reduce_or_sync(FULL, in_bits);
+  if (warp_in == 0u) return 0u;
   const float inv_a = f[RF_INV_AREA];
   const float l0 = e0 * inv_a, l1 = e1 * inv_a, l2 = e2 * inv_a;
   float ch[NCH], gx[NCH], gy[NCH];
@@ -466,26 +599,18 @@ __device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
   const float iw_c = l0 * i0 + l1 * i1 + l2 * i2;
   const float gxw = inv_a * (a0 * i0 + a1 * i1 + a2 * i2);
   const float gyw = inv_a * (b0 * i0 + b1 * i1 + b2 * i2);
-  const int flags = ii[0];
-  const bool tl0 = (flags & 1) != 0;
-  const bool tl1 = (flags & 2) != 0;
-  const bool tl2 = (flags & 4) != 0;
   unsigned bits = 0u;
 #pragma unroll 1
-  for (int s = 0; s < n; ++s) {
+  for (unsigned m = warp_in; m != 0u; m &= m - 1u) {
+    const int s = __ffs(m) - 1;
     const float dx = sdx[s], dy = sdy[s];
-    const float nt0 = -(a0 * dx + b0 * dy);
-    const float nt1 = -(a1 * dx + b1 * dy);
-    const float nt2 = -(a2 * dx + b2 * dy);
-    const bool inside = ((e0 > nt0) | ((e0 == nt0) & tl0)) &
-                        ((e1 > nt1) | ((e1 == nt1) & tl1)) &
-                        ((e2 > nt2) | ((e2 == nt2) & tl2));
     const float iws = iw_c + (gxw * dx + gyw * dy);
     const float inv = 1.0f / (iws != 0.0f ? iws : 1.0f);
     float tex[NCH];
 #pragma unroll
     for (int cc = 0; cc < NCH; ++cc)
       tex[cc] = (ch[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv;
+    const bool inside = ((in_bits >> s) & 1u) != 0u;
     const bool cov = inside & stroke_keep<JOINT, DASH>(f, ii, tex);
     bits |= (unsigned)cov << s;
   }
@@ -498,17 +623,18 @@ __device__ __forceinline__ int group_of(const int* rows_i, size_t row,
 }
 
 // Stroke entries [lo, hi) of one class from a tile's rows, staged through
-// shared memory CHUNK rows at a time with their groups' descriptors.  A
-// covered sample whose winding is 0 (and, with clip ops, whose clip
-// counter equals the command's depth) ends at winding 1: the stroke OR,
-// entry by entry.  lo and hi are uniform over the block, so every thread
-// reaches every barrier.
+// shared memory CHUNK rows at a time with their groups' descriptors and
+// culling boxes; each warp walks only the entries whose box holds one of
+// its pixel centres.  A covered sample whose winding is 0 (and, with clip
+// ops, whose clip counter equals the command's depth) ends at winding 1:
+// the stroke OR, entry by entry.  lo and hi are uniform over the block, so
+// every thread reaches every barrier.
 template <int S, bool CA, bool JOINT, int DASH>
 __device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
                              int hi, float pxc, float pyc, const RasterArgs& a,
                              int (&wind)[S], const int (&clip)[CA ? S : 1],
-                             int depth, float* sf, int* si, const float* sdx,
-                             const float* sdy) {
+                             int depth, float* sf, int* si, float4* sbox,
+                             const float* sdx, const float* sdy) {
   for (int base = lo; base < hi; base += CHUNK) {
     const int n = min(CHUNK, hi - base);
     __syncthreads();  // the previous chunk has been consumed
@@ -528,8 +654,10 @@ __device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
                   : a.desc_i[(size_t)group_of(rows_i, row, a.n_groups) * DESC_I +
                              (col - 1)];
     }
+    stage_boxes(rows_f, base, n, a, sbox);
     __syncthreads();
     for (int j = 0; j < n; ++j) {
+      if (!warp_meets(sbox[j], pxc, pyc)) continue;
       const unsigned bits = stroke_cover<JOINT, DASH>(
           sf + j * STROKE_F, si + j * STROKE_I, pxc, pyc, sdx, sdy, S);
 #pragma unroll
@@ -602,13 +730,14 @@ __device__ __forceinline__ void fill_entry(const float* f, int contrib,
 }
 
 // Fill entries [lo, hi) of one class from a tile's rows, staged through
-// shared memory CHUNK rows at a time.  lo and hi are uniform over the
-// block, so every thread reaches every barrier.
+// shared memory CHUNK rows at a time with their culling boxes; each warp
+// walks only the entries whose box holds one of its pixel centres.  lo and
+// hi are uniform over the block, so every thread reaches every barrier.
 template <int S, bool CA, int NCH>
 __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
                            int hi, float pxc, float pyc, const RasterArgs& a,
                            int (&wind)[S], const int (&clip)[CA ? S : 1],
-                           int depth, float* sf, int* si) {
+                           int depth, float* sf, int* si, float4* sbox) {
   for (int base = lo; base < hi; base += CHUNK) {
     const int n = min(CHUNK, hi - base);
     __syncthreads();  // the previous chunk has been consumed
@@ -620,11 +749,14 @@ __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
       si[FILL_I * i] = rows_i[(size_t)(base + i) * D_I + RI_CONTRIB];
       si[FILL_I * i + 1] = rows_i[(size_t)(base + i) * D_I + RI_FLAGS];
     }
+    stage_boxes(rows_f, base, n, a, sbox);
     __syncthreads();
-    for (int j = 0; j < n; ++j)
+    for (int j = 0; j < n; ++j) {
+      if (!warp_meets(sbox[j], pxc, pyc)) continue;
       fill_entry<S, CA, NCH>(sf + j * FILL_F, si[FILL_I * j],
                              si[FILL_I * j + 1], pxc, pyc, a, wind, clip,
                              depth);
+    }
   }
 }
 
@@ -641,21 +773,28 @@ __global__ void __launch_bounds__(BLOCK)
   __shared__ float sf[CHUNK * STROKE_F];
   __shared__ int si[CHUNK * STROKE_I];
   __shared__ float sdx[MAX_SAMPLES], sdy[MAX_SAMPLES];
+  __shared__ float4 sbox[CHUNK];
   const int t = blockIdx.x;
   const int n_px = a.th * a.tw;
-  const int pix = blockIdx.y * BLOCK + threadIdx.x;  // lane-major in the tile
-  const int r = pix / a.tw;
-  const int l = pix - r * a.tw;
+  // A block is 4 rows x 64 lanes of the tile, its warp w the 4 rows x 8
+  // lanes from lane 8w (ops/coverage.py::warp_pixels); pix is lane-major.
+  const int q = threadIdx.x & 31, blocks_x = a.tw / 64;
+  const int r = (blockIdx.y / blocks_x) * 4 + (q >> 3);
+  const int l = (blockIdx.y % blocks_x) * 64 + (threadIdx.x >> 5) * 8 + (q & 7);
+  const int pix = r * a.tw + l;
   const int n_active = a.acount[t];
   const bool out_u8 = a.out_u8 != 0;
 
   if (n_active == 0) {  // empty tile: transparent black
+    // Which thread clears which pixel does not matter: each warp clears
+    // 32 consecutive pixels, one 128-byte run per plane.
+    const int run = blockIdx.y * BLOCK + threadIdx.x;
     if (out_u8) {
-      static_cast<int*>(a.out)[(size_t)t * n_px + pix] = 0;
+      static_cast<int*>(a.out)[(size_t)t * n_px + run] = 0;
     } else {
 #pragma unroll
       for (int chan = 0; chan < 4; ++chan)
-        static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + pix] = 0.0f;
+        static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + run] = 0.0f;
     }
     return;
   }
@@ -740,10 +879,10 @@ __global__ void __launch_bounds__(BLOCK)
 #define STROKE_CLASS(CODE, JOINT, DASH)                                        \
   stroke_range<S, CA, JOINT, DASH>(tri_f, tri_i, off[b + (CODE)],              \
                                    off[b + (CODE) + 1], pxc, pyc, a, wind,     \
-                                   clip, depth, sf, si, sdx, sdy);             \
+                                   clip, depth, sf, si, sbox, sdx, sdy);       \
   stroke_range<S, CA, JOINT, DASH>(g_tri_f, g_tri_i, g_off[b + (CODE)],        \
                                    g_off[b + (CODE) + 1], pxc, pyc, a, wind,   \
-                                   clip, depth, sf, si, sdx, sdy);
+                                   clip, depth, sf, si, sbox, sdx, sdy);
       STROKE_CLASS(CLS_LINE_SOLID, false, 0)
       STROKE_CLASS(CLS_LINE_SOLID + 1, false, 1)
       STROKE_CLASS(CLS_LINE_SOLID + 2, false, 2)
@@ -754,10 +893,10 @@ __global__ void __launch_bounds__(BLOCK)
       }
 #define FILL_CLASS(CODE, NCH)                                                  \
   fill_range<S, CA, NCH>(tri_f, tri_i, off[b + (CODE)], off[b + (CODE) + 1],   \
-                         pxc, pyc, a, wind, clip, depth, sf, si);              \
+                         pxc, pyc, a, wind, clip, depth, sf, si, sbox);        \
   fill_range<S, CA, NCH>(g_tri_f, g_tri_i, g_off[b + (CODE)],                  \
                          g_off[b + (CODE) + 1], pxc, pyc, a, wind, clip,       \
-                         depth, sf, si);
+                         depth, sf, si, sbox);
       FILL_CLASS(CLS_FILL_SOLID, 0)
       FILL_CLASS(CLS_FILL_QUAD, 3)
       FILL_CLASS(CLS_FILL_CUBIC, 4)
@@ -800,9 +939,6 @@ __global__ void __launch_bounds__(BLOCK)
       // outside the sample loop (inside it, fill-only frames ran 3% slower);
       // other paints premultiply per sample.
       const float solid[4] = {cf[0] * ca, cf[1] * ca, cf[2] * ca, ca};
-      const float konst[4] = {
-          a.uses_constant ? cf[20] : 0.0f, a.uses_constant ? cf[21] : 0.0f,
-          a.uses_constant ? cf[22] : 0.0f, a.uses_constant ? cf[23] : 0.0f};
       // Fragment depth: the draw's plane at each sample, (a*px + b*py) + c;
       // the stencil pass op fires only where depth passes too, so the
       // winding reset below takes the combined mask (depth_fail_op Keep).
@@ -855,7 +991,7 @@ __global__ void __launch_bounds__(BLOCK)
           color[chan][s] = blend_channel(
               alpha ? a.alpha_src : a.color_src, alpha ? a.alpha_op : a.color_op,
               alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], src[3],
-              da, chan, konst);
+              da, chan, cf + 20);
         }
         wind[s] = 0;
         if constexpr (DEPTH) {
@@ -975,14 +1111,12 @@ cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
 #error "build with -DRASTER_SAMPLES=S (1, 2, 4, 8 or 16)"
 #endif
 
-extern "C" int coverage_raster_block_size() { return BLOCK; }
-
 // Launches on `stream`; allocates nothing and does not synchronise.
 // Returns the cudaError_t of the launch: 0 if and only if the kernel was
 // launched, so the caller counts a launch exactly when this returns 0.
 extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   const RasterArgs& a = *args;
-  if (a.n_tiles <= 0 || (a.th * a.tw) % BLOCK != 0 ||
+  if (a.n_tiles <= 0 || a.th % 4 != 0 || a.tw % 64 != 0 ||
       a.th * a.tw / BLOCK > 65535 || a.n_groups < 1 || a.n_layers < 1 ||
       (a.layer_mode > 0 && a.n_layers > a.layer_mode) ||
       a.samples != RASTER_SAMPLES)

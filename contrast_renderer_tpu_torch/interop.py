@@ -71,7 +71,9 @@ def spec_from_reference(spec) -> FrameSpec:
 
 def prepared_from_numpy(fields, device="cpu") -> PreparedFrame:
     """A reference PreparedFrame (a NamedTuple or a mapping of its
-    fields, as numpy arrays) as this package's tensors on ``device``."""
+    fields, as numpy arrays) as this package's tensors on ``device``.
+    Only the parity tests call this, on the CPU, hence its default; the
+    renderer's entry point defaults to the card."""
     values = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
     return PreparedFrame(**{
         name: torch.as_tensor(np.array(values[name]), device=device)

@@ -1143,6 +1143,24 @@ def make_prepare(spec: FrameSpec):
 #: wrapper adds one where it launches and nowhere else.
 raster_launches = 0
 
+#: The kernel's thread layout: a block of 256 threads is BLOCK_ROWS x
+#: BLOCK_LANES pixels of a tile, and its warp w the BLOCK_ROWS x 8 lanes
+#: from lane 8w of it (see warp_pixels).
+BLOCK_ROWS, BLOCK_LANES = 4, 64
+
+
+def warp_pixels(tile_h, tile_w):
+    """The lane-major pixel index (row * tile_w + lane) of each thread of
+    each warp of a tile, in the kernel's order: (tile_h * tile_w / 32,
+    32), warp by warp and block by block."""
+    blocks_x = tile_w // BLOCK_LANES
+    b = torch.arange(tile_h * tile_w // 256)[:, None, None]
+    w = torch.arange(8)[None, :, None]
+    q = torch.arange(32)[None, None, :]
+    row = (b // blocks_x) * BLOCK_ROWS + q // 8
+    lane = (b % blocks_x) * BLOCK_LANES + w * 8 + q % 8
+    return (row * tile_w + lane).reshape(-1, 32)
+
 _MAX_SAMPLES = 16
 
 
@@ -1162,7 +1180,7 @@ class _RasterArgs(ctypes.Structure):
             "n_commands", "n_draws", "n_units", "hull_rows", "draw_cols",
             "kp", "kgp", "n_groups", "samples", "winding_mask", "out_u8",
             "color_src", "color_op", "color_dst",
-            "alpha_src", "alpha_op", "alpha_dst", "uses_constant",
+            "alpha_src", "alpha_op", "alpha_dst",
             "has_clip", "layer_mode", "n_layers", "has_strokes",
             "depth_compare", "depth_write",
         )
@@ -1250,8 +1268,6 @@ def build_kernel(features: KernelFeatures):
             ctypes.POINTER(_RasterArgs), ctypes.c_void_p,
         ]
         lib.coverage_raster_launch.restype = ctypes.c_int
-        lib.coverage_raster_block_size.argtypes = []
-        lib.coverage_raster_block_size.restype = ctypes.c_int
         _libraries[features] = lib
     return lib
 
@@ -1374,11 +1390,10 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     if device.type != "cuda":
         raise ValueError(f"coverage_raster takes CPU or CUDA tensors, not {device}")
     lib = build_kernel(kernel_features(spec))
-    block = lib.coverage_raster_block_size()
-    if (spec.tile_h * spec.tile_w) % block:
+    if spec.tile_h % BLOCK_ROWS or spec.tile_w % BLOCK_LANES:
         raise ValueError(
             f"tile {spec.tile_h}x{spec.tile_w} is not a multiple of the "
-            f"kernel's {block}-thread block"
+            f"kernel's {BLOCK_ROWS}x{BLOCK_LANES}-pixel block"
         )
     out = _raster_output(spec, device)
     has_clip, has_alpha = clip_alpha_ops(spec)
@@ -1412,7 +1427,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         expected["tri_f"][0][1], expected["g_tri_f"][0][1],
         desc_f.shape[0],
         spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
-        *codes, int(blend_uses_constant(spec.blending)),
+        *codes,
         int(has_clip), mode, n_layers, int(spec.has_strokes),
         DEPTH_COMPARE_CODES[spec.depth_compare], int(spec.depth_write),
     )
@@ -1427,6 +1442,59 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     return out
 
 
+#: The rounding term of the cull margin (coverage_raster.cu's note):
+#: 2^-18 = 64u and 2^-20 = 16u, with u = 2^-24 the unit roundoff.
+CULL_EPS = 2.0 ** -18
+CULL_AREA_EPS = 2.0 ** -20
+
+
+def _cull_boxes(rf, coord):
+    """The boxes the kernel culls by (``cull_box``): each entry's
+    RF_AABB widened by one pixel plus a rounding term and by half a
+    pixel, (x0, y0, x1, y1) of shape rf.shape[:-1].  ``coord`` bounds
+    every pixel coordinate of the grid (its width plus its height plus
+    one).  A pixel whose centre lies outside its entry's box has no
+    sample that passes the entry's three edge tests.  The kernel's
+    arithmetic, step for step (a NaN keeps the entry)."""
+    x0, y0, x1, y1 = (rf[..., RF_AABB + i] for i in range(4))
+    w = x1 - x0
+    h = y1 - y0
+    n = rf[..., :8].abs()
+    norm = ((n[..., 0] + n[..., 1]) + (n[..., 3] + n[..., 4])) + (n[..., 6] + n[..., 7])
+    xm = torch.fmax(torch.fmax(x0.abs(), x1.abs()), torch.fmax(y0.abs(), y1.abs())) + coord
+    inv_area = rf[..., RF_INV_AREA]
+    slack = CULL_AREA_EPS * (w * h) * inv_area
+    k = torch.where(
+        (slack < 0.5) & (inv_area > 0.0), CULL_EPS * xm * norm * inv_area, math.inf
+    )
+    mx = 1.5 + k * w
+    my = 1.5 + k * h
+    return x0 - mx, y0 - my, x1 + mx, y1 + my
+
+
+def _edges(rf, ri, pxc, pyc):
+    """Edge coefficients a, b (each (T, B, 1)), the edge functions at the
+    pixel centres e (T, B, P) and the top-left flags, of a batch of
+    entries: rf (T, B, D_F), ri (T, B, D_I), pxc/pyc (T, 1, P)."""
+    a = [rf[..., 3 * k:3 * k + 1] for k in range(3)]
+    b = [rf[..., 3 * k + 1:3 * k + 2] for k in range(3)]
+    e = [a[k] * pxc + b[k] * pyc + rf[..., 3 * k + 2:3 * k + 3] for k in range(3)]
+    flags = ri[..., RI_FLAGS:RI_FLAGS + 1]
+    return a, b, e, [(flags & (1 << k)) != 0 for k in range(3)]
+
+
+def _inside(edges, dx, dy):
+    """The three edge tests, with the top-left tie rule, at the sample
+    offset (dx, dy) from each pixel centre: (T, B, P) bool."""
+    a, b, e, tl = edges
+    inside = None
+    for k in range(3):
+        nt = -(a[k] * dx + b[k] * dy)
+        test = (e[k] > nt) | ((e[k] == nt) & tl[k])
+        inside = test if inside is None else inside & test
+    return inside
+
+
 def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
     """Winding deltas (T, S, P) of a batch of fill entries: rf (T, B,
     D_F), ri (T, B, D_I), ok (T, B) marks the entries inside their
@@ -1436,17 +1504,9 @@ def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
     def cf(i):
         return rf[..., i:i + 1]                          # (T, B, 1)
 
-    a0, b0, c0 = cf(0), cf(1), cf(2)
-    a1, b1, c1 = cf(3), cf(4), cf(5)
-    a2, b2, c2 = cf(6), cf(7), cf(8)
-    flags = ri[..., RI_FLAGS:RI_FLAGS + 1]
+    edges = _edges(rf, ri, pxc, pyc)
+    (a0, a1, a2), (b0, b1, b2), (e0, e1, e2), _ = edges
     contrib = torch.where(ok, ri[..., RI_CONTRIB], 0)[..., None]
-    e0 = a0 * pxc + b0 * pyc + c0                        # (T, B, P)
-    e1 = a1 * pxc + b1 * pyc + c1
-    e2 = a2 * pxc + b2 * pyc + c2
-    tl0 = (flags & 1) != 0
-    tl1 = (flags & 2) != 0
-    tl2 = (flags & 4) != 0
     n_ch = {CLS_FILL_SOLID: 0, CLS_FILL_QUAD: 3, CLS_FILL_CUBIC: 4}[class_code]
     if n_ch:
         inv_area = cf(RF_INV_AREA)
@@ -1461,14 +1521,7 @@ def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
     for ox, oy in offsets:
         dx = float(ox) - 0.5
         dy = float(oy) - 0.5
-        nt0 = -(a0 * dx + b0 * dy)
-        nt1 = -(a1 * dx + b1 * dy)
-        nt2 = -(a2 * dx + b2 * dy)
-        keep = (
-            ((e0 > nt0) | ((e0 == nt0) & tl0))
-            & ((e1 > nt1) | ((e1 == nt1) & tl1))
-            & ((e2 > nt2) | ((e2 == nt2) & tl2))
-        )
+        keep = _inside(edges, dx, dy)
         if n_ch:
             xs, ys, zs = (
                 ch_c[k] + (gx[k] * dx + gy[k] * dy) for k in range(3)
@@ -1628,9 +1681,8 @@ def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
     def cf(i):
         return rf[..., i:i + 1]                          # (T, B, 1)
 
-    ea = [cf(0), cf(3), cf(6)]
-    eb = [cf(1), cf(4), cf(7)]
-    ec = [ea[k] * pxc + eb[k] * pyc + cf(2 + 3 * k) for k in range(3)]
+    edges = _edges(rf, ri, pxc, pyc)
+    ea, eb, ec, _ = edges
     inv_a = cf(RF_INV_AREA)
     lc = [e * inv_a for e in ec]
 
@@ -1650,7 +1702,6 @@ def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
     gxw = slope(ea, iwv)
     gyw = slope(eb, iwv)
     flags = ri[..., RI_FLAGS:RI_FLAGS + 1]
-    tl = [(flags & (1 << k)) != 0 for k in range(3)]
     group = torch.clamp(ri[..., RI_GROUP], 0, desc_f.shape[0] - 1).long()
     df = desc_f[group]                                   # (T, B, DESC_F)
     di = desc_i[group]
@@ -1659,10 +1710,7 @@ def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
     for ox, oy in offsets:
         dx = float(ox) - 0.5
         dy = float(oy) - 0.5
-        inside = ok[..., None]
-        for k in range(3):
-            nt = -(ea[k] * dx + eb[k] * dy)
-            inside = inside & ((ec[k] > nt) | ((ec[k] == nt) & tl[k]))
+        inside = ok[..., None] & _inside(edges, dx, dy)
         iws = iw_c + (gxw * dx + gyw * dy)
         inv = 1.0 / torch.where(iws != 0.0, iws, 1.0)
         tex = [(ch_c[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv
@@ -1738,7 +1786,16 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     samples whose other cover conditions hold; ``"depth"``, depth tests
     at the samples inside the hull with a nonzero winding; ``"blend"``,
     blended samples; ``"paint"``, {cover draw: blended samples} for
-    non-solid paints; ``"alpha"``, {op: updated samples} for alpha ops."""
+    non-solid paints; ``"alpha"``, {op: updated samples} for alpha ops.
+    It also receives what the kernel's stencil walk skips, per warp of
+    32 pixels (``warp_pixels``; an entry is culled where its
+    ``_cull_boxes`` box holds none of the warp's pixel centres):
+    ``"entry_warps"``, the (warp, entry) pairs of the binned stroke and
+    fill entries; ``"culled"``, those the box test culls;
+    ``"stroke_samples"``, the stroke sample evaluations (32·S per
+    stroke pair that is not culled); ``"vote_skipped"``, those the
+    warp vote skips (32 for each sample that no pixel of the warp has
+    inside the entry)."""
     check_supported(spec)
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
@@ -1774,6 +1831,10 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     pyc = (by + 0.5)[:, None, :]
     px = torch.stack([bx + float(ox) for ox, _ in offsets], 1)  # (T, S, P)
     py = torch.stack([by + float(oy) for _, oy in offsets], 1)
+    # Each warp's pixel centres (T, P / 32, 32).
+    warps = warp_pixels(th, tw).to(dev)                  # (P / 32, 32)
+    wx, wy = bx[:, warps] + 0.5, by[:, warps] + 0.5
+    coord = spec.ntx * lw + spec.nty * lh + 1
 
     # active[t, u]: unit u is in tile t's active list.
     k = torch.arange(U, device=dev)
@@ -1814,11 +1875,33 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                 j = torch.clamp(j, max=rows_f.shape[1] - 1)
                 yield rows_f[sel[:, None], j], rows_i[sel[:, None], j], ok
 
+    def count_warps(sel, rf, ri, ok, stroke):
+        """The kernel's per-warp culling and, for strokes, its warp vote
+        on one batch of entries (``work``'s stencil counts)."""
+        x0, y0, x1, y1 = (v[..., None, None] for v in _cull_boxes(rf, coord))
+        cx, cy = wx[sel][:, None], wy[sel][:, None]     # (T, 1, P / 32, 32)
+        meets = ~((x1 < cx) | (x0 > cx) | (y1 < cy) | (y0 > cy))
+        culled = ~meets.any(-1)
+        walked = ok[..., None] & ~culled                 # (T, B, P / 32)
+        count("entry_warps", ok.sum() * (P // 32))
+        count("culled", (ok[..., None] & culled).sum())
+        if stroke:
+            edges = _edges(rf, ri, pxc[sel], pyc[sel])
+            voted = sum(
+                _inside(edges, float(ox) - 0.5, float(oy) - 0.5)[..., warps]
+                .any(-1).long()
+                for ox, oy in offsets
+            )
+            count("stroke_samples", walked.sum() * 32 * S)
+            count("vote_skipped", ((S - voted) * walked).sum() * 32)
+
     def stencil(sel, c, w, clip_ok):
         base = N_CLASSES * c
         pxs, pys = pxc[sel], pyc[sel]
         for code, joint, dash_mode in STROKE_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
+                if work is not None:
+                    count_warps(sel, rf, ri, ok, True)
                 cov = _stroke_cover(
                     rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxs, pys,
                     offsets,
@@ -1828,6 +1911,8 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                 w = torch.where(cov & (w == 0), 1, w)
         for code in FILL_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
+                if work is not None:
+                    count_warps(sel, rf, ri, ok, False)
                 delta = _fill_delta(rf, ri, ok, code, pxs, pys, offsets)
                 if clip_ok is not None:
                     delta = torch.where(clip_ok, delta, 0)

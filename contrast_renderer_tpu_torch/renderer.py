@@ -643,9 +643,10 @@ class Renderer:
     reference Renderer, renderer.rs:408-884).
 
     ``device`` is where the scene, the binning and the raster run:
-    ``"cuda"`` (or ``"cuda:N"``) launches the CUDA kernel and raises if
-    no card is visible; ``"cpu"`` runs the kernel's plain torch
-    version."""
+    ``"cuda"`` (the default, or ``"cuda:N"``) launches the CUDA kernel
+    and raises if no card is visible; nothing falls back to the CPU.
+    ``"cpu"``, asked for explicitly, runs the kernel's plain torch
+    version (the CPU tests do)."""
 
     def __init__(
         self,
@@ -658,7 +659,7 @@ class Renderer:
         stroke_batch: int = 1,
         auto_instance: bool = True,
         tile_strips=None,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -441,3 +441,81 @@ def mixed_paints(width, height, api=None, geometry=None, user_paint=None):
         api.DrawCommand(op.STENCIL, disc, t(20, 2)),
         api.DrawCommand(op.COLOR, disc, t(20, 2), color=user_paint),
     ]
+
+
+#: The warp-boundary scene's frame size: two tile columns.
+BOUNDARY_SIZE = (256, 64)
+
+
+def warp_boundaries():
+    """Commands of a frame whose entries sit on the kernel's culling
+    boundaries (``BOUNDARY_SIZE``, 4× MSAA): fill triangles whose boxes
+    end exactly on warp footprints (x a multiple of 8 or 32) and on tile
+    boundaries, one whose vertices lie on sample positions, two slivers,
+    a quadratic fill from one warp boundary to another; a stroke 0.25 px
+    wide whose inside samples all lie in pixel column 8 (at sample x
+    offset 0.375: one lane in each row of its warps), a horizontal stroke
+    whose edges lie on pixel rows and on a tile boundary, and a dashed
+    polyline with a round join.  Coordinates below are in pixels, y
+    down."""
+    from . import renderer as api
+
+    width, height = BOUNDARY_SIZE
+
+    def at(x, y):
+        return (float(x), float(height - y))
+
+    def polygon(*points):
+        p = Path(start=at(*points[0]))
+        for point in points[1:] + points[:1]:
+            p.push_line(_path.LineSegment([at(*point)]))
+        return p
+
+    fills = [
+        polygon((32, 8), (64, 8), (32, 24)),
+        polygon((96, 16), (128, 16), (128, 32)),
+        polygon((128, 32), (160, 32), (128, 48)),
+        polygon((40.375, 40.125), (72.875, 40.375), (40.125, 56.625)),
+        polygon((0, 60), (192, 60), (192, 60.5)),
+        polygon((130, 2), (250, 58), (251, 58)),
+    ]
+    curve = Path(start=at(160, 24))
+    curve.push_integral_quadratic_curve(
+        _path.IntegralQuadraticCurveSegment([at(192, 4), at(224, 24)])
+    )
+    curve.push_line(_path.LineSegment([at(160, 24)]))
+    fills.append(curve)
+
+    def stroke(points, width_px, group):
+        p = Path(start=at(*points[0]))
+        for point in points[1:]:
+            p.push_line(_path.LineSegment([at(*point)]))
+        p.stroke_options = _path.StrokeOptions(
+            width=width_px, offset=0.0, miter_clip=2.0, closed=False,
+            dynamic_stroke_options_group=group,
+        )
+        return p
+
+    strokes = [
+        stroke([(8.375, 4), (8.375, 60)], 0.25, 0),
+        stroke([(64, 30), (192, 30)], 4.0, 0),
+        stroke([(200, 8), (232, 40), (248, 8)], 3.0, 1),
+    ]
+    options = [
+        _path.DynamicStrokeOptions.make_solid(Join.BEVEL, Cap.BUTT, Cap.BUTT),
+        _path.DynamicStrokeOptions.make_dashed(
+            Join.ROUND,
+            [_path.DashInterval(gap_start=4.0, gap_end=6.0,
+                                dash_start=Cap.ROUND, dash_end=Cap.BUTT)],
+            phase=0.5,
+        ),
+    ]
+    op = api.RenderOperation
+    fill, line = api.Shape(fills), api.Shape(strokes, options)
+    t = ortho(width, height)
+    return [
+        api.DrawCommand(op.STENCIL, fill, t),
+        api.DrawCommand(op.COLOR, fill, t, color=(0.9, 0.4, 0.1, 1.0)),
+        api.DrawCommand(op.STENCIL, line, t),
+        api.DrawCommand(op.COLOR, line, t, color=(0.1, 0.7, 0.9, 0.8)),
+    ]

@@ -51,7 +51,7 @@ def test_frame_matches_reference(reference_images, name):
     build, layers = FRAMES[name]
     renderer = port.Renderer(
         port.Configuration(alpha_layer_count=layers, blending="front_to_back"),
-        SIZE, SIZE,
+        SIZE, SIZE, device="cpu",
     )
     got = renderer.render(
         interop.scene_from_reference(build(ref, SIZE, geometry=ref_path)),
@@ -88,8 +88,10 @@ def showcase_images():
     shape = showcase.build_shape(with_text=False)
     config = port.Configuration(alpha_layer_count=1, blending="front_to_back")
     full = showcase.showcase_commands_clip_alpha(shape, SIZE, SIZE)
-    image = port.Renderer(config, SIZE, SIZE).render(full[:8] + full[-3:])
-    plain = port.Renderer(config, SIZE, SIZE).render(
+    image = port.Renderer(config, SIZE, SIZE, device="cpu").render(
+        full[:8] + full[-3:]
+    )
+    plain = port.Renderer(config, SIZE, SIZE, device="cpu").render(
         showcase.showcase_commands(shape, SIZE, SIZE)[:2]
     )
     return image, plain

@@ -58,7 +58,9 @@ def frame(strips):
     spec = replace(r._spec(ops, cmd_shape, (), scene), has_strokes=False)
 
     pcommands = interop.scene_from_reference(commands)
-    p = port.Renderer(port.Configuration(), SIZE, SIZE, tile_strips=strips)
+    p = port.Renderer(
+        port.Configuration(), SIZE, SIZE, tile_strips=strips, device="cpu"
+    )
     pshapes, pindex = p._unique_shapes(pcommands)
     _, pscene = p._scene_arrays(pshapes)
     pspec = p._spec(

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from contrast_renderer_tpu_torch import path as port_path
 from contrast_renderer_tpu_torch import scenes
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.models import showcase
@@ -201,6 +202,60 @@ def test_clip_alpha_matches_plain(card, build, layers, samples):
     assert_kernel_matches_plain(spec, *runtime)
 
 
+@pytest.mark.parametrize("samples", [1, 4, 16])
+@pytest.mark.parametrize("strips", [1, 2, 4, 8])
+def test_warp_boundaries_match_plain(card, samples, strips):
+    """scenes.warp_boundaries: entries whose boxes end exactly on warp
+    footprints and tile boundaries, vertices on sample positions and
+    slivers, under every strip layout (at 8 strips a warp's 32 lanes
+    span two strips), bit for bit."""
+    renderer = Renderer(
+        Configuration(msaa_sample_count=samples), *scenes.BOUNDARY_SIZE,
+        tile_strips=strips, device=card,
+    )
+    spec, _, runtime = renderer._prepare(scenes.warp_boundaries())
+    assert spec.tile_strips == strips
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+@pytest.mark.parametrize("strips", [1, 2])
+def test_one_lane_stroke_matches_plain(card, strips):
+    """Eight stroke dots 0.25 px long and 0.2 px wide, 8 px apart on
+    pixel row 10, each around the sample at offset (0.375, 0.125) of
+    pixel column 8k: at 4x MSAA each warp (4 rows x 8 lanes) that a dot
+    reaches has one inside sample, in one lane, so the warp vote keeps
+    one sample's predicates for that lane alone.  Bit for bit, and only
+    those eight samples are covered."""
+    size = 64
+    g = port_path
+    dots = []
+    for k in range(8):
+        dot = g.Path(start=(8.0 * k + 0.25, size - 10.125))
+        dot.push_line(g.LineSegment([(8.0 * k + 0.5, size - 10.125)]))
+        dot.stroke_options = g.StrokeOptions(
+            width=0.2, offset=0.0, miter_clip=2.0, closed=False,
+            dynamic_stroke_options_group=0,
+        )
+        dots.append(dot)
+    shape = Shape(
+        dots, [g.DynamicStrokeOptions.make_solid(g.Join.BEVEL, g.Cap.BUTT, g.Cap.BUTT)]
+    )
+    t = scenes.ortho(size, size)
+    commands = [
+        DrawCommand(RenderOperation.STENCIL, shape, t),
+        DrawCommand(RenderOperation.COLOR, shape, t, color=(1.0, 1.0, 1.0, 1.0)),
+    ]
+    renderer = Renderer(
+        Configuration(), size, size, tile_strips=strips, device=card
+    )
+    spec, _, runtime = renderer._prepare(commands)
+    assert_kernel_matches_plain(spec, *runtime)
+    alpha = renderer.render(commands)[..., 3]
+    rows, cols = np.nonzero(alpha)
+    assert rows.tolist() == [10] * 8 and cols.tolist() == list(range(0, 64, 8))
+    assert np.all(alpha[rows, cols] == 0.25)
+
+
 def test_cap_sheet_on_card_matches_golden(card):
     """All seven cap styles through Renderer.render on the card, against
     the reference's golden, bit for bit."""
@@ -236,7 +291,9 @@ def test_slice_on_card_matches_slice_on_cpu(card, frame):
         config = Configuration(depth_compare="less_equal",
                                depth_write_enabled=True)
         commands = scenes.mixed_paints(WIDTH, HEIGHT)
-    want = Renderer(config, WIDTH, HEIGHT).render(commands, as_uint8=True)
+    want = Renderer(config, WIDTH, HEIGHT, device="cpu").render(
+        commands, as_uint8=True
+    )
     got = Renderer(config, WIDTH, HEIGHT, device=card).render(
         commands, as_uint8=True
     )

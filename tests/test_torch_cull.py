@@ -1,0 +1,247 @@
+"""The coverage kernel's stencil walk, checked on the CPU: the box test
+by which each warp culls stroke and fill entries is exact (no sample
+that passes an entry's three edge tests lies outside the entry's
+widened box), the plain version's counts of culled (warp, entry) pairs
+and of stroke samples skipped by the warp vote equal a brute-force count
+over the warp footprints, and the renderer's entry point runs on the
+card unless asked for the CPU.
+
+Scenes, each at most 128² pixels: a 128² window of BASELINE config 3
+(``scenes.dashed_strokes(1920, 1080, seed=1)``, widths unchanged), the
+showcase with text at 128², and ``scenes.warp_boundaries``, whose
+vertices lie on pixel, sample, warp and tile boundaries."""
+
+import inspect
+from functools import lru_cache
+
+import numpy as np
+import pytest
+import torch
+
+from contrast_renderer_tpu_torch import scenes
+from contrast_renderer_tpu_torch.models import showcase
+from contrast_renderer_tpu_torch.ops import coverage
+from contrast_renderer_tpu_torch.renderer import (
+    Configuration,
+    DrawCommand,
+    RenderOperation,
+    Renderer,
+    Shape,
+)
+
+
+def config3_window(size=128, x0=800.0, y0=450.0):
+    """Config 3's polylines through a ``size``² window whose lower left
+    corner is (x0, y0) of the 1920x1080 frame."""
+    paths, options = scenes.dashed_strokes(1920, 1080, seed=1)
+    shape = Shape(paths, options)
+    t = scenes.ortho(size, size)
+    t[0, 3] -= 2.0 * x0 / size
+    t[1, 3] -= 2.0 * y0 / size
+    return size, size, [
+        DrawCommand(RenderOperation.STENCIL, shape, t),
+        DrawCommand(RenderOperation.COLOR, shape, t, color=(1, 1, 1, 1)),
+    ]
+
+
+def showcase_128():
+    shape = showcase.build_shape(with_text=True)
+    return 128, 128, showcase.showcase_commands(shape, 128, 128)
+
+
+def boundaries():
+    return (*scenes.BOUNDARY_SIZE, scenes.warp_boundaries())
+
+
+SCENES = {
+    "config3": config3_window,
+    "showcase": showcase_128,
+    "boundaries": boundaries,
+}
+
+
+@lru_cache(maxsize=None)
+def frame(scene, strips=None):
+    """(spec, runtime) of a scene binned on the CPU."""
+    width, height, commands = SCENES[scene]()
+    renderer = Renderer(
+        Configuration(), width, height, tile_strips=strips, device="cpu"
+    )
+    spec, _, runtime = renderer._prepare(commands)
+    return spec, runtime
+
+
+def pixel_grid(spec, t):
+    """Screen pixel (x, y) of each lane of tile t, in the kernel's lane
+    order (pix = row * tile_w + lane), written out lane by lane."""
+    th, tw, lw = spec.tile_h, spec.tile_w, spec.screen_tile_w
+    x0 = (t % spec.ntx) * lw
+    y0 = (t // spec.ntx) * spec.screen_tile_h
+    xs, ys = [], []
+    for pix in range(th * tw):
+        r, l = divmod(pix, tw)
+        if spec.tile_strips == 1:
+            col, row = l, r
+        else:
+            col, row = l % lw, (l // lw) * th + r
+        xs.append(x0 + col)
+        ys.append(y0 + row)
+    return np.array(xs), np.array(ys)
+
+
+def warp_lanes(spec):
+    """The lane-major pixel index of each thread of each warp of a tile,
+    thread by thread from the kernel's layout: block b is 4 rows x 64
+    lanes of the tile, and its warp w the 4 rows x 8 lanes from lane 8w."""
+    th, tw = spec.tile_h, spec.tile_w
+    warps = []
+    for b in range(th * tw // 256):
+        row0 = (b // (tw // 64)) * 4
+        lane0 = (b % (tw // 64)) * 64
+        for w in range(8):
+            warps.append([
+                (row0 + q // 8) * tw + lane0 + 8 * w + q % 8 for q in range(32)
+            ])
+    warps = np.array(warps)
+    assert sorted(warps.ravel().tolist()) == list(range(th * tw))
+    return warps
+
+
+def tables(prepared):
+    return (
+        (prepared.tri_f, prepared.tri_i, prepared.off),
+        (prepared.g_tri_f, prepared.g_tri_i, prepared.g_off),
+    )
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_no_passing_sample_lies_outside_the_widened_box(scene):
+    """Every binned entry of every tile, stroke and fill classes: the
+    pixels with a sample that passes its three edge tests (the kernel's
+    arithmetic) have their centres in its culling box, so a warp none of
+    whose pixel centres lies in that box has no sample the entry
+    covers."""
+    spec, runtime = frame(scene)
+    prepared = runtime[0]
+    coord = spec.ntx * spec.screen_tile_w + spec.nty * spec.screen_tile_h + 1
+    classes = set()
+    passing = 0
+    for t in range(spec.n_tiles):
+        xs, ys = pixel_grid(spec, t)
+        bx = torch.as_tensor(xs, dtype=torch.float32)[None, None, :]
+        by = torch.as_tensor(ys, dtype=torch.float32)[None, None, :]
+        for rows_f, rows_i, off in tables(prepared):
+            n = int(off[t, 0, -1])
+            if n == 0:
+                continue
+            rf, ri = rows_f[t, None, :n], rows_i[t, None, :n]
+            classes |= set(ri[0, :, coverage.RI_CLASS].tolist())
+            edges = coverage._edges(rf, ri, bx + 0.5, by + 0.5)
+            x0, y0, x1, y1 = (v[..., None] for v in coverage._cull_boxes(rf, coord))
+            for ox, oy in coverage.SAMPLE_PATTERNS[spec.samples]:
+                inside = coverage._inside(edges, float(ox) - 0.5, float(oy) - 0.5)
+                px, py = bx + 0.5, by + 0.5
+                in_box = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+                assert not bool((inside & ~in_box).any()), (t, ox, oy)
+                passing += int(inside.sum())
+    assert passing > 0
+    strokes = {code for code, _, _ in coverage.STROKE_CLASSES}
+    assert classes & strokes
+    if scene != "config3":  # config 3 is strokes only
+        assert classes & set(coverage.FILL_CLASSES)
+
+
+def brute_force_counts(spec, runtime):
+    """The stencil walk's counts, pair by pair: every (warp, entry) of
+    the stencil units in each tile's active list, the rectangle of the
+    warp's 32 pixel centres, the box test against ``_cull_boxes``, and
+    for the stroke pairs that remain, the samples that no lane of the
+    warp has inside (edge tests in numpy float32)."""
+    prepared, cmd_i = runtime[0], runtime[1]
+    draws = coverage.draw_tables(spec)
+    S = spec.samples
+    offsets = coverage.SAMPLE_PATTERNS[S].astype(np.float64)
+    coord = spec.ntx * spec.screen_tile_w + spec.nty * spec.screen_tile_h + 1
+    stroke_codes = {code for code, _, _ in coverage.STROKE_CLASSES}
+    counts = dict(entry_warps=0, culled=0, stroke_samples=0, vote_skipped=0)
+    f32 = np.float32
+    warps = warp_lanes(spec)
+    for t in range(spec.n_tiles):
+        xs, ys = pixel_grid(spec, t)
+        wx, wy = xs[warps], ys[warps]
+        fp = (wx.min(1) + 0.5, wy.min(1) + 0.5, wx.max(1) + 0.5, wy.max(1) + 0.5)
+        pxc, pyc = (xs + 0.5).astype(f32), (ys + 0.5).astype(f32)
+        for k in range(int(prepared.acount[t, 0, 0])):
+            u = int(prepared.aclist[t, 0, k])
+            c = int(draws.unit_cmd[u])
+            if int(cmd_i[c, 0]) != coverage.OP_STENCIL or int(cmd_i[c, 1]) != 0:
+                continue
+            for rows_f, rows_i, off in tables(prepared):
+                base = coverage.N_CLASSES * c
+                lo = int(off[t, 0, base])
+                hi = int(off[t, 0, base + coverage.N_CLASSES])
+                for j in range(lo, hi):
+                    row = rows_f[t, j]
+                    box = [float(v) for v in coverage._cull_boxes(row[None], coord)]
+                    meets = ~((box[2] < fp[0]) | (box[0] > fp[2])
+                              | (box[3] < fp[1]) | (box[1] > fp[3]))
+                    counts["entry_warps"] += len(meets)
+                    counts["culled"] += int((~meets).sum())
+                    if int(rows_i[t, j, coverage.RI_CLASS]) not in stroke_codes:
+                        continue
+                    a, b, e = [], [], []
+                    for edge in range(3):
+                        ak, bk, ck = (f32(row[3 * edge + i]) for i in range(3))
+                        a.append(ak)
+                        b.append(bk)
+                        e.append(ak * pxc + bk * pyc + ck)
+                    flags = int(rows_i[t, j, coverage.RI_FLAGS])
+                    lanes_in = np.zeros((len(meets), S), bool)
+                    for s, (ox, oy) in enumerate(offsets):
+                        dx, dy = f32(ox - 0.5), f32(oy - 0.5)
+                        inside = np.ones(len(xs), bool)
+                        for edge in range(3):
+                            nt = -(a[edge] * dx + b[edge] * dy)
+                            tl = bool(flags >> edge & 1)
+                            inside &= (e[edge] > nt) | ((e[edge] == nt) & tl)
+                        lanes_in[:, s] = inside[warps].any(1)
+                    walked = int(meets.sum())
+                    counts["stroke_samples"] += walked * 32 * S
+                    counts["vote_skipped"] += 32 * int((~lanes_in[meets]).sum())
+    return counts
+
+
+@pytest.mark.parametrize(
+    "scene,strips",
+    [("boundaries", 1), ("boundaries", 4), ("config3", 2)],
+)
+def test_warp_counts_match_brute_force(scene, strips):
+    spec, runtime = frame(scene, strips)
+    assert spec.tile_strips == strips
+    draws = coverage.draw_tables(spec)
+    units = (torch.as_tensor(draws.unit_cmd), torch.as_tensor(draws.unit_draw))
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    work = {}
+    image = coverage.rasterize_plain(
+        spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i, work=work
+    )
+    assert torch.equal(
+        image,
+        coverage.rasterize_plain(spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i),
+    )
+    want = brute_force_counts(spec, runtime)
+    assert {key: work[key] for key in want} == want
+    # Both mechanisms have work to skip on these frames.
+    assert 0 < want["culled"] < want["entry_warps"]
+    assert 0 < want["vote_skipped"] < want["stroke_samples"]
+
+
+def test_renderer_defaults_to_the_card():
+    """No ``device=`` means the card: on a host without one the
+    constructor raises, as for an explicit ``"cuda"``; nothing falls
+    back to the CPU."""
+    assert inspect.signature(Renderer).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; the refusal needs none")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Renderer(Configuration(), 64, 64)

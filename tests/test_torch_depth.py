@@ -102,7 +102,7 @@ def frame(commands, config):
     want = jax.jit(ref_cov.make_prepare(spec))(
         *scene.arrays, jnp.asarray(transforms), jnp.asarray(desc_static)
     )
-    p = port.Renderer(port.Configuration(), SIZE, SIZE)
+    p = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
     pshapes, _ = p._unique_shapes(interop.scene_from_reference(commands))
     _, pscene = p._scene_arrays(pshapes)
     got = port_cov.make_prepare(interop.spec_from_reference(spec))(
@@ -208,7 +208,9 @@ def test_showcase_instances_depth_match_reference():
         instance_commands(ref, ref_path, (0, 23)), as_uint8=True
     )
     commands = instance_commands(port, port_path, (0, 23))
-    got = port.Renderer(port.Configuration(**config), SIZE, SIZE).render(
+    got = port.Renderer(
+        port.Configuration(**config), SIZE, SIZE, device="cpu"
+    ).render(
         commands, as_uint8=True
     )
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
@@ -216,7 +218,7 @@ def test_showcase_instances_depth_match_reference():
     assert differs.mean() <= 1e-3, differs.sum()
     assert np.abs(got.astype(int) - want.astype(int)).max(initial=0) <= 64
     assert (want[..., 3] > 0).sum() > 20
-    plain = port.Renderer(port.Configuration(), SIZE, SIZE).render(
+    plain = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu").render(
         commands, as_uint8=True
     )
     assert (plain != got).any(-1).sum() > 0

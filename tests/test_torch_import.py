@@ -60,7 +60,7 @@ size = 64
 ortho = np.diag([2 / size, 2 / size, 1, 1]).astype(np.float32)
 ortho[0, 3] = ortho[1, 3] = -1
 shape = Shape([Path.from_circle((32, 32), 20)])
-image = Renderer(Configuration(), size, size).render([
+image = Renderer(Configuration(), size, size, device="cpu").render([
     DrawCommand(RenderOperation.STENCIL, shape, ortho),
     DrawCommand(RenderOperation.COLOR, shape, ortho, color=(1, 0, 0, 1)),
 ])
@@ -183,7 +183,7 @@ def test_ported_bodies_render(frame):
     """Strokes, clips, alpha groups, depth and gradients render on the
     CPU: finite, alpha in [0, 1], something covered."""
     config, commands = frame()
-    image = Renderer(config, SIZE, SIZE).render(commands)
+    image = Renderer(config, SIZE, SIZE, device="cpu").render(commands)
     assert image.shape == (SIZE, SIZE, 4)
     assert np.isfinite(image).all()
     assert image[..., 3].min() >= 0.0 and image[..., 3].max() <= 1.0
@@ -208,13 +208,13 @@ def test_user_paint_needs_its_device_function_for_the_card():
     without it the card is refused (kernel_features raises) rather than
     falling back."""
     config = Configuration(depth_compare="less_equal", depth_write_enabled=True)
-    image = Renderer(config, SIZE, SIZE).render(
+    image = Renderer(config, SIZE, SIZE, device="cpu").render(
         scenes.mixed_paints(SIZE, SIZE, user_paint=UserPaint(scenes.checker)),
         as_uint8=True,
     )
     for rgb in ((204, 0, 204), (0, 204, 0)):
         assert (image[..., :3] == rgb).all(-1).any(), rgb
-    renderer = Renderer(config, SIZE, SIZE)
+    renderer = Renderer(config, SIZE, SIZE, device="cpu")
     bare = scenes.mixed_paints(SIZE, SIZE, user_paint=UserPaint(scenes.checker))
     spec, _, _ = renderer._prepare(bare)
     with pytest.raises(ValueError, match="cuda"):

@@ -103,7 +103,7 @@ def test_gradient_matches_reference(case):
     want = ref.Renderer(ref.Configuration(), SIZE, SIZE).render(
         gradient_commands(case, ref, ref_path), as_uint8=True
     )
-    got = port.Renderer(port.Configuration(), SIZE, SIZE).render(
+    got = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu").render(
         gradient_commands(case, port, port_path), as_uint8=True
     )
     covered = want[want[..., 3] > 0]
@@ -138,7 +138,7 @@ def test_paint_points_match_reference_bit_for_bit():
             *scene.arrays, jnp.asarray(transforms), jnp.asarray(desc_static),
             jnp.asarray(paint_model),
         )
-    p = port.Renderer(port.Configuration(), SIZE, SIZE)
+    p = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
     pshapes, _ = p._unique_shapes(interop.scene_from_reference(commands))
     _, pscene = p._scene_arrays(pshapes)
     got = port_cov.make_prepare(interop.spec_from_reference(spec))(
@@ -172,7 +172,9 @@ def test_mixed_paints_with_depth_match_reference():
                             user_paint=ref.UserPaint(jnp_checker)),
         as_uint8=True,
     )
-    got = port.Renderer(port.Configuration(**config), SIZE, SIZE).render(
+    got = port.Renderer(
+        port.Configuration(**config), SIZE, SIZE, device="cpu"
+    ).render(
         scenes.mixed_paints(SIZE, SIZE), as_uint8=True
     )
     assert_images_agree(got, want)
@@ -195,7 +197,7 @@ def test_user_ramp_matches_linear_gradient():
 
     rect = port.Shape([port_path.Path.from_rect((32, 32), (24, 24))])
     t = scenes.ortho(SIZE, SIZE)
-    renderer = port.Renderer(port.Configuration(), SIZE, SIZE)
+    renderer = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
 
     def render_with(paint):
         return renderer.render([

@@ -49,7 +49,7 @@ def test_render_matches_reference(reference_scene):
     tie rounded the other way (the reference's jitted binning contracts
     multiply-adds into FMAs, the port's rounds each step)."""
     commands, want = reference_scene
-    renderer = port.Renderer(port.Configuration(), SIZE, SIZE)
+    renderer = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
     got = renderer.render(interop.scene_from_reference(commands), as_uint8=True)
     assert got.shape == want.shape == (SIZE, SIZE, 4)
     assert got.dtype == want.dtype == np.uint8
@@ -63,7 +63,7 @@ def test_render_matches_reference(reference_scene):
 def test_uint8_kernel_and_float_paths_agree(reference_scene):
     """The in-kernel RGBA8 resolve equals quantizing the float frame."""
     commands, _ = reference_scene
-    renderer = port.Renderer(port.Configuration(), SIZE, SIZE)
+    renderer = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
     scene = interop.scene_from_reference(commands)
     launches = port_cov.raster_launches
     packed = renderer.render(scene, uint8_kernel=True)
@@ -81,7 +81,7 @@ def test_circle_coverage_against_oracle():
     1's bar)."""
     shape = port.Shape([port_path.Path.from_circle((64, 64), 50)])
     t = scenes.ortho(SIZE, SIZE)
-    image = port.Renderer(port.Configuration(), SIZE, SIZE).render([
+    image = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu").render([
         port.DrawCommand(port.RenderOperation.STENCIL, shape, t),
         port.DrawCommand(port.RenderOperation.COLOR, shape, t, color=(1, 0, 0, 1)),
     ])

@@ -105,7 +105,7 @@ def reference_frames():
 def test_showcase_matches_reference(reference_frames):
     shape = showcase.build_shape(with_text=False)
     commands = showcase.showcase_commands(shape, SIZE, SIZE)[:8]
-    got = port.Renderer(port.Configuration(), SIZE, SIZE).render(
+    got = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu").render(
         commands, as_uint8=True
     )
     want = reference_frames["plain"]
@@ -123,7 +123,9 @@ def test_showcase_clip_alpha_matches_reference(reference_frames):
     assert [int(c.operation) for c in commands] == [
         0, 1, 0, 1, 4, 5, 0, 3, 6, 2, 2,
     ]
-    got = port.Renderer(port.Configuration(**CLIP_ALPHA), SIZE, SIZE).render(
+    got = port.Renderer(
+        port.Configuration(**CLIP_ALPHA), SIZE, SIZE, device="cpu"
+    ).render(
         commands, as_uint8=True
     )
     want = reference_frames["clip_alpha"]

@@ -38,7 +38,9 @@ def test_instanced_showcase_matches_reference(variant):
     assert all(
         c.n_instances == 1 + showcase.ROWS * showcase.COLUMNS for c in pair
     )
-    got = port.Renderer(port.Configuration(**config), SIZE, SIZE).render(
+    got = port.Renderer(
+        port.Configuration(**config), SIZE, SIZE, device="cpu"
+    ).render(
         commands, as_uint8=True
     )
     assert (want[..., 3] > 0).sum() > 20

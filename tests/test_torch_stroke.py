@@ -58,7 +58,9 @@ def frame(strips):
     spec = replace(r._spec(ops, cmd_shape, (), scene), gate_spans=())
 
     pcommands = interop.scene_from_reference(commands)
-    p = port.Renderer(port.Configuration(), SIZE, SIZE, tile_strips=strips)
+    p = port.Renderer(
+        port.Configuration(), SIZE, SIZE, tile_strips=strips, device="cpu"
+    )
     pshapes, pindex = p._unique_shapes(pcommands)
     _, pscene = p._scene_arrays(pshapes)
     pspec = p._spec(
@@ -199,7 +201,9 @@ def test_cap_sheet_matches_golden():
     """All seven cap styles against the reference's committed golden,
     bit for bit, as the reference's own test demands."""
     w, h = scenes.CAP_SHEET_SIZE
-    alpha = render_cap_sheet(port.Renderer(port.Configuration(), w, h))
+    alpha = render_cap_sheet(
+        port.Renderer(port.Configuration(), w, h, device="cpu")
+    )
     want = np.load(GOLDEN)
     assert alpha.shape == want.shape
     assert np.array_equal(alpha, want)

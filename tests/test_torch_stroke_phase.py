@@ -31,7 +31,7 @@ def test_dash_phase_animation_rebins_nothing():
         port.DrawCommand(port.RenderOperation.STENCIL, shape, t),
         port.DrawCommand(port.RenderOperation.COLOR, shape, t),
     ]
-    renderer = port.Renderer(port.Configuration(), size, size)
+    renderer = port.Renderer(port.Configuration(), size, size, device="cpu")
     frame0 = renderer.render(commands)
     for group, join in enumerate(scenes.DASHED_JOINS):
         shape.set_dynamic_stroke_options(group, scenes.dashed_options(join, 2.0))
