@@ -6,8 +6,8 @@ repository, on one CUDA device.
 
 Six fresh processes in the order A, B, B, A, A, B each import
 ``contrast_renderer_tpu_torch`` from their root (its kernels built from
-that root's sources into its own ``build/``), bin chip_smoke.py's seven
-frames on the card, and time each: the kernel (``coverage_raster``,
+that root's sources into its own ``build/``), bin chip_smoke.py's eight
+4× MSAA frames on the card, and time each: the kernel (``coverage_raster``,
 median of 5 batches of 10 launches, with the batches' least and
 greatest; CUDA events, chip_smoke.py's ``cuda_ms``) and the frame with
 cached binning (``Renderer.render``, median of 10 frames).  Each process
@@ -76,6 +76,10 @@ def frames(api, scenes, showcase, smoke):
         "showcase": (cfg(), sw, sh, show),
         "showcase clip/alpha": (
             cfg(alpha_layer_count=1, blending="front_to_back"), sw, sh,
+            showcase.showcase_commands_clip_alpha(shape, sw, sh),
+        ),
+        "showcase clip/alpha L=2": (
+            cfg(alpha_layer_count=2, blending="front_to_back"), sw, sh,
             showcase.showcase_commands_clip_alpha(shape, sw, sh),
         ),
         "showcase + depth": (depth, sw, sh, show),

@@ -12,8 +12,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (nvidia-smi);
 2. build the coverage raster kernel (csrc/coverage_raster.cu) with nvcc,
    one library per feature set the frames below need (4× MSAA: the base
-   build, depth, gradients, gradients and the checker user paint), all
-   at once; with ``--ptxas-report`` also the depth and gradient builds
+   build, depth, gradients, gradients and the checker user paint; 16×
+   MSAA: the base build), all at once; with ``--ptxas-report`` also the depth and gradient builds
    at 1, 2, 8 and 16 samples, which no frame uses; print each library's
    build seconds and ptxas' registers and spills per instantiation;
 3. on the BASELINE config-2 frame (1,000 integral quadratic and cubic
@@ -34,9 +34,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 8. the showcase (``models.showcase``, with text) at 3840×2160, 4× MSAA,
    both variants: the 46-instance frame, and the frame inside two nested
    clips and a transparency group (``alpha_layer_count=1``,
-   front-to-back); for each, kernel against plain on the prepared frame,
-   then ``Renderer.render``; for the clip/alpha variant, nothing outside
-   the outer clip;
+   front-to-back; and the same commands with ``alpha_layer_count=2``,
+   whose layers the kernel keeps in shared memory); for each, kernel
+   against plain on the prepared frame, then ``Renderer.render``; for
+   the clip/alpha variant, nothing outside the outer clip, the tiles
+   that the bracket gating emptied, and its image equal to the image
+   rendered without gate spans; then the clip/alpha variant at 16×
+   MSAA with 16 alpha layers, whose layers go to the global scratch of
+   resident blocks: its peak device memory over a render (binning
+   cached) must stay under 1 GiB, and its image must equal the same
+   frame's with one layer held in registers;
 9. the cap sheet through ``Renderer.render`` against the reference's
    golden (tests/golden/cap_styles_96x72.npy), bit for bit;
 10. time the kernel, its plain version, the cached-binning frame (CUDA
@@ -86,6 +93,10 @@ CIRCLE_SIZE = 256
 KERNEL_SOURCE = "contrast_renderer_tpu_torch/csrc/coverage_raster.cu"
 TPU_KERNEL = "contrast_renderer_tpu/ops/coverage.py"
 CAP_GOLDEN = "tests/golden/cap_styles_96x72.npy"
+#: The most device memory a 4K render with 16 alpha layers at 16× MSAA
+#: may take (binning cached): a layer scratch sized by the frame would
+#: take 8.5 GB, one sized by the card's resident blocks tens of MB.
+LAYER_MEMORY_LIMIT = 1 << 30
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -478,6 +489,7 @@ def main():
 
     try:
         from contrast_renderer_tpu_torch import cuda_build, scenes
+        from contrast_renderer_tpu_torch import renderer as renderer_module
         from contrast_renderer_tpu_torch.models import showcase
         from contrast_renderer_tpu_torch.ops import coverage
         from contrast_renderer_tpu_torch.renderer import (
@@ -493,6 +505,7 @@ def main():
         KF(4, depth=True),                       # showcase + depth
         KF(4, paint_mode=1),                     # gradient card
         KF(4, True, 2, (scenes.CHECKER_CUDA,)),  # mixed paints
+        KF(16),                                  # 16 alpha layers, 16x MSAA
     ]
     if "--ptxas-report" in sys.argv[1:]:
         # For ptxas' report only: the depth and gradient builds at the
@@ -618,6 +631,12 @@ def main():
             ),
         ),
     }
+    # The same commands with two alpha layers: layer mode 0, the layers
+    # in the block's shared memory.
+    variants["showcase clip/alpha L=2"] = (
+        Configuration(alpha_layer_count=2, blending="front_to_back"),
+        variants["showcase clip/alpha"][1],
+    )
     shown = {}
     for label, (config, cmds) in variants.items():
         r = Renderer(config, SHOWCASE_W, SHOWCASE_H, device="cuda")
@@ -646,6 +665,8 @@ def main():
         fail("showcase clip/alpha: pixels outside the outer clip")
     print("showcase clip/alpha: the four corners outside the clip are empty",
           flush=True)
+    gating_phase(coverage, renderer_module, shown["showcase clip/alpha"])
+    layers_phase(coverage, Configuration, Renderer, shown["showcase clip/alpha"][1])
 
     # ---- 9. the cap sheet against the golden --------------------------------
     w, h = scenes.CAP_SHEET_SIZE
@@ -750,7 +771,8 @@ def main():
         b_ms, b_by, nbytes, ops = bounds[label]
         print(f"bound {label}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP "
               f"-> {b_ms:.4f} ms ({b_by}); kernel {times[label][0]:.3f} ms; "
-              f"box test culled {work.get('culled', 0)} of "
+              f"clip vote skipped {work.get('clip_skipped', 0)} (warp, unit) "
+              f"pairs; box test culled {work.get('culled', 0)} of "
               f"{work.get('entry_warps', 0)} (warp, entry) pairs; warp vote "
               f"skipped {work.get('vote_skipped', 0)} of "
               f"{work.get('stroke_samples', 0)} stroke sample evaluations",
@@ -777,6 +799,9 @@ def main():
               "config 3 (60 dashed polylines, 1920x1080)"),
         entry("coverage_raster: clip", 2109, *clip_alpha),
         entry("coverage_raster: alpha groups", 2126, *clip_alpha),
+        entry("coverage_raster: alpha groups, two layers in shared memory", 2126,
+              "showcase clip/alpha L=2",
+              "showcase clip/alpha variant, alpha_layer_count=2, 3840x2160"),
         entry("coverage_raster: depth", 1938, "showcase + depth",
               "showcase with text, LessEqual + depth write, 3840x2160"),
         entry("coverage_raster: gradient paints", 2037, "gradient card",
@@ -789,6 +814,81 @@ def main():
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def gating_phase(coverage, renderer_module, shown):
+    """The clip/alpha frame's bracket gating: the tiles it emptied (its
+    binning against the binning without gate spans), and its packed
+    RGBA8 image against the image rendered without gate spans."""
+    import torch
+
+    r, cmds, spec, runtime = shown[:4]
+    if not spec.gate_spans:
+        fail("showcase clip/alpha: the frame has no gate spans")
+    gated = r.render(cmds, to_host=False, as_uint8=True)
+    analysis = renderer_module._gate_spans
+    renderer_module._gate_spans = lambda commands, spec: ()
+    try:
+        plain = renderer_module.Renderer(r.config, r.width, r.height, device="cuda")
+        ungated_spec, _, ungated_runtime = plain._prepare(cmds)
+        ungated = plain.render(cmds, to_host=False, as_uint8=True)
+    finally:
+        renderer_module._gate_spans = analysis
+    torch.cuda.synchronize()
+    if ungated_spec.gate_spans:
+        fail("showcase clip/alpha: the ungated render still has gate spans")
+    acount = runtime[0].acount.reshape(-1)
+    full = ungated_runtime[0].acount.reshape(-1)
+    spans = [(len(c), len(m), len(p)) for c, m, p in spec.gate_spans]
+    print(f"showcase clip/alpha: gate spans (content units, machinery units, "
+          f"row pairs) {spans}; {int((acount == 0).sum())} of {acount.numel()} "
+          f"tiles empty gated, {int((full == 0).sum())} ungated; "
+          f"{int(full.sum()) - int(acount.sum())} (tile, unit) pairs dropped",
+          flush=True)
+    differ = int((gated != ungated).any(-1).sum())
+    print(f"showcase clip/alpha: gated vs ungated image, packed RGBA8: "
+          f"{differ} pixels differ", flush=True)
+    if differ:
+        fail("showcase clip/alpha: the gated image differs from the ungated one")
+
+
+def layers_phase(coverage, Configuration, Renderer, cmds):
+    """The clip/alpha frame at 16x MSAA with 16 alpha layers: the layer
+    scratch of resident blocks, its size, the peak device memory over a
+    render with the binning cached, and the image against the frame with
+    one layer in registers."""
+    import torch
+
+    images = {}
+    for layers in (16, 1):
+        config = Configuration(alpha_layer_count=layers, blending="front_to_back",
+                               msaa_sample_count=16)
+        r = Renderer(config, SHOWCASE_W, SHOWCASE_H, device="cuda")
+        spec, _, _ = r._prepare(cmds)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        coverage.raster_launches = 0
+        images[layers] = r.render(cmds, to_host=False, as_uint8=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        blocks = coverage.layer_scratch_blocks(spec, images[layers].device)
+        scratch = blocks * max(1, spec.n_layers) * spec.samples * 256 * 4
+        print(f"showcase clip/alpha, 16x MSAA, {layers} alpha layer(s): layer "
+              f"mode {coverage.layer_mode(spec)}, layer scratch {blocks} blocks, "
+              f"{scratch / 2**20:.1f} MiB; {coverage.raster_launches} launch(es); "
+              f"peak device memory over the render {peak / 2**20:.1f} MiB",
+              flush=True)
+        if coverage.raster_launches < 1:
+            fail("showcase clip/alpha, 16 layers: the render did not launch the kernel")
+        if layers == 16 and (blocks == 0 or peak > LAYER_MEMORY_LIMIT):
+            fail(f"showcase clip/alpha, 16 layers: {blocks} scratch blocks, "
+                 f"peak {peak} bytes over a render")
+    differ = int((images[16] != images[1]).any(-1).sum())
+    print(f"showcase clip/alpha, 16x MSAA: 16 layers vs 1 layer, packed RGBA8: "
+          f"{differ} pixels differ", flush=True)
+    if differ:
+        fail("showcase clip/alpha, 16x MSAA: 16 layers and 1 layer differ")
 
 
 def frame_phase(coverage, renderer, commands, label, height, width, frames):

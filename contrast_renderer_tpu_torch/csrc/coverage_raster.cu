@@ -45,7 +45,8 @@
 // false edge test.  Entry rows and descriptors are read once per block and
 // shared by its 256 threads; their bandwidth is orders of magnitude below
 // the ALU time.  Registers bound occupancy: per pixel the kernel holds S
-// windings, 4*S colours, S clip counters and L*S layer slots.
+// windings, 4*S colours, S clip counters and, with one alpha layer, S
+// layer slots.
 //
 // What the design does about it:
 //   - One thread owns one pixel for the whole command walk and keeps its
@@ -67,12 +68,30 @@
 //     independent of S.
 //   - Alpha layers: one layer is held in registers (S floats per pixel, 4
 //     for the showcase at S=4).  With more, each pixel's L*S slots live in
-//     a global-memory scratch that the wrapper allocates, one slot per
-//     pixel of the grid, coalesced across the warp and never shared; the
-//     kernel zeroes them per tile.  256 slots per pixel at S=16, L=16
-//     would not fit registers.  The scratch takes 4*L*S bytes per pixel of
-//     the tiled frame (n_tiles*th*tw pixels): about 8.5 GB at 3840x2160,
-//     S=16, L=16.  No L is refused here; device memory is the bound.
+//     the block's dynamic shared memory at [j][s][thread], the reference's
+//     per-grid-step (L, S, th, tw) layers: no bank conflicts, and a thread
+//     touches only its own pixel's slots, so no barrier guards them.  The
+//     kernel zeroes them per tile.  They fit beside the static staging
+//     (~14 KiB) in the 227 KiB a block may opt into up to L*S = 213 (every
+//     L up to 26 at S <= 8, L <= 13 at S = 16).  Past that (256 slots at
+//     S=16, L=16) they go to a global scratch that the wrapper allocates,
+//     one slice per block that can be resident at once on the card, and
+//     the grid holds that many blocks, each walking (tile, slab) items in
+//     a loop with its own slice: tens of MiB whatever the frame's size (a
+//     scratch per pixel of the frame took 8.5 GB at 3840x2160).  No L is
+//     refused.
+//   - Bracket gating (binning, renderer._gate_spans) drops a balanced clip
+//     or alpha bracket from the tiles that no content touches; they take
+//     the empty-tile path here.
+//   - The clip vote.  Every stencil update, colour cover and alpha op of
+//     a command masks each sample with clip[s] == its depth.  Before a
+//     unit other than clip and unclip, each lane ORs that test over its
+//     samples and the warp skips the unit when the __reduce_or_sync of it
+//     is 0: it would change nothing there.  A stencil unit's entry walk
+//     stages chunks behind block barriers, so such a warp still stages
+//     its share and meets every barrier, and skips each chunk's entries.
+//     An alpha op is skipped, after the hull test, where no lane has a
+//     sample inside its hull that passes the clip test.
 //   - Frames without clip or alpha ops compile both out (no clip registers)
 //     and skip commands at a nonzero clip depth whole, and frames without
 //     stroke rows compile the stroke classes out, as the reference's
@@ -111,7 +130,8 @@
 //   - Control flow depends only on the tile, the unit and the warp-wide
 //     reductions, never on the pixel alone, so no lane diverges from its
 //     warp, and the staging loops and their barriers stay uniform over the
-//     block; per-sample decisions are selects.  The one exception is the
+//     block (the warp reductions decide only what a warp does between
+//     barriers); per-sample decisions are selects.  The one exception is the
 //     general dash's cap types, which vary by sample: they take the
 //     branch-free where-chain.
 //
@@ -140,7 +160,13 @@
 // BASELINE config 3 (dashed strokes, 1080p) 2.04 -> 0.80 ms, as the vote
 // skips 86% of its stroke sample evaluations; the 4K showcase frames
 // 1.26-2.06 -> 0.87-1.72 ms, as the box test culls 73-83% of their (warp,
-// entry) pairs; the fill-only and paint frames no slower.
+// entry) pairs; the fill-only and paint frames no slower.  Then, against
+// this kernel without the bracket gating, the clip and alpha votes and the
+// layers on chip: the 4K clip/alpha showcase 1.71 -> 1.33 ms with one
+// alpha layer and 1.90 -> 1.38 ms with two; the other frames no slower.
+// A block-wide vote (__syncthreads_or) before each stencil unit instead
+// of the warp vote spilled 440-570 B in the stroke builds and ran that
+// frame at 1.42 ms.
 //
 // Rounding: built with --fmad=false, so every multiply and add rounds on
 // its own, in the reference's order of operations; divides and square
@@ -250,16 +276,19 @@ struct RasterArgs {
   const int* desc_i;     // (n_groups, 16) caps, last interval, join
   const float* paint_xy;  // (Rc, 4) paint points in pixels
   const float* zplane;    // (Rc, 3) NDC-z plane a, b, c
-  float* layers;         // layer_mode 0 with alpha ops: (L, S, n_tiles*th*tw)
+  // Layer mode 0 with alpha layers past shared memory: a scratch of
+  // layer_blocks slices of (L, S, 256) floats, one per block; else null.
+  float* layers;
   void* out;             // f32 (n_tiles, 4, th, tw) or i32 (n_tiles, th, tw)
   int n_tiles, ntx, th, tw, strips, lw, lh;
   int n_commands, n_draws, n_units, hull_rows, draw_cols, kp, kgp, n_groups;
   int samples, winding_mask, out_u8;
   int color_src, color_op, color_dst, alpha_src, alpha_op, alpha_dst;
-  // has_clip: the frame holds clip or unclip ops.  layer_mode: -1, no clip
-  // or alpha ops; 1, one alpha layer in registers; 0, layers in `layers`.
-  // has_strokes: some stencil draw carries stroke rows.
-  int has_clip, layer_mode, n_layers, has_strokes;
+  // has_clip: the frame holds clip or unclip ops; has_alpha: alpha-group
+  // ops.  layer_mode: -1, no clip or alpha ops; 1, one alpha layer in
+  // registers; 0, layers in shared memory, or in `layers`.  has_strokes:
+  // some stencil draw carries stroke rows.
+  int has_clip, has_alpha, layer_mode, n_layers, layer_blocks, has_strokes;
   // depth_compare: a CMP_* code; depth_write: write passing samples.
   int depth_compare, depth_write;
   float sample_x[MAX_SAMPLES];
@@ -628,13 +657,14 @@ __device__ __forceinline__ int group_of(const int* rows_i, size_t row,
 // its pixel centres.  A covered sample whose winding is 0 (and, with clip
 // ops, whose clip counter equals the command's depth) ends at winding 1:
 // the stroke OR, entry by entry.  lo and hi are uniform over the block, so
-// every thread reaches every barrier.
+// every thread reaches every barrier; a warp that the clip vote ruled out
+// (live false) stages its share and walks no entry.
 template <int S, bool CA, bool JOINT, int DASH>
 __device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
                              int hi, float pxc, float pyc, const RasterArgs& a,
                              int (&wind)[S], const int (&clip)[CA ? S : 1],
-                             int depth, float* sf, int* si, float4* sbox,
-                             const float* sdx, const float* sdy) {
+                             int depth, bool live, float* sf, int* si,
+                             float4* sbox, const float* sdx, const float* sdy) {
   for (int base = lo; base < hi; base += CHUNK) {
     const int n = min(CHUNK, hi - base);
     __syncthreads();  // the previous chunk has been consumed
@@ -656,6 +686,7 @@ __device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
     }
     stage_boxes(rows_f, base, n, a, sbox);
     __syncthreads();
+    if (!live) continue;
     for (int j = 0; j < n; ++j) {
       if (!warp_meets(sbox[j], pxc, pyc)) continue;
       const unsigned bits = stroke_cover<JOINT, DASH>(
@@ -732,12 +763,14 @@ __device__ __forceinline__ void fill_entry(const float* f, int contrib,
 // Fill entries [lo, hi) of one class from a tile's rows, staged through
 // shared memory CHUNK rows at a time with their culling boxes; each warp
 // walks only the entries whose box holds one of its pixel centres.  lo and
-// hi are uniform over the block, so every thread reaches every barrier.
+// hi are uniform over the block, so every thread reaches every barrier; a
+// warp that the clip vote ruled out (live false) walks no entry.
 template <int S, bool CA, int NCH>
 __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
                            int hi, float pxc, float pyc, const RasterArgs& a,
                            int (&wind)[S], const int (&clip)[CA ? S : 1],
-                           int depth, float* sf, int* si, float4* sbox) {
+                           int depth, bool live, float* sf, int* si,
+                           float4* sbox) {
   for (int base = lo; base < hi; base += CHUNK) {
     const int n = min(CHUNK, hi - base);
     __syncthreads();  // the previous chunk has been consumed
@@ -751,6 +784,7 @@ __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
     }
     stage_boxes(rows_f, base, n, a, sbox);
     __syncthreads();
+    if (!live) continue;
     for (int j = 0; j < n; ++j) {
       if (!warp_meets(sbox[j], pxc, pyc)) continue;
       fill_entry<S, CA, NCH>(sf + j * FILL_F, si[FILL_I * j],
@@ -760,27 +794,42 @@ __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
   }
 }
 
-// NL < 0: no clip or alpha ops in the frame; NL = 1: clip counters and
-// one alpha layer in registers; NL = 0: clip counters, alpha layers (if
-// any) in a.layers.  STROKES: the frame has stroke rows (without, the
-// stroke classes compile out and leave the fill path's registers alone).
-// DEPTH: the colour cover tests (and may write) S depth values per pixel.
-// PAINT: 0 solid colour only; 1 gradients; 2 gradients and user paints.
+// Whether some lane of the warp has a sample whose clip counter equals
+// `depth`: the clip test that masks every stencil update, colour cover
+// and alpha op of a command at that depth.  The OR over the warp
+// (__reduce_or_sync) lies in a uniform register, so a branch on it never
+// diverges.  All 32 lanes must call it together.
+template <int S>
+__device__ __forceinline__ bool warp_at_depth(const int (&clip)[S], int depth) {
+  unsigned at = 0u;
+#pragma unroll
+  for (int s = 0; s < S; ++s) at |= (unsigned)(clip[s] == depth);
+  return __reduce_or_sync(FULL, at) != 0u;
+}
+
+// The work of one block on one item: tile t, and its slab (4 rows x 64
+// lanes).  NL < 0: no clip or alpha ops in the frame; NL = 1: clip
+// counters and one alpha layer in registers; NL = 0: clip counters, and
+// alpha layers (if any) in `slots`, this thread's slot (j, s) at
+// slots[(j * S + s) * BLOCK] (shared memory, or the block's slice of the
+// global scratch; null without alpha ops).  STROKES: the frame has
+// stroke rows (without, the stroke classes compile out and leave the
+// fill path's registers alone).  DEPTH: the colour cover tests (and may
+// write) S depth values per pixel.  PAINT: 0 solid colour only; 1
+// gradients; 2 gradients and user paints.  Every thread of the block
+// calls it with the same item.
 template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
-__global__ void __launch_bounds__(BLOCK)
-    coverage_raster_kernel(const RasterArgs a) {
+__device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab,
+                                            float* slots, float* sf, int* si,
+                                            float4* sbox, const float* sdx,
+                                            const float* sdy) {
   constexpr bool CA = NL >= 0;
-  __shared__ float sf[CHUNK * STROKE_F];
-  __shared__ int si[CHUNK * STROKE_I];
-  __shared__ float sdx[MAX_SAMPLES], sdy[MAX_SAMPLES];
-  __shared__ float4 sbox[CHUNK];
-  const int t = blockIdx.x;
   const int n_px = a.th * a.tw;
-  // A block is 4 rows x 64 lanes of the tile, its warp w the 4 rows x 8
-  // lanes from lane 8w (ops/coverage.py::warp_pixels); pix is lane-major.
+  // The slab's warp w is the 4 rows x 8 lanes from lane 8w
+  // (ops/coverage.py::warp_pixels); pix is lane-major.
   const int q = threadIdx.x & 31, blocks_x = a.tw / 64;
-  const int r = (blockIdx.y / blocks_x) * 4 + (q >> 3);
-  const int l = (blockIdx.y % blocks_x) * 64 + (threadIdx.x >> 5) * 8 + (q & 7);
+  const int r = (slab / blocks_x) * 4 + (q >> 3);
+  const int l = (slab % blocks_x) * 64 + (threadIdx.x >> 5) * 8 + (q & 7);
   const int pix = r * a.tw + l;
   const int n_active = a.acount[t];
   const bool out_u8 = a.out_u8 != 0;
@@ -788,7 +837,7 @@ __global__ void __launch_bounds__(BLOCK)
   if (n_active == 0) {  // empty tile: transparent black
     // Which thread clears which pixel does not matter: each warp clears
     // 32 consecutive pixels, one 128-byte run per plane.
-    const int run = blockIdx.y * BLOCK + threadIdx.x;
+    const int run = slab * BLOCK + threadIdx.x;
     if (out_u8) {
       static_cast<int*>(a.out)[(size_t)t * n_px + run] = 0;
     } else {
@@ -797,16 +846,6 @@ __global__ void __launch_bounds__(BLOCK)
         static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + run] = 0.0f;
     }
     return;
-  }
-
-  // Sample offsets from the pixel centre, for the rolled stroke loops; the
-  // first staging barrier orders these writes before any read.
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      sdx[s] = a.sample_x[s] - 0.5f;
-      sdy[s] = a.sample_y[s] - 0.5f;
-    }
   }
 
   // Strip layout: lane l of row r is screen pixel
@@ -840,15 +879,13 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
     for (int j = 0; j < (NL > 0 ? NL : 1); ++j) layer[j][s] = 0.0f;
   }
-  // Layer slots in global memory (NL = 0): slot (j, s) of this pixel at
-  // layers[(j * S + s) * total + gp], coalesced across the warp.
-  const size_t total = (size_t)a.n_tiles * n_px;
-  const size_t gp = (size_t)t * n_px + pix;
+  // Layer slots (NL = 0), zeroed per tile as the reference's are per
+  // grid step.
   if constexpr (NL == 0) {
-    if (a.layers != nullptr) {
+    if (slots != nullptr) {
       for (int j = 0; j < a.n_layers; ++j)
 #pragma unroll
-        for (int s = 0; s < S; ++s) a.layers[((size_t)j * S + s) * total + gp] = 0.0f;
+        for (int s = 0; s < S; ++s) slots[(j * S + s) * BLOCK] = 0.0f;
     }
   }
 
@@ -869,20 +906,29 @@ __global__ void __launch_bounds__(BLOCK)
     // Without clip ops the clip counters are identically zero: commands
     // at a nonzero clip depth are no-ops.
     if (!a.has_clip && depth != 0) continue;
+    // The clip vote: every op but clip and unclip masks each sample with
+    // clip[s] == depth, so a warp none of whose samples passes that test
+    // has nothing to do for the unit.  Warp-uniform (see warp_at_depth).
+    bool live = true;
+    if constexpr (CA) {
+      if (op != OP_CLIP && op != OP_UNCLIP) live = warp_at_depth<S>(clip, depth);
+    }
 
     if (op == OP_STENCIL) {
       const int b = N_CLASSES * c;
       // Stroke classes first, in the reference's order: lines then
       // joints, each solid, single-interval dash, general dash; each
-      // local, then global.
+      // local, then global.  A warp the clip vote ruled out still walks
+      // the ranges, staging its share of each chunk and meeting every
+      // barrier, but skips the entries.
       if constexpr (STROKES) {
 #define STROKE_CLASS(CODE, JOINT, DASH)                                        \
   stroke_range<S, CA, JOINT, DASH>(tri_f, tri_i, off[b + (CODE)],              \
                                    off[b + (CODE) + 1], pxc, pyc, a, wind,     \
-                                   clip, depth, sf, si, sbox, sdx, sdy);       \
+                                   clip, depth, live, sf, si, sbox, sdx, sdy); \
   stroke_range<S, CA, JOINT, DASH>(g_tri_f, g_tri_i, g_off[b + (CODE)],        \
                                    g_off[b + (CODE) + 1], pxc, pyc, a, wind,   \
-                                   clip, depth, sf, si, sbox, sdx, sdy);
+                                   clip, depth, live, sf, si, sbox, sdx, sdy);
       STROKE_CLASS(CLS_LINE_SOLID, false, 0)
       STROKE_CLASS(CLS_LINE_SOLID + 1, false, 1)
       STROKE_CLASS(CLS_LINE_SOLID + 2, false, 2)
@@ -893,14 +939,15 @@ __global__ void __launch_bounds__(BLOCK)
       }
 #define FILL_CLASS(CODE, NCH)                                                  \
   fill_range<S, CA, NCH>(tri_f, tri_i, off[b + (CODE)], off[b + (CODE) + 1],   \
-                         pxc, pyc, a, wind, clip, depth, sf, si, sbox);        \
+                         pxc, pyc, a, wind, clip, depth, live, sf, si, sbox);  \
   fill_range<S, CA, NCH>(g_tri_f, g_tri_i, g_off[b + (CODE)],                  \
                          g_off[b + (CODE) + 1], pxc, pyc, a, wind, clip,       \
-                         depth, sf, si, sbox);
+                         depth, live, sf, si, sbox);
       FILL_CLASS(CLS_FILL_SOLID, 0)
       FILL_CLASS(CLS_FILL_QUAD, 3)
       FILL_CLASS(CLS_FILL_CUBIC, 4)
 #undef FILL_CLASS
+      if (!live) continue;
       const int bulk = a.bulk[(size_t)t * a.n_commands + c];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -910,6 +957,7 @@ __global__ void __launch_bounds__(BLOCK)
       }
       continue;
     }
+    if (!live) continue;
 
     const int cl = a.cls[(size_t)t * a.n_draws + d];
     if (cl == 0) continue;
@@ -1018,6 +1066,14 @@ __global__ void __launch_bounds__(BLOCK)
         continue;
       }
       if (op < OP_SAVE_ALPHA || op > OP_SAVE_SCALE) continue;
+      // An alpha op changes only the samples inside its hull that pass
+      // the clip test: a warp with none skips it, so that scale and
+      // restore do not rewrite colour[3] with itself and a save to the
+      // slots is not issued.  Warp-uniform, as the clip vote.
+      unsigned hit = 0u;
+#pragma unroll
+      for (int s = 0; s < S; ++s) hit |= (unsigned)(in_hull[s] && clip[s] == depth);
+      if (__reduce_or_sync(FULL, hit) == 0u) continue;
       // Alpha-group ops on layer li (renderer.rs:756-861): save copies
       // frame alpha into the layer, scale sets (1 - g) + g * alpha,
       // restore subtracts (1 - saved) * (1 - g); save+scale is save then
@@ -1027,7 +1083,7 @@ __global__ void __launch_bounds__(BLOCK)
       const bool save = op == OP_SAVE_ALPHA || op == OP_SAVE_SCALE;
       const bool scale = op == OP_SCALE_ALPHA || op == OP_SAVE_SCALE;
       const bool restore = op == OP_RESTORE_ALPHA;
-      float* slots = NL == 0 ? a.layers + (size_t)li * S * total + gp : nullptr;
+      float* layer_slots = NL == 0 ? slots + li * S * BLOCK : nullptr;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const bool mask = in_hull[s] && clip[s] == depth;
@@ -1038,7 +1094,7 @@ __global__ void __launch_bounds__(BLOCK)
             for (int j = 0; j < NL; ++j)
               layer[j][s] = (mask && j == li) ? a0 : layer[j][s];
           } else if (mask) {
-            slots[(size_t)s * total] = a0;
+            layer_slots[s * BLOCK] = a0;
           }
         }
         if (scale) color[3][s] = mask ? (1.0f - ca) + ca * a0 : a0;
@@ -1048,7 +1104,7 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
             for (int j = 0; j < NL; ++j) saved = j == li ? layer[j][s] : saved;
           } else {
-            saved = slots[(size_t)s * total];
+            saved = layer_slots[s * BLOCK];
           }
           color[3][s] = mask ? a0 - (1.0f - saved) * (1.0f - ca) : a0;
         }
@@ -1068,9 +1124,9 @@ __global__ void __launch_bounds__(BLOCK)
     if (out_u8) {
       // floor(clip(v) * 255 + 0.5), packed little-endian RGBA8 in uint32
       // (A << 24 would overflow an int32).
-      const uint32_t q =
+      const uint32_t q8 =
           (uint32_t)floorf(fminf(fmaxf(v, 0.0f), 1.0f) * 255.0f + 0.5f);
-      packed |= q << (8 * chan);
+      packed |= q8 << (8 * chan);
     } else {
       static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + pix] = v;
     }
@@ -1078,23 +1134,143 @@ __global__ void __launch_bounds__(BLOCK)
   if (out_u8) static_cast<uint32_t*>(a.out)[(size_t)t * n_px + pix] = packed;
 }
 
+// The kernel's body.  NL, STROKES, DEPTH and PAINT as for raster_item.
+// Layer modes -1 and 1 run on a (tiles, slabs) grid, one item per block.
+// Layer mode 0 runs on a 1-D grid of (tile, slab) items, tile fastest
+// (the order in which the 2-D grid's blocks are issued): with its alpha
+// layers in dynamic shared memory (or without alpha ops) one item per
+// block; with them in the global scratch (a.layers), a grid of the
+// blocks that can be resident at once, each walking items in a loop with
+// its own slice of the scratch.
+template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
+__device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
+  __shared__ float sf[CHUNK * STROKE_F];
+  __shared__ int si[CHUNK * STROKE_I];
+  __shared__ float sdx[MAX_SAMPLES], sdy[MAX_SAMPLES];
+  __shared__ float4 sbox[CHUNK];
+  // Sample offsets from the pixel centre, for the rolled stroke loops; the
+  // first staging barrier orders these writes before any read.
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sdx[s] = a.sample_x[s] - 0.5f;
+      sdy[s] = a.sample_y[s] - 0.5f;
+    }
+  }
+  if constexpr (NL == 0) {
+    extern __shared__ float layer_smem[];
+    float* slots = a.layers != nullptr
+                       ? a.layers + (size_t)blockIdx.x * a.n_layers * S * BLOCK +
+                             threadIdx.x
+                   : a.has_alpha ? layer_smem + threadIdx.x
+                                 : nullptr;
+    const int n_items = a.n_tiles * (a.th * a.tw / BLOCK);
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x)
+      raster_item<S, NL, STROKES, DEPTH, PAINT>(a, item % a.n_tiles,
+                                                item / a.n_tiles, slots, sf, si,
+                                                sbox, sdx, sdy);
+  } else {
+    raster_item<S, NL, STROKES, DEPTH, PAINT>(a, blockIdx.x, blockIdx.y,
+                                              nullptr, sf, si, sbox, sdx, sdy);
+  }
+}
+
+template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
+__global__ void __launch_bounds__(BLOCK)
+    coverage_raster_kernel(const RasterArgs a) {
+  raster_blocks<S, NL, STROKES, DEPTH, PAINT>(a);
+}
+
+// Fill-only frames without clip, alpha or depth at S <= 4 (FILL_CAPPED):
+// the same body held to 64 registers, so that four blocks (32 warps) fit
+// an SM instead of three.  Left to itself, ptxas put this build at 64 or
+// 79 registers from one edit of unrelated code to the next; at 79 the
+// gradient card ran 9% slower than at 64 (chip_ab.py, H100, PERF.md),
+// and the spills the cap costs (48-108 B at S = 4) are cheaper.  Builds
+// with depth spill more under it (188 B) and are not capped.
+template <int S, int PAINT>
+__global__ void __launch_bounds__(BLOCK, 4)
+    coverage_raster_fill_kernel(const RasterArgs a) {
+  raster_blocks<S, -1, false, false, PAINT>(a);
+}
+
+constexpr bool BUILD_DEPTH = RASTER_DEPTH != 0;
+constexpr int BUILD_PAINT = RASTER_PAINT;
+
+// Bytes of shared memory that layer mode 0 keeps its alpha layers in: L*S
+// floats for each of the block's pixels.
+size_t layer_smem_bytes(const RasterArgs& a) {
+  return sizeof(float) * (size_t)a.n_layers * a.samples * BLOCK;
+}
+
+// The global scratch's block count for a frame whose alpha layers do
+// not fit shared memory (layer mode 0 with alpha ops), else 0: the blocks
+// of that instantiation that can be resident at once on the current
+// device.
+template <int S, bool STROKES>
+cudaError_t layer_blocks(const RasterArgs& a, int* blocks) {
+  *blocks = 0;
+  if (a.layer_mode != 0 || !a.has_alpha) return cudaSuccess;
+  auto* kernel = coverage_raster_kernel<S, 0, STROKES, BUILD_DEPTH, BUILD_PAINT>;
+  cudaFuncAttributes attr;
+  int dev, optin, sms, per_sm;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (attr.sharedSizeBytes + layer_smem_bytes(a) <= (size_t)optin) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = max(per_sm, 1) * sms;
+  return cudaSuccess;
+}
+
 template <int S, bool STROKES>
 cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
-  constexpr bool DEPTH = RASTER_DEPTH != 0;
-  constexpr int PAINT = RASTER_PAINT;
-  const dim3 grid(a.n_tiles, (a.th * a.tw) / BLOCK);
+  constexpr bool DEPTH = BUILD_DEPTH;
+  constexpr int PAINT = BUILD_PAINT;
+  constexpr bool FILL_CAPPED = S <= 4 && !STROKES && !DEPTH;
+  const int slabs = (a.th * a.tw) / BLOCK;
   switch (a.layer_mode) {
     case -1:
-      coverage_raster_kernel<S, -1, STROKES, DEPTH, PAINT>
-          <<<grid, BLOCK, 0, stream>>>(a);
+      if constexpr (FILL_CAPPED) {
+        coverage_raster_fill_kernel<S, PAINT>
+            <<<dim3(a.n_tiles, slabs), BLOCK, 0, stream>>>(a);
+      } else {
+        coverage_raster_kernel<S, -1, STROKES, DEPTH, PAINT>
+            <<<dim3(a.n_tiles, slabs), BLOCK, 0, stream>>>(a);
+      }
       break;
-    case 0:
+    case 0: {
+      int blocks = a.n_tiles * slabs;
+      size_t smem = 0;
+      if (a.layers != nullptr) {
+        if (a.layer_blocks < 1) return cudaErrorInvalidValue;
+        blocks = min(blocks, a.layer_blocks);
+      } else if (a.has_alpha) {
+        int need = 0;
+        const cudaError_t err = layer_blocks<S, STROKES>(a, &need);
+        if (err != cudaSuccess) return err;
+        // Layers past shared memory need the wrapper's global scratch.
+        if (need != 0) return cudaErrorInvalidValue;
+        smem = layer_smem_bytes(a);
+        if (smem > 48 * 1024) {
+          const cudaError_t set = cudaFuncSetAttribute(
+              coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          if (set != cudaSuccess) return set;
+        }
+      }
       coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>
-          <<<grid, BLOCK, 0, stream>>>(a);
+          <<<blocks, BLOCK, smem, stream>>>(a);
       break;
+    }
     case 1:
       coverage_raster_kernel<S, 1, STROKES, DEPTH, PAINT>
-          <<<grid, BLOCK, 0, stream>>>(a);
+          <<<dim3(a.n_tiles, slabs), BLOCK, 0, stream>>>(a);
       break;
     default: return cudaErrorInvalidValue;
   }
@@ -1116,6 +1292,8 @@ cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
 // launched, so the caller counts a launch exactly when this returns 0.
 extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   const RasterArgs& a = *args;
+  // a.layers is null or a scratch of a.layer_blocks slices (see
+  // coverage_raster_layer_blocks).
   if (a.n_tiles <= 0 || a.th % 4 != 0 || a.tw % 64 != 0 ||
       a.th * a.tw / BLOCK > 65535 || a.n_groups < 1 || a.n_layers < 1 ||
       (a.layer_mode > 0 && a.n_layers > a.layer_mode) ||
@@ -1124,4 +1302,16 @@ extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a.has_strokes ? launch_layers<RASTER_SAMPLES, true>(a, s)
                              : launch_layers<RASTER_SAMPLES, false>(a, s));
+}
+
+// The number of blocks whose slices the global layer scratch of this
+// frame needs (`a.layers`: blocks * L * S * 256 floats), into *blocks:
+// 0 where the frame keeps its alpha layers in registers or in shared
+// memory, or has none.  Returns the cudaError_t of the queries.
+extern "C" int coverage_raster_layer_blocks(const RasterArgs* args, int* blocks) {
+  const RasterArgs& a = *args;
+  *blocks = 0;
+  if (a.samples != RASTER_SAMPLES) return (int)cudaErrorInvalidValue;
+  return (int)(a.has_strokes ? layer_blocks<RASTER_SAMPLES, true>(a, blocks)
+                             : layer_blocks<RASTER_SAMPLES, false>(a, blocks));
 }

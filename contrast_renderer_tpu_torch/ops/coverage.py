@@ -20,9 +20,9 @@ Every body of the reference kernel is ported: the fill stencil, the
 stroke stencil (lines and joints; solid, single-interval and general
 dashes; caps and joins), clip and unclip, the alpha-group ops, the depth
 test and write, and the colour cover with solid, gradient and user
-paints.  Frames with gate spans (host-side bracket gating, not a kernel
-body) raise ``NotImplementedError`` before any launch
-(``check_supported``).
+paints.  Binning also ports the reference's clip and alpha bracket
+gating (``FrameSpec.gate_spans``): it drops a balanced bracket's
+machinery from the tiles no content touches, which changes no pixel.
 """
 
 from __future__ import annotations
@@ -185,7 +185,10 @@ class FrameSpec:
     slots_y: int = 2
     fill_batch: int = NB
     stroke_batch: int = 1
-    #: Clip/alpha bracket gating; must be empty in this slice.
+    #: Clip/alpha bracket gating (renderer._gate_spans): tuples of
+    #: (content units, machinery units, transform row pairs); binning
+    #: drops the machinery units from the tiles that no content unit
+    #: touches, for each span whose row pairs hold equal transforms.
     gate_spans: tuple = ()
     #: Whether any stencil draw carries stroke rows.
     has_strokes: bool = True
@@ -236,16 +239,6 @@ class FrameSpec:
     @property
     def n_tiles(self):
         return self.ntx * self.nty
-
-
-def check_supported(spec: FrameSpec):
-    """Raise NotImplementedError, naming the ROADMAP item that ports it,
-    when ``spec`` needs what the port does not have yet: gate spans."""
-    if spec.gate_spans:
-        raise NotImplementedError(
-            "the PyTorch/CUDA port cannot render gate spans yet "
-            "(ROADMAP.md, Queue 1 item 1: gate spans)"
-        )
 
 
 #: wgpu::CompareFunction names in the order of their kernel codes.
@@ -594,10 +587,43 @@ def _depth_planes(ctf, W, H):
     return torch.where(safe[:, None], solved, 0.0)
 
 
+def _gate_masks(spec: FrameSpec, draws: DrawTables):
+    """Per gate span, numpy (content unit mask, machinery unit mask,
+    opener rows, closer rows) over the frame's U units and transform
+    rows.  Raises ValueError for a span that is not a (content units,
+    machinery units, row pairs) triple of indices in range."""
+    U = len(draws.unit_cmd)
+    R = int(draws.row_base[-1])
+    masks = []
+    for span in spec.gate_spans:
+        try:
+            content_u, mach_u, row_pairs = span
+            content = np.asarray(content_u, np.int64).reshape(-1)
+            mach = np.asarray(mach_u, np.int64).reshape(-1)
+            pairs = np.asarray(row_pairs, np.int64).reshape(-1, 2)
+        except (TypeError, ValueError) as exc:
+            raise ValueError(
+                f"gate span {span!r} is not (content units, machinery "
+                f"units, row pairs)"
+            ) from exc
+        if ((content < 0) | (content >= U)).any() or (
+            (mach < 0) | (mach >= U)
+        ).any():
+            raise ValueError(f"gate span {span!r}: a unit outside [0, {U})")
+        if ((pairs < 0) | (pairs >= R)).any():
+            raise ValueError(f"gate span {span!r}: a row outside [0, {R})")
+        content_m = np.zeros(U, bool)
+        content_m[content] = True
+        mach_m = np.zeros(U, bool)
+        mach_m[mach] = True
+        masks.append((content_m, mach_m, pairs[:, 0], pairs[:, 1]))
+    return masks
+
+
 def make_prepare(spec: FrameSpec):
-    check_supported(spec)
     C = spec.n_commands
     draws = draw_tables(spec)
+    gates = _gate_masks(spec, draws)
     _row_base = draws.row_base
 
     def _shape_at(c, r):
@@ -1102,6 +1128,23 @@ def make_prepare(spec: FrameSpec):
         act_c = cover_active[:, idx(np.maximum(draws.unit_draw, 0))]
         is_cover_u = torch.as_tensor(draws.unit_draw >= 0, device=dev)
         active = torch.where(is_cover_u[None, :], act_c, act_s)
+        # ---- clip/alpha bracket gating --------------------------------
+        # Drop a balanced bracket's machinery units from the tiles that
+        # NO content unit of the whole frame touches: frame alpha is
+        # exactly 0 there, and the complete bracket is then bit-exact
+        # identity on the colour buffer (renderer._gate_spans proves the
+        # static obligations).  Hull coincidence (equal opener and closer
+        # transform rows) is the one runtime condition, checked here on
+        # the device, with no host sync: unequal rows keep the span's
+        # machinery everywhere.
+        for content_m, mach_m, rows_a, rows_b in gates:
+            content = torch.as_tensor(content_m, device=dev)
+            other = torch.as_tensor(~mach_m, device=dev)
+            keep = other[None, :] | (active & content).any(1)[:, None]
+            if len(rows_a):
+                opener, closer = transforms[idx(rows_a)], transforms[idx(rows_b)]
+                keep = keep | ~(opener == closer).all()
+            active = active & keep
         # Compact active unit indices per tile (inactive slots key to U
         # and sink to the tail).
         aclist = torch.sort(
@@ -1181,7 +1224,8 @@ class _RasterArgs(ctypes.Structure):
             "kp", "kgp", "n_groups", "samples", "winding_mask", "out_u8",
             "color_src", "color_op", "color_dst",
             "alpha_src", "alpha_op", "alpha_dst",
-            "has_clip", "layer_mode", "n_layers", "has_strokes",
+            "has_clip", "has_alpha", "layer_mode", "n_layers",
+            "layer_blocks", "has_strokes",
             "depth_compare", "depth_write",
         )
     ] + [
@@ -1268,6 +1312,10 @@ def build_kernel(features: KernelFeatures):
             ctypes.POINTER(_RasterArgs), ctypes.c_void_p,
         ]
         lib.coverage_raster_launch.restype = ctypes.c_int
+        lib.coverage_raster_layer_blocks.argtypes = [
+            ctypes.POINTER(_RasterArgs), ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.coverage_raster_layer_blocks.restype = ctypes.c_int
         _libraries[features] = lib
     return lib
 
@@ -1355,12 +1403,51 @@ def _raster_output(spec: FrameSpec, device):
 def layer_mode(spec: FrameSpec) -> int:
     """The kernel instantiation a frame needs: -1 without clip or alpha
     ops; 1 for alpha ops on one layer, held in registers; 0 for clip
-    without alpha ops, or for more layers (a global-memory scratch of
-    (L, S) slots per pixel)."""
+    without alpha ops, or for more layers: (L, S) slots per pixel in the
+    block's shared memory, or, past what a block may hold, in a global
+    scratch of one slice per block that can be resident at once
+    (``layer_scratch_blocks``)."""
     has_clip, has_alpha = clip_alpha_ops(spec)
     if has_alpha and max(1, spec.n_layers) == 1:
         return 1
     return 0 if has_clip or has_alpha else -1
+
+
+#: layer_scratch_blocks per (kernel features, strokes, layers, device).
+_layer_blocks = {}
+
+
+def layer_scratch_blocks(spec: FrameSpec, device) -> int:
+    """How many slices of (L, S, 256) floats the kernel's global layer
+    scratch holds for frames of ``spec`` on the CUDA ``device``: 0 where
+    the frame keeps its alpha layers in registers or in the block's
+    shared memory (or has none), else the blocks of its instantiation
+    that can be resident at once on the card, which the kernel's grid
+    then holds.  Depends on the card and the instantiation, never on
+    the frame's size.  Builds the frame's kernel library if needed."""
+    device = torch.device(device)
+    if layer_mode(spec) != 0 or not clip_alpha_ops(spec)[1]:
+        return 0
+    features = kernel_features(spec)
+    n_layers = max(1, spec.n_layers)
+    key = (features, spec.has_strokes, n_layers, device.index)
+    blocks = _layer_blocks.get(key)
+    if blocks is None:
+        lib = build_kernel(features)
+        # The entry point reads these fields alone.
+        args = _RasterArgs(
+            samples=spec.samples, has_alpha=1, layer_mode=0, n_layers=n_layers,
+            has_strokes=int(spec.has_strokes),
+        )
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.coverage_raster_layer_blocks(
+                ctypes.byref(args), ctypes.byref(out)
+            )
+        if err != 0:
+            raise RuntimeError(f"coverage_raster_layer_blocks: CUDA error {err}")
+        blocks = _layer_blocks[key] = out.value
+    return blocks
 
 
 def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
@@ -1375,7 +1462,6 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     current stream (the build of ``kernel_features(spec)``); CPU tensors
     run ``rasterize_plain``."""
     global raster_launches
-    check_supported(spec)
     draws, expected = _raster_plan(spec)
     tensors = dict(
         prepared._asdict(), cmd_i=cmd_i, cmd_f=cmd_f,
@@ -1399,16 +1485,6 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     has_clip, has_alpha = clip_alpha_ops(spec)
     mode = layer_mode(spec)
     n_layers = max(1, spec.n_layers)
-    # The kernel allocates nothing: in layer mode 0 it keeps each pixel's
-    # (L, S) layer state in this scratch, 4*L*S bytes per pixel of the
-    # tiled frame, which it zeroes per tile.
-    layers = (
-        torch.empty(
-            n_layers * spec.samples * spec.n_tiles * spec.tile_h * spec.tile_w,
-            dtype=torch.float32, device=device,
-        )
-        if has_alpha and mode == 0 else None
-    )
     offsets = SAMPLE_PATTERNS[spec.samples]
     codes = _blend_codes(spec.blending)
     args = _RasterArgs(
@@ -1418,7 +1494,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             "tri_f", "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i",
             "paint_xy", "zplane",
         )),
-        None if layers is None else layers.data_ptr(),
+        None,
         out.data_ptr(),
         spec.n_tiles, spec.ntx, spec.tile_h, spec.tile_w, spec.tile_strips,
         spec.screen_tile_w, spec.screen_tile_h,
@@ -1428,11 +1504,24 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         desc_f.shape[0],
         spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
         *codes,
-        int(has_clip), mode, n_layers, int(spec.has_strokes),
+        int(has_clip), int(has_alpha), mode, n_layers, 0,
+        int(spec.has_strokes),
         DEPTH_COMPARE_CODES[spec.depth_compare], int(spec.depth_write),
     )
     args.sample_x[:spec.samples] = offsets[:, 0].tolist()
     args.sample_y[:spec.samples] = offsets[:, 1].tolist()
+    # The kernel allocates nothing: alpha layers past what a block's
+    # shared memory holds go to this scratch, L*S slots per thread of
+    # each block that can be resident at once; its size does not grow
+    # with the frame.
+    blocks = layer_scratch_blocks(spec, device)
+    if blocks:
+        layers = torch.empty(
+            blocks * n_layers * spec.samples * BLOCK_ROWS * BLOCK_LANES,
+            dtype=torch.float32, device=device,
+        )
+        args.layers = layers.data_ptr()
+        args.layer_blocks = blocks
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.coverage_raster_launch(ctypes.byref(args), stream)
@@ -1787,16 +1876,18 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     at the samples inside the hull with a nonzero winding; ``"blend"``,
     blended samples; ``"paint"``, {cover draw: blended samples} for
     non-solid paints; ``"alpha"``, {op: updated samples} for alpha ops.
-    It also receives what the kernel's stencil walk skips, per warp of
-    32 pixels (``warp_pixels``; an entry is culled where its
-    ``_cull_boxes`` box holds none of the warp's pixel centres):
-    ``"entry_warps"``, the (warp, entry) pairs of the binned stroke and
-    fill entries; ``"culled"``, those the box test culls;
-    ``"stroke_samples"``, the stroke sample evaluations (32·S per
-    stroke pair that is not culled); ``"vote_skipped"``, those the
-    warp vote skips (32 for each sample that no pixel of the warp has
-    inside the entry)."""
-    check_supported(spec)
+    It also receives what the kernel skips per warp of 32 pixels
+    (``warp_pixels``): ``"clip_skipped"``, the (warp, unit) pairs of
+    units other than clip and unclip that the clip vote skips, where no
+    sample of the warp has a clip counter equal to the unit's depth
+    (frames with clip ops); ``"entry_warps"``, the (warp, entry) pairs of
+    the binned stroke and fill entries; ``"culled"``, those of warps the
+    clip vote kept that the box test culls (the entry's ``_cull_boxes``
+    box holds none of the warp's pixel centres); ``"stroke_samples"``,
+    the stroke sample evaluations (32·S per stroke pair that is walked,
+    neither culled nor clip-skipped); ``"vote_skipped"``, those the warp
+    vote skips (32 for each sample that no pixel of the warp has inside
+    the entry)."""
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
     S = spec.samples
@@ -1875,14 +1966,15 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                 j = torch.clamp(j, max=rows_f.shape[1] - 1)
                 yield rows_f[sel[:, None], j], rows_i[sel[:, None], j], ok
 
-    def count_warps(sel, rf, ri, ok, stroke):
+    def count_warps(sel, rf, ri, ok, stroke, live):
         """The kernel's per-warp culling and, for strokes, its warp vote
-        on one batch of entries (``work``'s stencil counts)."""
+        on one batch of entries (``work``'s stencil counts); ``live``
+        (T, P / 32) marks the warps that the clip vote kept."""
         x0, y0, x1, y1 = (v[..., None, None] for v in _cull_boxes(rf, coord))
         cx, cy = wx[sel][:, None], wy[sel][:, None]     # (T, 1, P / 32, 32)
         meets = ~((x1 < cx) | (x0 > cx) | (y1 < cy) | (y0 > cy))
-        culled = ~meets.any(-1)
-        walked = ok[..., None] & ~culled                 # (T, B, P / 32)
+        culled = ~meets.any(-1) & live[:, None, :]
+        walked = ok[..., None] & ~culled & live[:, None, :]  # (T, B, P / 32)
         count("entry_warps", ok.sum() * (P // 32))
         count("culled", (ok[..., None] & culled).sum())
         if stroke:
@@ -1895,13 +1987,13 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             count("stroke_samples", walked.sum() * 32 * S)
             count("vote_skipped", ((S - voted) * walked).sum() * 32)
 
-    def stencil(sel, c, w, clip_ok):
+    def stencil(sel, c, w, clip_ok, live):
         base = N_CLASSES * c
         pxs, pys = pxc[sel], pyc[sel]
         for code, joint, dash_mode in STROKE_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
                 if work is not None:
-                    count_warps(sel, rf, ri, ok, True)
+                    count_warps(sel, rf, ri, ok, True, live)
                 cov = _stroke_cover(
                     rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxs, pys,
                     offsets,
@@ -1912,7 +2004,7 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         for code in FILL_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
                 if work is not None:
-                    count_warps(sel, rf, ri, ok, False)
+                    count_warps(sel, rf, ri, ok, False, live)
                 delta = _fill_delta(rf, ri, ok, code, pxs, pys, offsets)
                 if clip_ok is not None:
                     delta = torch.where(clip_ok, delta, 0)
@@ -1972,8 +2064,16 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             continue
         w = wind[sel]
         clip_ok = (clip[sel] == depth) if has_clip else None
+        # The warps that the kernel's clip vote keeps: those with a
+        # sample at the unit's clip depth (clip and unclip take no vote).
+        live = None
+        if work is not None:
+            live = torch.ones((len(sel), P // 32), dtype=torch.bool, device=dev)
+            if has_clip and op not in (OP_CLIP, OP_UNCLIP):
+                live = clip_ok.any(1)[:, warps].any(-1)
+                count("clip_skipped", (~live).sum())
         if op == OP_STENCIL:
-            wind[sel] = stencil(sel, c, w, clip_ok)
+            wind[sel] = stencil(sel, c, w, clip_ok, live)
             continue
         in_hull = hull_mask(sel, d)
         nonzero = (w & winding_mask) != 0

@@ -17,9 +17,10 @@ names and attributes.  A frame runs in three stages:
 The port renders filled and stroked paths (solid and dashed strokes,
 all caps and joins) with solid colour, linear and radial gradients and
 user paints, under any depth state, inside nested clips and alpha
-groups.  Clip and alpha frames render ungated: the reference's per-tile
-bracket gating (``gate_spans``) leaves the image unchanged by its own
-contract and is not ported yet.
+groups.  As in the reference, the machinery of a balanced clip or
+alpha bracket is dropped from the tiles that no content draw of the
+frame touches (``_gate_spans``, ``FrameSpec.gate_spans``), which
+changes no pixel.
 """
 
 from __future__ import annotations
@@ -561,6 +562,201 @@ def _optimize_commands(commands):
     return out, keep_rows
 
 
+#: Clip and alpha-group ops: the machinery of a bracket (see _gate_spans).
+_MACHINERY_OPS = (
+    coverage.OP_CLIP, coverage.OP_UNCLIP, coverage.OP_SAVE_ALPHA,
+    coverage.OP_SCALE_ALPHA, coverage.OP_RESTORE_ALPHA,
+    coverage.OP_SAVE_SCALE,
+)
+#: The ops that open a bracket.
+_OPENER_OPS = (
+    coverage.OP_CLIP, coverage.OP_SAVE_ALPHA, coverage.OP_SAVE_SCALE,
+)
+
+
+def _is_mach_op(o) -> bool:
+    """Whether op ``o`` is clip/alpha machinery (see _gate_spans)."""
+    return o in _MACHINERY_OPS
+
+
+def _machinery_alphas(c):
+    """Per-instance opacity tuple of a machinery cover's color, or
+    None when it is not a plain color."""
+    if _paint_kind(c.color):
+        return None
+    a = np.asarray(c.color, np.float64)
+    if a.ndim == 1:
+        a = a[None, :]
+    if a.ndim != 2 or a.shape[-1] != 4:
+        return None
+    try:
+        return tuple(
+            np.broadcast_to(a[:, 3], (c.n_instances,)).tolist()
+        )
+    except ValueError:
+        return None
+
+
+def _gate_spans(commands, spec) -> tuple:
+    """Static clip/alpha bracket analysis feeding the binning's per-tile
+    machinery gating (FrameSpec.gate_spans); the reference's analysis
+    (contrast_renderer_tpu/renderer.py::_gate_spans), proof obligation
+    for proof obligation.
+
+    On a tile where NO content draw of the whole frame lands, frame
+    alpha is exactly 0.0 under every machinery op, and a complete
+    bracket — clip stencil + CLIP … UNCLIP back to the entry depth, or
+    SAVE(+SCALE)/SAVE_SCALE … RESTORE on one layer — is then bit-exact
+    identity on the colour buffer: the save/scale/restore chain over
+    a0 = 0 computes fl(1−g) − fl((1−0)·fl(1−g)) = 0 with no rounding
+    slack, and clip ops never touch colour.  So binning may drop the
+    machinery from such tiles (usually leaving them on the kernel's
+    empty-tile path).  Content activity is deliberately FRAME-wide, not
+    span-wide: with content anywhere in the tile, frame alpha can be
+    nonzero and the float composition would differ from identity by
+    rounding, so those tiles keep their machinery.
+
+    The static proof obligations:
+
+    - depth protocol, simulated from 0: each CLIP opens at cur+1 with
+      its feeding machinery stencils at cur, each UNCLIP closes at
+      cur−1 on the SAME shape with the same instance count;
+    - alpha protocol: SAVE/SAVE_SCALE … RESTORE pair on one layer and
+      one shape with the SAME group opacity, issued at the SAME clip
+      depth under the SAME open-clip state (the kernel masks every
+      alpha op with its clip test); nested saves use distinct layers;
+    - machinery stencils: winding consumed exclusively by machinery
+      covers (so skipping both leaves nothing half-consumed).
+
+    Hull coincidence — equal transform rows between paired commands —
+    is runtime state and is returned as ``row_pairs`` for the binning's
+    per-frame check on the device.  Returns () — gate nothing — on ANY
+    deviation from the protocol: gating never changes the image.
+
+    Each span is ``(content_units, machinery_units, row_pairs)``."""
+    ops = spec.ops
+    C = len(ops)
+    if not any(o in _OPENER_OPS for o in ops):
+        return ()
+    draws = coverage.draw_tables(spec)
+    row_base = draws.row_base
+
+    mach = [_is_mach_op(o) for o in ops]
+    for i, o in enumerate(ops):
+        if o == coverage.OP_STENCIL:
+            consumers = []
+            j = i + 1
+            while j < C and ops[j] != coverage.OP_STENCIL:
+                consumers.append(j)
+                j += 1
+            mach[i] = bool(consumers) and all(mach[j] for j in consumers)
+
+    def rows(i):
+        return range(int(row_base[i]), int(row_base[i + 1]))
+
+    def same_draws(j, i):
+        return (
+            spec.cmd_shape[j] == spec.cmd_shape[i]
+            and commands[j].n_instances == commands[i].n_instances
+        )
+
+    cur = 0
+    clip_stack = []
+    alpha_stack = []
+    spans = []
+    pairs = []
+    start = None
+    for i, c in enumerate(commands):
+        o = ops[i]
+        if o == coverage.OP_STENCIL:
+            if mach[i] and c.clip_depth != cur:
+                return ()
+            continue
+        if start is None and o in _OPENER_OPS:
+            s = i
+            while s > 0 and ops[s - 1] == coverage.OP_STENCIL and mach[s - 1]:
+                s -= 1
+            start = s
+            pairs = []
+        if o == coverage.OP_CLIP:
+            if c.clip_depth != cur + 1:
+                return ()
+            clip_stack.append(i)
+            cur += 1
+        elif o == coverage.OP_UNCLIP:
+            if not clip_stack or c.clip_depth != cur - 1:
+                return ()
+            j = clip_stack.pop()
+            if not same_draws(j, i):
+                return ()
+            pairs += list(zip(rows(j), rows(i)))
+            cur -= 1
+        elif o in (coverage.OP_SAVE_ALPHA, coverage.OP_SAVE_SCALE):
+            g = _machinery_alphas(c) if o == coverage.OP_SAVE_SCALE else None
+            if o == coverage.OP_SAVE_SCALE and g is None:
+                return ()
+            if any(top[1] == c.alpha_layer for top in alpha_stack):
+                return ()
+            # The issue-time clip state, so that scale and restore are
+            # provably issued under the identical clip mask.
+            clip_state = (c.clip_depth, tuple(clip_stack))
+            alpha_stack.append([i, c.alpha_layer, g, clip_state])
+        elif o == coverage.OP_SCALE_ALPHA:
+            if not alpha_stack:
+                return ()
+            top = alpha_stack[-1]
+            g = _machinery_alphas(c)
+            if (
+                top[2] is not None
+                or g is None
+                or top[3] != (c.clip_depth, tuple(clip_stack))
+                or not same_draws(top[0], i)
+            ):
+                return ()
+            top[2] = g
+            pairs += list(zip(rows(top[0]), rows(i)))
+        elif o == coverage.OP_RESTORE_ALPHA:
+            if not alpha_stack:
+                return ()
+            j, layer, g, clip_state = alpha_stack.pop()
+            if (
+                c.alpha_layer != layer
+                or g is None
+                or _machinery_alphas(c) != g
+                or clip_state != (c.clip_depth, tuple(clip_stack))
+                or not same_draws(j, i)
+            ):
+                return ()
+            pairs += list(zip(rows(j), rows(i)))
+        elif start is None and mach[i]:
+            # Machinery outside any span (a stray SCALE): bail.
+            return ()
+        if start is not None and not clip_stack and not alpha_stack:
+            spans.append((start, i + 1, tuple(pairs)))
+            start = None
+            pairs = []
+    if clip_stack or alpha_stack:
+        return ()
+    ucmd = draws.unit_cmd
+    # Frame-wide content (see the bit-exactness argument above): every
+    # unit of a non-machinery command, anywhere in the frame.
+    content_u = tuple(
+        int(u) for u in range(len(ucmd)) if not mach[ucmd[u]]
+    )
+    if not content_u:
+        return ()
+    out = []
+    for s, e, rp in spans:
+        mach_u = tuple(
+            int(u)
+            for u in range(len(ucmd))
+            if s <= ucmd[u] < e and mach[ucmd[u]]
+        )
+        if mach_u:
+            out.append((content_u, mach_u, rp))
+    return tuple(out)
+
+
 class _SceneArrays:
     """Padded, stacked geometry of a set of shapes, as tensors on the
     renderer's device."""
@@ -694,8 +890,13 @@ class Renderer:
         self._upload_cache = {}
         #: Kept for the reference's signature.  This port walks the
         #: commands in sequence; the reference's fusion is pixel-exact,
-        #: so the image is the same (ROADMAP.md, Queue 1 item 1).
+        #: so the image is the same (ROADMAP.md, the `auto_instance`
+        #: fusion item).
         self.auto_instance = bool(auto_instance)
+        #: Memoized _gate_spans results (see _spec): the analysis walks
+        #: every instance row in Python, and render() derives a spec per
+        #: frame.
+        self._gate_cache = {}
         #: Runtime blend-constant color for the ``constant`` /
         #: ``one_minus_constant`` factors.
         self.blend_constant = (0.0, 0.0, 0.0, 0.0)
@@ -816,7 +1017,9 @@ class Renderer:
         return key, scene
 
     def _spec(self, ops, cmd_shape, cmd_inst, scene,
-              paints=()) -> coverage.FrameSpec:
+              paints=(), commands=None) -> coverage.FrameSpec:
+        """The frame's FrameSpec; given ``commands`` (the optimised
+        list), with the gate spans of its clip and alpha brackets."""
         # The reference's density tiers (measured on its TPU, kept so the
         # specs and the binning match it one to one; re-deriving them on
         # this card is later work).
@@ -850,7 +1053,7 @@ class Renderer:
         else:
             auto_tile, auto_batch = 32, 2
             auto_strips = 2 if stroke_dom else 1
-        return coverage.FrameSpec(
+        spec = coverage.FrameSpec(
             width=self.width,
             height=self.height,
             ops=ops,
@@ -883,6 +1086,30 @@ class Renderer:
             # descriptor groups (every shape carries at least one).
             has_strokes=s_rows > 0,
         )
+        if commands is not None and any(o in _OPENER_OPS for o in ops):
+            # Memoized: the analysis is a pure function of the pre-gate
+            # spec and the clip depth, layer and machinery opacities of
+            # each command, which is the key.
+            gkey = (
+                spec,
+                tuple(
+                    (
+                        c.clip_depth,
+                        c.alpha_layer,
+                        _machinery_alphas(c) if _is_mach_op(o) else None,
+                    )
+                    for o, c in zip(ops, commands)
+                ),
+            )
+            gates = self._gate_cache.get(gkey)
+            if gates is None:
+                gates = _gate_spans(commands, spec)
+                if len(self._gate_cache) >= 32:
+                    self._gate_cache.pop(next(iter(self._gate_cache)))
+                self._gate_cache[gkey] = gates
+            if gates:
+                spec = replace(spec, gate_spans=gates)
+        return spec
 
     def _get_executors(self, spec):
         execs = self._executors.get(spec)
@@ -1068,7 +1295,9 @@ class Renderer:
         desc_static = np.ascontiguousarray(desc_i[:, [9, 8]])
 
         for _attempt in range(4):
-            spec = self._spec(ops, cmd_shape, cmd_inst, scene, paints)
+            spec = self._spec(
+                ops, cmd_shape, cmd_inst, scene, paints, commands=commands
+            )
             prepare, rasterize = self._get_executors(spec)
             raster_spec = (
                 replace(spec, out_uint8=True) if uint8_kernel else spec

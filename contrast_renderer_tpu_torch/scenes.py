@@ -278,6 +278,91 @@ def nested_clip_commands(api, size=96, geometry=None):
     ]
 
 
+def bracket_commands(api, geometry=None, unclip_transform=None):
+    """A clip and an alpha group over the whole viewport around a small
+    circle of content in its top-left corner (the reference's bracket
+    gating scene, tests/test_renderer.py::TestBracketGating), in NDC:
+    binning drops the bracket from the tiles the circle does not reach.
+    ``unclip_transform`` moves the UNCLIP's cover, which turns the
+    gating off at run time.  ``api`` as in nested_clip_commands; render
+    with ``alpha_layer_count >= 1`` and front-to-back blending."""
+    g = _geo(geometry)
+    op = api.RenderOperation
+    identity = np.eye(4, dtype=np.float32)
+    clip_shape = api.Shape([g.Path.from_rect((0.0, 0.0), (1.0, 1.0))])
+    cover = api.Shape([g.Path.from_rect((0.0, 0.0), (1.0, 1.0))])
+    content = api.Shape([g.Path.from_circle((-0.7, 0.7), 0.15)])
+    ut = identity if unclip_transform is None else unclip_transform
+    return [
+        api.DrawCommand(op.STENCIL, clip_shape, identity),
+        api.DrawCommand(op.CLIP, clip_shape, identity, clip_depth=1),
+        api.DrawCommand(op.SAVE_ALPHA_CONTEXT, cover, identity, clip_depth=1,
+                        alpha_layer=0),
+        api.DrawCommand(op.SCALE_ALPHA_CONTEXT, cover, identity, clip_depth=1,
+                        color=(0.0, 0.0, 0.0, 0.5)),
+        api.DrawCommand(op.STENCIL, content, identity, clip_depth=1),
+        api.DrawCommand(op.COLOR, content, identity,
+                        color=(0.9, 0.4, 0.1, 1.0), clip_depth=1),
+        api.DrawCommand(op.RESTORE_ALPHA_CONTEXT, cover, identity,
+                        clip_depth=1, color=(0.0, 0.0, 0.0, 0.5),
+                        alpha_layer=0),
+        api.DrawCommand(op.UNCLIP, clip_shape, ut, clip_depth=0),
+    ]
+
+
+#: rect_clips' clip rectangles in screen pixels (x0, y0, x1, y1), outer
+#: then inner, at size 128: their edges lie 0.3 px past a pixel edge,
+#: off every sample position.
+RECT_CLIPS = ((20.3, 30.3, 100.3, 90.3), (45.3, 40.3, 95.3, 80.3))
+
+
+def rect_clips(size=128):
+    """Content over most of a ``size``² frame (the fills and stroke of
+    nested_clip_commands) inside two nested rectangular clips and one
+    group of opacity 0.6 on layer 0, so that part of the content lies
+    outside each clip; then a circle after the clips.  The clips'
+    samples are known in closed form (RECT_CLIPS, scaled by size / 128).
+    Render with ``alpha_layer_count >= 1`` and front-to-back blending."""
+    from . import renderer as api
+
+    op = api.RenderOperation
+    fills, stroke = _content(api, size, _path)
+    k = size / 128.0
+
+    def rect(x0, y0, x1, y1):
+        # Screen y runs down; the model's y runs up (ortho).
+        x0, y0, x1, y1 = x0 * k, y0 * k, x1 * k, y1 * k
+        centre = ((x0 + x1) / 2, size - (y0 + y1) / 2)
+        return api.Shape([Path.from_rect(centre, ((x1 - x0) / 2, (y1 - y0) / 2))])
+
+    outer, inner = (rect(*r) for r in RECT_CLIPS)
+    cover = api.Shape([Path.from_rect((size / 2, size / 2), (size / 2, size / 2))])
+    corner = api.Shape([Path.from_circle((8.0 * k, 8.0 * k), 7.0 * k)])
+    t = ortho(size, size)
+    group = (0.0, 0.0, 0.0, 0.6)
+    return [
+        api.DrawCommand(op.STENCIL, outer, t),
+        api.DrawCommand(op.CLIP, outer, t, clip_depth=1),
+        api.DrawCommand(op.STENCIL, inner, t, clip_depth=1),
+        api.DrawCommand(op.CLIP, inner, t, clip_depth=2),
+        api.DrawCommand(op.SAVE_ALPHA_CONTEXT, cover, t, clip_depth=2),
+        api.DrawCommand(op.SCALE_ALPHA_CONTEXT, cover, t, clip_depth=2,
+                        color=group),
+        api.DrawCommand(op.STENCIL, fills, t, clip_depth=2),
+        api.DrawCommand(op.COLOR, fills, t, clip_depth=2,
+                        color=(0.9, 0.4, 0.1, 1.0)),
+        api.DrawCommand(op.STENCIL, stroke, t, clip_depth=2),
+        api.DrawCommand(op.COLOR, stroke, t, clip_depth=2,
+                        color=(0.1, 0.7, 0.9, 0.8)),
+        api.DrawCommand(op.RESTORE_ALPHA_CONTEXT, cover, t, clip_depth=2,
+                        color=group),
+        api.DrawCommand(op.UNCLIP, inner, t, clip_depth=1),
+        api.DrawCommand(op.UNCLIP, outer, t, clip_depth=0),
+        api.DrawCommand(op.STENCIL, corner, t),
+        api.DrawCommand(op.COLOR, corner, t, color=(1.0, 1.0, 1.0, 1.0)),
+    ]
+
+
 def nested_group_commands(api, size=96, geometry=None):
     """Group 0 (opacity 0.7, layer 0; save and scale over two different
     covers, so they stay two ops) around the fills and group 1 (opacity

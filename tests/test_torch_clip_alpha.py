@@ -44,10 +44,9 @@ def reference_images():
 def test_frame_matches_reference(reference_images, name):
     """Packed RGBA8 equal on at least 99.9% of pixels, each differing
     pixel off by at most one sample's share (ties in the predicates under
-    XLA's FMA contraction on the CPU).  The reference gates its clip and
-    alpha brackets per tile; the port renders ungated, which by the
-    gating's contract changes no pixel.  Measured: both frames equal to
-    the bit."""
+    XLA's FMA contraction on the CPU).  Both packages gate the clip and
+    alpha brackets per tile, which by the gating's contract changes no
+    pixel.  Measured: both frames equal to the bit."""
     build, layers = FRAMES[name]
     renderer = port.Renderer(
         port.Configuration(alpha_layer_count=layers, blending="front_to_back"),
@@ -68,7 +67,8 @@ def test_frame_matches_reference(reference_images, name):
 
 def test_layer_state_choice():
     """One layer lives in registers; more, or clip without alpha ops,
-    take the global scratch; a frame without either, neither."""
+    take layer mode 0 (layers in shared memory or the scratch of resident
+    blocks); a frame without either, neither."""
     spec = port_cov.FrameSpec(
         width=SIZE, height=SIZE, ops=(0, 4, 5, 6), cmd_shape=(0, 0, 0, 0),
         n_shapes=1, t_max=1, h_max=4, samples=4, winding_bits=4,

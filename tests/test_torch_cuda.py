@@ -1,7 +1,9 @@
 """The CUDA raster kernel on the card: held against its plain torch
 version across sample counts, strip layouts, output modes and blend
 states; each of the six stroke classes; clip and alpha frames with alpha
-layers in registers and in the global scratch; depth under several
+layers in registers, in shared memory and in the global scratch of
+resident blocks; the clip vote on content partly outside its clips;
+gated against ungated clip and alpha frames; depth under several
 compare functions; linear, radial and multi-stop gradients; a user
 paint compiled into the kernel; the cap golden; and the whole path on
 the card against the path on the CPU.
@@ -190,7 +192,7 @@ def test_stroke_class_matches_plain(card, samples, code):
 )
 def test_clip_alpha_matches_plain(card, build, layers, samples):
     """Clip and alpha frames at 256²: the layer in registers (L = 1) and
-    layers in the global scratch (L = 2, 5), bit for bit."""
+    layers in shared memory (L = 2, 5), bit for bit."""
     size = 256
     renderer = Renderer(
         Configuration(alpha_layer_count=layers, blending="front_to_back",
@@ -200,6 +202,92 @@ def test_clip_alpha_matches_plain(card, build, layers, samples):
     spec, _, runtime = renderer._prepare(build(port, size))
     assert coverage.layer_mode(spec) == (1 if layers == 1 else 0)
     assert_kernel_matches_plain(spec, *runtime)
+
+
+@pytest.mark.parametrize(
+    "layers, samples",
+    [(2, 1), (2, 4), (2, 16), (5, 1), (5, 4), (5, 16), (16, 16)],
+)
+def test_layer_slots_match_plain(card, layers, samples):
+    """scenes.nested_clip_commands at 256² with L alpha layers: their
+    slots in the block's shared memory (L*S of 256 floats per thread fit
+    in what a block may opt into), or, at S = 16 and L = 16, in a global
+    scratch of one slice per block that can be resident at once, which
+    does not grow with the frame; bit for bit."""
+    size = 256
+    renderer = Renderer(
+        Configuration(alpha_layer_count=layers, blending="front_to_back",
+                      msaa_sample_count=samples),
+        size, size, device=card,
+    )
+    spec, _, runtime = renderer._prepare(scenes.nested_clip_commands(port, size))
+    assert coverage.layer_mode(spec) == 0
+    blocks = coverage.layer_scratch_blocks(spec, card)
+    if layers * samples <= 213:  # what fits beside the static staging
+        assert blocks == 0
+    else:
+        props = torch.cuda.get_device_properties(card)
+        assert 0 < blocks <= props.multi_processor_count * 8
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+@pytest.mark.parametrize("strips", [1, 2])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_clip_vote_matches_plain(card, strips, layers):
+    """scenes.rect_clips: content partly outside two nested rectangular
+    clips, so that the clip vote skips some (warp, unit) pairs and must
+    keep others; bit for bit, and the plain version counts both."""
+    renderer = Renderer(
+        Configuration(alpha_layer_count=layers, blending="front_to_back"),
+        128, 128, tile_strips=strips, device=card,
+    )
+    spec, _, runtime = renderer._prepare(scenes.rect_clips(128))
+    assert_kernel_matches_plain(spec, *runtime)
+    draws = coverage.draw_tables(spec)
+    units = (torch.as_tensor(draws.unit_cmd, device=card),
+             torch.as_tensor(draws.unit_draw, device=card))
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    work = {}
+    image = coverage.rasterize_plain(
+        spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i, work=work
+    )
+    assert work["clip_skipped"] > 0
+    # Content shows inside the inner clip (the vote kept those warps).
+    x0, y0, x1, y1 = (int(v) for v in scenes.RECT_CLIPS[1])
+    alpha = renderer.render(scenes.rect_clips(128))[..., 3]
+    assert alpha[y0 + 1:y1, x0 + 1:x1].max() > 0.0
+    assert bool((image != 0).any())
+
+
+@pytest.mark.parametrize("frame", ["bracket", "shifted_unclip", "rect_clips"])
+def test_gated_matches_ungated_on_card(card, frame, monkeypatch):
+    """Renderer.render on the card with the bracket gating and with
+    _gate_spans returning (): packed RGBA8 identical.  The bracket frame
+    empties the tiles its content misses; with the UNCLIP moved, the row
+    check keeps them at run time; rect_clips has content in every tile."""
+    size = 256
+    config = Configuration(alpha_layer_count=1, blending="front_to_back")
+    if frame == "rect_clips":
+        commands = scenes.rect_clips(size)
+    else:
+        shifted = np.eye(4, dtype=np.float32)
+        shifted[0, 3] = 0.25
+        commands = scenes.bracket_commands(
+            port, unclip_transform=shifted if frame == "shifted_unclip" else None
+        )
+    renderer = Renderer(config, size, size, device=card)
+    spec, _, runtime = renderer._prepare(commands)
+    assert spec.gate_spans
+    gated = renderer.render(commands, as_uint8=True)
+    monkeypatch.setattr(port, "_gate_spans", lambda commands, spec: ())
+    plain = Renderer(config, size, size, device=card)
+    ungated_spec, _, ungated_runtime = plain._prepare(commands)
+    assert not ungated_spec.gate_spans
+    ungated = plain.render(commands, as_uint8=True)
+    assert np.array_equal(gated, ungated)
+    assert gated[..., 3].any()
+    dropped = int(ungated_runtime[0].acount.sum()) - int(runtime[0].acount.sum())
+    assert (dropped > 0) == (frame == "bracket")
 
 
 @pytest.mark.parametrize("samples", [1, 4, 16])

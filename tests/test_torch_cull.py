@@ -1,15 +1,17 @@
-"""The coverage kernel's stencil walk, checked on the CPU: the box test
+"""The coverage kernel's per-warp skips, checked on the CPU: the box test
 by which each warp culls stroke and fill entries is exact (no sample
 that passes an entry's three edge tests lies outside the entry's
-widened box), the plain version's counts of culled (warp, entry) pairs
-and of stroke samples skipped by the warp vote equal a brute-force count
-over the warp footprints, and the renderer's entry point runs on the
-card unless asked for the CPU.
+widened box), the plain version's counts of culled (warp, entry) pairs,
+of stroke samples skipped by the warp vote and of (warp, unit) pairs
+skipped by the clip vote equal a brute-force count over the warp
+footprints, and the renderer's entry point runs on the card unless
+asked for the CPU.
 
 Scenes, each at most 128² pixels: a 128² window of BASELINE config 3
 (``scenes.dashed_strokes(1920, 1080, seed=1)``, widths unchanged), the
-showcase with text at 128², and ``scenes.warp_boundaries``, whose
-vertices lie on pixel, sample, warp and tile boundaries."""
+showcase with text at 128², ``scenes.warp_boundaries``, whose
+vertices lie on pixel, sample, warp and tile boundaries, and
+``scenes.rect_clips``, content inside two nested rectangular clips."""
 
 import inspect
 from functools import lru_cache
@@ -234,6 +236,72 @@ def test_warp_counts_match_brute_force(scene, strips):
     # Both mechanisms have work to skip on these frames.
     assert 0 < want["culled"] < want["entry_warps"]
     assert 0 < want["vote_skipped"] < want["stroke_samples"]
+
+
+def brute_force_clip_skips(spec, runtime):
+    """The (warp, unit) pairs that the clip vote skips on
+    scenes.rect_clips, unit by unit from each tile's active list: the
+    clip counters follow the clip and unclip ops in closed form (a
+    sample inside a clip rectangle with the counter one below the clip's
+    depth is promoted; one inside it and deeper is demoted), and every
+    other unit skips each warp with no sample at the unit's depth."""
+    prepared, cmd_i = runtime[0], runtime[1]
+    draws = coverage.draw_tables(spec)
+    offsets = coverage.SAMPLE_PATTERNS[spec.samples].astype(np.float64)
+    k = spec.width / 128.0
+    rects = {}
+    for c in range(spec.n_commands):
+        if int(cmd_i[c, 0]) in (coverage.OP_CLIP, coverage.OP_UNCLIP):
+            level = int(cmd_i[c, 1]) - (int(cmd_i[c, 0]) == coverage.OP_CLIP) + 1
+            rects[c] = [v * k for v in scenes.RECT_CLIPS[level - 1]]
+    warps = warp_lanes(spec)
+    skipped = kept = 0
+    for t in range(spec.n_tiles):
+        xs, ys = pixel_grid(spec, t)
+        sx = xs[:, None] + offsets[None, :, 0]
+        sy = ys[:, None] + offsets[None, :, 1]
+        clip = np.zeros(sx.shape, int)
+        for j in range(int(prepared.acount[t, 0, 0])):
+            c = int(draws.unit_cmd[int(prepared.aclist[t, 0, j])])
+            op, depth = int(cmd_i[c, 0]), int(cmd_i[c, 1])
+            if op in (coverage.OP_CLIP, coverage.OP_UNCLIP):
+                x0, y0, x1, y1 = rects[c]
+                inside = (sx > x0) & (sx < x1) & (sy > y0) & (sy < y1)
+                hit = clip == depth - 1 if op == coverage.OP_CLIP else clip > depth
+                clip = np.where(inside & hit, depth, clip)
+                continue
+            at = (clip == depth).any(1)[warps].any(1)
+            skipped += int((~at).sum())
+            kept += int(at.sum())
+    return skipped, kept
+
+
+@pytest.mark.parametrize("strips", [1, 2])
+def test_clip_skips_match_brute_force(strips):
+    """On scenes.rect_clips, whose content lies partly outside two
+    nested rectangular clips, the plain version's count of (warp, unit)
+    pairs skipped by the clip vote equals the brute force; both occur,
+    skipped and kept pairs, and counting changes no pixel."""
+    renderer = Renderer(
+        Configuration(alpha_layer_count=1, blending="front_to_back"),
+        128, 128, tile_strips=strips, device="cpu",
+    )
+    spec, _, runtime = renderer._prepare(scenes.rect_clips(128))
+    assert spec.tile_strips == strips and spec.gate_spans
+    draws = coverage.draw_tables(spec)
+    units = (torch.as_tensor(draws.unit_cmd), torch.as_tensor(draws.unit_draw))
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    work = {}
+    image = coverage.rasterize_plain(
+        spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i, work=work
+    )
+    assert torch.equal(
+        image,
+        coverage.rasterize_plain(spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i),
+    )
+    skipped, kept = brute_force_clip_skips(spec, runtime)
+    assert work["clip_skipped"] == skipped
+    assert skipped > 0 and kept > 0
 
 
 def test_renderer_defaults_to_the_card():

@@ -1,11 +1,12 @@
 """The PyTorch/CUDA port imports and renders without jax and without
 the JAX package, renders every body of the kernel, and refuses what it
-cannot render yet before anything runs."""
+cannot render before anything runs."""
 
 import os
 import re
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path as FsPath
 
 import numpy as np
@@ -191,15 +192,22 @@ def test_ported_bodies_render(frame):
 
 
 def test_unported_bodies_raise():
-    """Gate spans (host-side bracket gating) are the one thing the port
-    refuses, before binning."""
+    """Nothing is refused any more: a frame with gate spans bins (the
+    reference's clip and alpha bracket gating is ported), and only a
+    malformed span raises, where binning reads it."""
     spec = coverage.FrameSpec(
         width=SIZE, height=SIZE, ops=(0, 3), cmd_shape=(0, 0), n_shapes=1,
         t_max=1, h_max=4, samples=4, winding_bits=4, n_layers=0,
-        blending="back_to_front", gate_spans=((0, 1),),
+        blending="back_to_front", gate_spans=(((0,), (1,), ((0, 1),)),),
     )
-    with pytest.raises(NotImplementedError, match="gate spans"):
-        coverage.make_prepare(spec)
+    assert callable(coverage.make_prepare(spec))
+    for bad, match in (
+        (((0, 1),), "not \\(content units"),
+        ((((0,), (2,), ()),), "unit outside"),
+        ((((0,), (1,), ((0, 2),)),), "row outside"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            coverage.make_prepare(replace(spec, gate_spans=bad))
 
 
 def test_user_paint_needs_its_device_function_for_the_card():

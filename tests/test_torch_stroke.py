@@ -52,9 +52,7 @@ def frame(strips):
     _, scene = r._scene_arrays(shapes)
     ops = tuple(int(c.operation) for c in commands)
     cmd_shape = tuple(r._cmd_shape_entry(c, index) for c in commands)
-    # The port renders without the reference's clip/alpha bracket gating
-    # (ROADMAP Queue 1 item 2), which by its contract changes no pixel;
-    # binning is compared ungated.  A frame without brackets has none.
+    # A frame without clip or alpha brackets has no gate spans.
     spec = replace(r._spec(ops, cmd_shape, (), scene), gate_spans=())
 
     pcommands = interop.scene_from_reference(commands)
