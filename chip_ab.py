@@ -21,8 +21,11 @@ fails, no CUDA device is visible, or the roots' images differ.
 The frames use only what both roots offer: ``Renderer`` with an
 explicit device, ``Renderer._prepare``, ``coverage.coverage_raster``,
 ``coverage.draw_tables``, ``coverage.build_kernels`` and the scene
-builders of ``scenes`` and ``models.showcase``.  Imports nothing of
-JAX.
+builders of ``scenes`` and ``models.showcase``.  A root whose ``scenes``
+has ``config4_text`` also renders config 4's fused form; a frame that
+only one root renders is timed but not compared.  Each frame prints the
+commands its root walks (after auto-instancing, where the root has it).
+Imports nothing of JAX.
 """
 
 import hashlib
@@ -64,7 +67,7 @@ def frames(api, scenes, showcase, smoke):
     shape = showcase.build_shape(with_text=True)
     show = showcase.showcase_commands(shape, sw, sh)
     depth = cfg(depth_compare="less_equal", depth_write_enabled=True)
-    return {
+    out = {
         "config 2": (cfg(), w, h, [
             api.DrawCommand(op.STENCIL, fills, t),
             api.DrawCommand(op.COLOR, fills, t, color=(0.9, 0.4, 0.1, 1.0)),
@@ -86,6 +89,9 @@ def frames(api, scenes, showcase, smoke):
         "gradient card": (cfg(), sw, sh, scenes.gradient_card(sw, sh)[0]),
         "mixed paints": (depth, w, h, scenes.mixed_paints(w, h)),
     }
+    if hasattr(scenes, "config4_text"):
+        out["config 4 fused"] = (cfg(), w, h, scenes.config4_text("fused"))
+    return out
 
 
 def worker(root):
@@ -121,10 +127,11 @@ def worker(root):
         packed = coverage.coverage_raster(replace(spec, out_uint8=True), *args[1:])
         results[label] = {
             "kernel_ms": k_ms, "kernel_lo": k_lo, "kernel_hi": k_hi, "frame_ms": f_ms,
+            "commands": spec.n_commands,
             "rgba8": hashlib.sha256(packed.cpu().numpy().tobytes()).hexdigest()[:16],
         }
-        print(f"  {label}: kernel {k_ms:.4f} ms [{k_lo:.4f}, {k_hi:.4f}], "
-              f"frame {f_ms:.4f} ms", flush=True)
+        print(f"  {label}: {spec.n_commands} commands walked, kernel {k_ms:.4f} ms "
+              f"[{k_lo:.4f}, {k_hi:.4f}], frame {f_ms:.4f} ms", flush=True)
     print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
 
 
@@ -161,28 +168,36 @@ def main():
             print(proc.stderr[-4000:], file=sys.stderr)
             fail(f"the {letter} process exited {proc.returncode}")
     summary = {}
-    for label in runs[ORDER[0]][0]:
+    labels = list(dict.fromkeys(k for r in runs["A"] + runs["B"] for k in r))
+    for label in labels:
         row = {}
         for letter in "AB":
-            done = [r[label] for r in runs[letter]]
+            done = [r[label] for r in runs[letter] if label in r]
             row[letter] = {
+                "commands": sorted({d.get("commands") for d in done}, key=str),
                 "kernel_ms": [d["kernel_ms"] for d in done],
                 "kernel_lo": min(d["kernel_lo"] for d in done),
                 "kernel_hi": max(d["kernel_hi"] for d in done),
                 "frame_ms": [d["frame_ms"] for d in done],
                 "rgba8": sorted({d["rgba8"] for d in done}),
-            }
-        row["equal"] = len({h for r in row.values() for h in r["rgba8"]}) == 1
+            } if done else None
+        both = [r for r in (row["A"], row["B"]) if r]
+        row["equal"] = (
+            len({h for r in both for h in r["rgba8"]}) == 1 if len(both) == 2
+            else None
+        )
         summary[label] = row
         cells = "; ".join(
-            f"{letter} kernel {', '.join(f'{v:.4f}' for v in row[letter]['kernel_ms'])} "
+            f"{letter} ({row[letter]['commands']} commands) kernel "
+            f"{', '.join(f'{v:.4f}' for v in row[letter]['kernel_ms'])} "
             f"[{row[letter]['kernel_lo']:.4f}, {row[letter]['kernel_hi']:.4f}] ms, "
             f"frame {', '.join(f'{v:.3f}' for v in row[letter]['frame_ms'])} ms"
+            if row[letter] else f"{letter} does not render it"
             for letter in "AB"
         )
         print(f"{label}: {cells}; images equal {row['equal']}", flush=True)
     print(json.dumps({"ab": summary, "roots": roots, "order": ORDER}), flush=True)
-    if not all(row["equal"] for row in summary.values()):
+    if any(row["equal"] is False for row in summary.values()):
         fail("the two roots' images differ")
 
 

@@ -61,7 +61,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    instanced solid pair, the checker ``UserPaint`` compiled into the
    kernel) at 1920×1080 under LessEqual with depth write: kernel against
    plain, then ``Renderer.render``; both checker colours show;
-14. time phases 11-13's frames as in phase 10.
+14. time phases 11-13's frames as in phase 10;
+15. BASELINE config 4 (10,080 TrueType glyphs, 1920×1080, 4× MSAA) in
+   its three forms (``scenes.config4_text``): the monolith (one shape of
+   296k triangles), the fused form (one multi-shape stencil over every
+   glyph instance and one cover) and the per-glyph form (one instanced
+   pair per unique glyph): for each, its scene build seconds, commands,
+   units and triangles, its render through ``Renderer.render`` with the
+   peak device memory, its kernel against its plain version to the bit,
+   and its times and bound as in phase 10; the fused and per-glyph
+   forms' images against the monolith's: equal, or at most 0.1% of
+   pixels off, each in at most two of its four samples
+   (``compare_with_monolith``), beside the monolith against itself with
+   its transform's scales one float32 step larger;
+16. the showcase frames of phase 8 went through the default path, which
+   auto-instances them: their fused command counts, and their packed
+   RGBA8 images against the same commands walked in sequence
+   (``auto_instance=False``), with both walks' kernel times;
+17. ``render(carry=...)``: ten chained config-2 frames from a 0-d tensor
+   on the card: the carry equals ten times the image's alpha sum (rtol
+   1e-5), and the image equals a render without carry;
+18. ``strict_capacity=False``: tests/test_coverage_exec.py's 20 nested
+   circles at 256² with ``tile_capacity=8``: the capacity grows within
+   two frames, and the image then equals a strict render's.
 
 Kernel times are the median of 5 batches of launches, printed with the
 batches' least and greatest.  Beside each frame's bound it prints what
@@ -97,6 +119,11 @@ CAP_GOLDEN = "tests/golden/cap_styles_96x72.npy"
 #: may take (binning cached): a layer scratch sized by the frame would
 #: take 8.5 GB, one sized by the card's resident blocks tens of MB.
 LAYER_MEMORY_LIMIT = 1 << 30
+#: The share of pixels in which config 4's fused and per-glyph images may
+#: differ from its monolith's, and the samples of one pixel that may
+#: differ (see compare_with_monolith).
+TEXT_MISMATCH_LIMIT = 1e-3
+TEXT_MISMATCH_SAMPLES = 2
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -391,10 +418,16 @@ def kernel_bound(coverage, spec, runtime, work=None):
     samples the plain version's masks passed) over PEAK_F32_OPS_S.
     Returns (bound_ms, "bytes" or "operations", bytes, operations); the
     plain version's ``work`` counts go into ``work`` where given."""
-    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
-    draws = coverage.draw_tables(spec)
     work = {} if work is None else work
     coverage.rasterize_plain(*raster_args(coverage, spec, runtime), work=work)
+    return bound_from_work(coverage, spec, runtime, work)
+
+
+def bound_from_work(coverage, spec, runtime, work):
+    """kernel_bound from the ``work`` counts of a plain run already made
+    on this prepared frame."""
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    draws = coverage.draw_tables(spec)
     ops = entry_ops(coverage, spec, prepared, desc_i)
     ops += cover_ops(coverage, spec, runtime, draws, work)
     C = spec.n_commands
@@ -754,6 +787,19 @@ def main():
     # ---- 14. timing of the depth and paint frames ------------------------------
     times.update(time_frames(coverage, paint_frames, card))
 
+    # ---- 15. config 4 in its three forms ---------------------------------------
+    text_frames = config4_phase(coverage, scenes, Configuration, Renderer, card)
+
+    # ---- 16. the showcase on the default, auto-instanced path --------------------
+    fused_showcase_phase(coverage, Renderer, shown, card)
+
+    # ---- 17. the carry probe --------------------------------------------------
+    carry_phase(renderer, commands, card)
+
+    # ---- 18. the deferred capacity check --------------------------------------
+    deferred_capacity_phase(scenes, Configuration, DrawCommand, RenderOperation,
+                            Renderer, Shape)
+
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     if any(m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
@@ -777,6 +823,11 @@ def main():
               f"skipped {work.get('vote_skipped', 0)} of "
               f"{work.get('stroke_samples', 0)} stroke sample evaluations",
               flush=True)
+    for label, (spec_v, runtime_v, launches_v, err_v, k_ms, p_ms, bound) in (
+            text_frames.items()):
+        frames[label] = (spec_v, runtime_v, launches_v, err_v)
+        times[label] = (k_ms, p_ms)
+        bounds[label] = bound
 
     def entry(name, line, label, frame):
         _, _, launches_v, err_v = frames[label]
@@ -808,6 +859,14 @@ def main():
               "gradient card (examples/gradients.py), 3840x2160"),
         entry("coverage_raster: user paints", 2016, "mixed paints",
               "mixed paints with the checker UserPaint, depth, 1920x1080"),
+        entry("coverage_raster: config 4, monolith", 1446, "config 4 monolith",
+              "config 4 monolith (shape_of_text, 10,080 glyphs), 1920x1080"),
+        entry("coverage_raster: config 4, fused", 1446, "config 4 fused",
+              "config 4 fused (text_commands_fused: one multi-shape stencil "
+              "over 10,080 glyph instances), 1920x1080"),
+        entry("coverage_raster: config 4, per-glyph", 1446, "config 4 per-glyph",
+              "config 4 per-glyph (text_commands: one instanced pair per "
+              "unique glyph), 1920x1080"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -932,6 +991,233 @@ def time_frames(coverage, frames, card):
               f"median {f_ms:.3f} ms, its host time median {h_ms:.3f} ms, "
               f"binning median {b_ms:.3f} ms", flush=True)
     return times
+
+
+def stencil_triangles(commands):
+    """Triangles over the stencil draws of a command list: each
+    instance's shape's triangles."""
+    total = 0
+    for c in commands:
+        if int(c.operation) != 0:
+            continue
+        shapes = c.shapes
+        per = sum(len(s.triangles) for s in shapes)
+        total += per if len(shapes) > 1 else per * c.n_instances
+    return total
+
+
+def config4_phase(coverage, scenes, Configuration, Renderer, card):
+    """Phase 15: config 4's three forms at 1920x1080.  Returns {label:
+    (spec, runtime, launches, max_abs_err, kernel ms, plain ms, bound)}."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    results, images = {}, {}
+    for form in scenes.CONFIG4_FORMS:
+        label = "config 4 " + form.replace("_", "-")
+        start = time.perf_counter()
+        cmds = scenes.config4_text(form)
+        build_s = time.perf_counter() - start
+        r = Renderer(Configuration(), WIDTH, HEIGHT, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        spec, _, runtime = r._prepare(cmds)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - start
+        image, launches = render_main_path(coverage, r, cmds, label, HEIGHT, WIDTH)
+        peak = torch.cuda.max_memory_allocated() - base
+        units = len(coverage.draw_tables(spec).unit_cmd)
+        print(f"{label}: scene built in {build_s:.2f} s; {len(cmds)} commands "
+              f"({spec.n_commands} walked), {units} units, "
+              f"{stencil_triangles(cmds)} triangles; first binning "
+              f"{first_s:.2f} s; spec tile {spec.tile_h}x{spec.tile_w} strips "
+              f"{spec.tile_strips}, {spec.n_tiles} tiles; stats {r.stats}; "
+              f"peak device memory over the first binning and render "
+              f"{peak / 2**20:.1f} MiB", flush=True)
+        args = raster_args(coverage, spec, runtime)
+        k_ms, k_lo, k_hi = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
+        f_ms = cuda_ms(lambda: r.render(cmds, to_host=False), 10, 1, 3)[0]
+        h_ms = host_ms(lambda: r.render(cmds, to_host=False), 20, 3)
+        b_ms = binning_ms(r, cmds, 3)
+        # The plain version once: its output, its time and the work
+        # counts of the bound.
+        got = coverage.coverage_raster(*args)
+        work = {}
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        want = coverage.rasterize_plain(*args, work=work)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms = begin.elapsed_time(end)
+        err = float((got - want).abs().max())
+        print(f"{label}: kernel vs plain, float: max abs err {err:.3g}, "
+              f"bit-identical {bool(torch.equal(got, want))}", flush=True)
+        if not torch.equal(got, want):
+            fail(f"{label}: float output off by {err}")
+        if form == "fused":
+            packed = (replace(spec, out_uint8=True),) + args[1:]
+            if not torch.equal(coverage.coverage_raster(*packed),
+                               coverage.rasterize_plain(*packed)):
+                fail(f"{label}: packed RGBA8 output disagrees with the plain version")
+            print(f"{label}: kernel vs plain, packed RGBA8: equal", flush=True)
+        bound = bound_from_work(coverage, spec, runtime, work)
+        print(f"timing {label} ({card}): coverage_raster {k_ms:.3f} ms "
+              f"[{k_lo:.3f}, {k_hi:.3f}], rasterize_plain {p_ms:.3f} ms, frame "
+              f"(cached binning) median {f_ms:.3f} ms, its host time median "
+              f"{h_ms:.3f} ms, binning median {b_ms:.3f} ms; kernel_bound "
+              f"{bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, "
+              f"{bound[3] / 1e9:.2f} GFLOP)", flush=True)
+        images[form] = image
+        results[label] = (spec, runtime, launches, err, k_ms, p_ms, bound)
+        if form == "monolith":
+            # The same frame with the transform's x and y scales one
+            # float32 step larger: how far rounding alone moves it.
+            nudged = scenes.config4_transform()
+            for i in (0, 1):
+                nudged[i, i] = np.nextafter(nudged[i, i], np.float32(1.0))
+            images["nudged"] = Renderer(Configuration(), WIDTH, HEIGHT).render(
+                [replace(c, transform=nudged) for c in cmds], to_host=False
+            )
+    compare_with_monolith(Renderer, "monolith, scales one float32 step up",
+                          images["nudged"], images["monolith"], gate=False)
+    for form in ("fused", "per_glyph"):
+        compare_with_monolith(Renderer, form.replace("_", "-"), images[form],
+                              images["monolith"])
+    print(f"config 4: fused vs per-glyph image (same instance transforms, "
+          f"other covers): equal to the bit "
+          f"{bool(torch.equal(images['fused'], images['per_glyph']))}", flush=True)
+    return results
+
+
+def compare_with_monolith(Renderer, label, image, monolith, gate=True):
+    """A config-4 image against the monolith's, packed RGBA8: the pixels
+    that differ, by how many of their four samples (opaque white: 255/4
+    per sample).  With ``gate``, fails beyond TEXT_MISMATCH_LIMIT of
+    pixels or TEXT_MISMATCH_SAMPLES samples in a pixel.  The forms
+    cannot be held to equality: the monolith stamps each glyph's table
+    at its pen position in float64 before the float32 transform, the
+    others compose the pen position into float32 instance matrices, so
+    a sample within a float32 step of an edge (1.2e-4 px at x = 1920)
+    can land on either side, in the JAX package as here; the monolith
+    with its transform nudged by one float32 step shows the scale."""
+    import numpy as np
+    import torch
+
+    label = f"config 4: {label} vs monolith image"
+    if torch.equal(image, monolith):
+        print(f"{label}: equal to the bit", flush=True)
+        return
+    got = Renderer._quantize(image).int()
+    want = Renderer._quantize(monolith).int()
+    lsb = (got - want).abs().amax(-1)
+    samples = torch.round(lsb.double() * 4 / 255).long()
+    share = float((lsb > 0).double().mean())
+    counts = np.bincount(samples[lsb > 0].cpu().numpy(), minlength=5)[1:]
+    print(f"{label}, packed RGBA8: {int((lsb > 0).sum())} pixels ({share:.2e}) "
+          f"differ, max {int(lsb.max())} LSB; pixels off by 1, 2, 3, 4 "
+          f"samples: {counts.tolist()}", flush=True)
+    if gate and (share > TEXT_MISMATCH_LIMIT
+                 or int(samples.max()) > TEXT_MISMATCH_SAMPLES):
+        fail(f"{label}: beyond {TEXT_MISMATCH_LIMIT} of pixels or "
+             f"{TEXT_MISMATCH_SAMPLES} samples in a pixel")
+
+
+def fused_showcase_phase(coverage, Renderer, shown, card):
+    """Phase 16: phase 8's showcase frames were auto-instanced on the
+    default path; each against the same commands walked in sequence."""
+    import torch
+
+    for label in ("showcase", "showcase clip/alpha"):
+        r, cmds, spec, runtime = shown[label][:4]
+        walked = Renderer(r.config, r.width, r.height, auto_instance=False,
+                          device="cuda")
+        seq_spec, _, seq_runtime = walked._prepare(cmds)
+        fused = r.render(cmds, to_host=False, as_uint8=True)
+        sequential = walked.render(cmds, to_host=False, as_uint8=True)
+        torch.cuda.synchronize()
+        differ = int((fused != sequential).any(-1).sum())
+        timed = {}
+        for name, (rr, sp, rt) in (("fused", (r, spec, runtime)),
+                                   ("sequential", (walked, seq_spec, seq_runtime))):
+            args = raster_args(coverage, sp, rt)
+            timed[name] = (
+                cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)[0],
+                cuda_ms(lambda: rr.render(cmds, to_host=False), 10, 1, 3)[0],
+                host_ms(lambda: rr.render(cmds, to_host=False), 20, 3),
+            )
+        print(f"{label}: {len(cmds)} commands, {spec.n_commands} after "
+              f"auto-instancing (instances {spec.cmd_inst}), "
+              f"{seq_spec.n_commands} walked in sequence; fused vs sequential, "
+              f"packed RGBA8: {differ} pixels differ; ({card}) kernel, frame "
+              f"(cached binning), host: fused {timed['fused'][0]:.3f}, "
+              f"{timed['fused'][1]:.3f}, {timed['fused'][2]:.3f} ms; sequential "
+              f"{timed['sequential'][0]:.3f}, {timed['sequential'][1]:.3f}, "
+              f"{timed['sequential'][2]:.3f} ms", flush=True)
+        if spec.n_commands >= seq_spec.n_commands:
+            fail(f"{label}: the default path did not auto-instance the frame")
+        if differ:
+            fail(f"{label}: the fused image differs from the sequential walk's")
+
+
+def carry_phase(renderer, commands, card):
+    """Phase 17: ten config-2 frames chained through render(carry=...)."""
+    import torch
+
+    image = renderer.render(commands, to_host=False)
+    acc = torch.zeros((), device="cuda")
+    for _ in range(10):
+        out, acc = renderer.render(commands, carry=acc)
+    torch.cuda.synchronize()
+    want = 10 * float(image[..., 3].double().sum())
+    rel = abs(float(acc) - want) / want
+    equal = bool(torch.equal(out, image))
+    carried = cuda_ms(lambda: renderer.render(commands, carry=acc), 10, 1, 3)[0]
+    print(f"carry: ten chained config-2 frames: {float(acc):.6g} against "
+          f"10 x alpha sum {want:.6g} (relative error {rel:.2e}), on "
+          f"{acc.device}; image equal to a render without carry {equal}; "
+          f"frame with carry median {carried:.3f} ms ({card})", flush=True)
+    if acc.device.type != "cuda" or not rel <= 1e-5 or not equal:
+        fail("carry: the chained sum or the image is wrong")
+
+
+def deferred_capacity_phase(scenes, Configuration, DrawCommand, RenderOperation,
+                            Renderer, Shape):
+    """Phase 18: strict_capacity=False on tests/test_coverage_exec.py's 20
+    nested circles, scaled from 64² to 256², from a tile capacity of 8."""
+    import torch
+
+    size = CIRCLE_SIZE
+    k = size / 64
+    t = scenes.ortho(size, size)
+    commands = []
+    for i in range(20):
+        s = Shape([scenes.Path.from_circle((32 * k, 32 * k), (28 - i) * k)])
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, s, t),
+            DrawCommand(RenderOperation.COLOR, s, t, color=(1.0, 0.0, 0.0, 1.0)),
+        ]
+    r = Renderer(Configuration(), size, size, tile_capacity=8,
+                 strict_capacity=False, device="cuda")
+    grown_at = None
+    for frame in (1, 2, 3):
+        image = r.render(commands, to_host=False, as_uint8=True)
+        if grown_at is None and r.tile_capacity > 8:
+            grown_at = frame
+    strict = Renderer(Configuration(), size, size, tile_capacity=8, device="cuda")
+    want = strict.render(commands, to_host=False, as_uint8=True)
+    torch.cuda.synchronize()
+    differ = int((image != want).any(-1).sum())
+    print(f"deferred capacity: tile capacity 8 -> {r.tile_capacity} (strict "
+          f"render: {strict.tile_capacity}) at frame {grown_at}; third frame vs "
+          f"strict render, packed RGBA8: {differ} pixels differ", flush=True)
+    if grown_at is None or differ:
+        fail("deferred capacity: the capacity did not grow within two frames, "
+             "or the image differs from a strict render's")
 
 
 if __name__ == "__main__":

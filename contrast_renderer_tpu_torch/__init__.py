@@ -6,11 +6,13 @@ rendering path in PyTorch, with the coverage kernel written by hand in
 CUDA C++ for Hopper (``csrc/``).  It imports torch and never jax, and
 nothing of the JAX package: the host modules it needs (``path``,
 ``curve``, ``fill``, ``stroke``, ``vertex``, ``convex_hull``,
-``dynamic_stroke``, ``error``, ``oracle``, ``native``, ``text`` (layout
-only), ``ttf``, ``assets``, ``utils``) are its own copies.
+``dynamic_stroke``, ``error``, ``oracle``, ``native``, ``text``,
+``ttf``, ``cff``, ``assets``, ``utils``) are its own copies.
 
 Ported so far: filled and stroked paths with solid, gradient and user
-paints, clips, alpha groups and depth, through ``Renderer.render`` (see
+paints, clips, alpha groups and depth, instanced and multi-shape draws
+with auto-instancing, text as shapes and draw commands, the deferred
+capacity check and the ``carry`` probe, through ``Renderer.render`` (see
 ROADMAP.md for what follows).
 """
 
@@ -33,6 +35,12 @@ _RENDERER_NAMES = {
     "Shape", "UserPaint",
 }
 
+_TEXT_NAMES = {
+    "Alignment", "Font", "Layout", "Orientation", "TextGeometry",
+    "paths_of_text", "shape_of_text", "text_commands",
+    "text_commands_fused",
+}
+
 
 def __getattr__(name):
     # Renderer names load torch on first use, not at package import.
@@ -40,4 +48,8 @@ def __getattr__(name):
         from . import renderer
 
         return getattr(renderer, name)
+    if name in _TEXT_NAMES:
+        from . import text
+
+        return getattr(text, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

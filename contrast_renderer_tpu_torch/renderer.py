@@ -29,7 +29,7 @@ import enum
 import hashlib
 import logging
 from dataclasses import dataclass, replace
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -562,6 +562,216 @@ def _optimize_commands(commands):
     return out, keep_rows
 
 
+#: Minimum clip-space w for every hull point before a cover's screen
+#: box is considered well-defined (near-plane crossers never fuse).
+_FUSE_W_EPS = 1e-6
+
+
+def _cover_box(shape: "Shape", transform) -> Optional[Tuple[float, ...]]:
+    """Screen-space AABB of a command's cover region (the decimated
+    outer hull polygon projected by the command transform), or None
+    when the projection is not well-defined (near-plane crossing /
+    non-finite).  Triangular geometry and the per-sample cover mask are
+    both contained in the hull polygon, so containment survives the
+    projective map while every w stays positive."""
+    hull = shape.convex_hull
+    if len(hull) == 0:
+        return None
+    t = np.asarray(transform, np.float64)
+    if t.ndim != 2:
+        return None
+    ones = np.ones((len(hull), 1))
+    clip = np.concatenate(
+        [hull, np.zeros((len(hull), 1)), ones], axis=1
+    ) @ t.T
+    w = clip[:, 3]
+    if not np.all(w > _FUSE_W_EPS):
+        return None
+    ndc = clip[:, :2] / w[:, None]
+    if not np.all(np.isfinite(ndc)):
+        return None
+    return (
+        float(ndc[:, 0].min()), float(ndc[:, 1].min()),
+        float(ndc[:, 0].max()), float(ndc[:, 1].max()),
+    )
+
+
+def _boxes_disjoint(a, b) -> bool:
+    # Closed-box test: touching boxes count as overlapping (a shared
+    # boundary could in principle carry the same sample point).
+    return (
+        a[2] < b[0] or b[2] < a[0] or a[3] < b[1] or b[3] < a[1]
+    )
+
+
+def _solid_rgba(color) -> Optional[Tuple[float, ...]]:
+    if _paint_kind(color):
+        return None
+    arr = np.asarray(color, np.float32).reshape(-1)
+    return tuple(float(x) for x in arr) if arr.shape == (4,) else None
+
+
+def _fusable_pair(commands, i, check_transforms=True):
+    """The (STENCIL, COLOR) pair at positions ``i``, ``i+1`` if the two
+    commands form a single-instance stencil-then-cover of the same
+    shape under the same clip/alpha state, else None.
+
+    ``check_transforms=False`` defers the stencil==cover transform
+    equality to the caller — FrameProgram detects runs structurally at
+    build time and validates the actual transform rows per call (its
+    transforms are runtime inputs)."""
+    if i + 1 >= len(commands):
+        return None
+    c, s = commands[i], commands[i + 1]
+    if (
+        c.operation == RenderOperation.STENCIL
+        and s.operation == RenderOperation.COLOR
+        and c.shape is s.shape
+        and c.n_instances == 1
+        and s.n_instances == 1
+        and c.clip_depth == s.clip_depth
+        and c.alpha_layer == s.alpha_layer
+        and (
+            not check_transforms
+            or np.array_equal(
+                np.asarray(c.transform, np.float32),
+                np.asarray(s.transform, np.float32),
+            )
+        )
+    ):
+        return (c, s)
+    return None
+
+
+def _collect_fusable_run(commands, i, check_transforms=True):
+    """Collect the maximal run of fusable (STENCIL, COLOR) pairs
+    starting at ``i`` that share shape identity, clip depth, alpha
+    layer, and compatible colors (all solid, or all the identical
+    Paint object).  Returns ``(run, next_i)`` where ``run`` is a list
+    of (stencil, color) tuples ([] when no pair starts at ``i``) and
+    ``next_i`` is the index of the first command after the run."""
+    first = _fusable_pair(commands, i, check_transforms)
+    if first is None:
+        return [], i
+    key_shape = first[0].shape
+    key_clip = first[0].clip_depth
+    key_layer = first[0].alpha_layer
+    first_solid = _solid_rgba(first[1].color)
+    run = []
+    while True:
+        pair = _fusable_pair(commands, i, check_transforms)
+        if pair is None or pair[0].shape is not key_shape:
+            break
+        if (
+            pair[0].clip_depth != key_clip
+            or pair[0].alpha_layer != key_layer
+        ):
+            break
+        solid = _solid_rgba(pair[1].color)
+        if (first_solid is None) != (solid is None):
+            break
+        if solid is None and pair[1].color is not first[1].color:
+            break
+        run.append(pair)
+        i += 2
+    return run, i
+
+
+def _fuse_instance_runs(commands):
+    """Auto-instancing: collapse consecutive single-instance
+    (Stencil, Color) pairs over the same shape/clip/alpha state into
+    instanced draws — the reference's ``instance_range 0..n`` draw
+    (renderer.rs:267, 462-466) — wherever that is pixel-exact.
+
+    The per-instance loop and the instanced draw differ only where
+    instance covers interact: the instanced stencil accumulates ALL
+    instances' winding before any cover runs, so a cover that overlaps
+    a later instance's geometry would paint (and reset) winding that
+    the sequential loop had not yet stamped.  Pairs therefore fuse
+    under a greedy disjointness rule: walking the run in order, a pair
+    joins the current group iff its projected cover box is disjoint
+    from every box already in the group; otherwise it starts a new
+    group.  Groups emit in walk order, covers replay in instance
+    order, and all cross-group/cross-command interactions (blending,
+    clip, depth, bulk winding) happen exactly where the sequential
+    walk had them — the grouping changes per-tile walk length, not
+    pixels.  Pairs whose projection is not well-defined (near-plane
+    crossing) never fuse.
+
+    Per-instance solid colors stack into the command's (N, 4) color;
+    gradient paints fuse only when every pair shares the identical
+    Paint object (its model-space endpoints broadcast per instance).
+
+    Applied by ``Renderer.render`` per call with the current
+    transforms, so the decision is always sound for the frame being
+    rendered.  The reference's ``FrameProgram`` (not in this package
+    yet) detects the same runs with ``check_transforms=False`` and
+    re-validates disjointness at every call.
+    """
+    n = len(commands)
+    out = []
+    i = 0
+    fused_any = False
+    while i < n:
+        run, next_i = _collect_fusable_run(commands, i)
+        if not run:
+            out.append(commands[i])
+            i += 1
+            continue
+        i = next_i
+        if len(run) < 2:
+            out.extend(run[0])
+            continue
+        # Greedy disjoint grouping in walk order.
+        boxes = [_cover_box(p[0].shape, p[0].transform) for p in run]
+        groups = []
+        current = []
+        current_boxes = []
+        for pair, box in zip(run, boxes):
+            if box is not None and all(
+                _boxes_disjoint(box, b) for b in current_boxes
+            ):
+                current.append(pair)
+                current_boxes.append(box)
+            else:
+                if current:
+                    groups.append(current)
+                current = [pair]
+                # A boxless (near-plane) pair may never accept
+                # neighbours: poison its group with an everything-box.
+                current_boxes = [
+                    box if box is not None
+                    else (-np.inf, -np.inf, np.inf, np.inf)
+                ]
+        if current:
+            groups.append(current)
+        for group in groups:
+            if len(group) == 1:
+                out.extend(group[0])
+                continue
+            fused_any = True
+            transforms = np.ascontiguousarray(
+                np.stack([
+                    np.asarray(p[0].transform, np.float32)
+                    for p in group
+                ])
+            )
+            if _paint_kind(group[0][1].color):
+                color = group[0][1].color
+            else:
+                color = np.ascontiguousarray(
+                    np.stack([
+                        np.asarray(p[1].color, np.float32).reshape(4)
+                        for p in group
+                    ])
+                )
+            out.append(replace(group[0][0], transform=transforms))
+            out.append(
+                replace(group[0][1], transform=transforms, color=color)
+            )
+    return out, fused_any
+
+
 #: Clip and alpha-group ops: the machinery of a bracket (see _gate_spans).
 _MACHINERY_OPS = (
     coverage.OP_CLIP, coverage.OP_UNCLIP, coverage.OP_SAVE_ALPHA,
@@ -855,6 +1065,7 @@ class Renderer:
         stroke_batch: int = 1,
         auto_instance: bool = True,
         tile_strips=None,
+        strict_capacity: bool = True,
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -888,11 +1099,25 @@ class Renderer:
         #: Content-keyed cache of small device tensors (command tables,
         #: descriptors, transforms).
         self._upload_cache = {}
-        #: Kept for the reference's signature.  This port walks the
-        #: commands in sequence; the reference's fusion is pixel-exact,
-        #: so the image is the same (ROADMAP.md, the `auto_instance`
-        #: fusion item).
+        #: Auto-instancing (see _fuse_instance_runs): render() collapses
+        #: consecutive per-instance (Stencil, Color) pairs into instanced
+        #: draws wherever their cover boxes are disjoint: pixel-exact,
+        #: decided per call with the current transforms.  False forces
+        #: the literal sequential walk.
         self.auto_instance = bool(auto_instance)
+        self._fuse_cache = {}
+        #: strict_capacity=True reads the binning overflow counters back
+        #: whenever the binning reruns, so no triangle is ever dropped.
+        #: False defers the check: the counters copy to the host while
+        #: the frame renders and are read on a later frame, so an
+        #: animated scene that outgrows its buffers may show one or two
+        #: under-populated frames before the capacities regrow.
+        self.strict_capacity = bool(strict_capacity)
+        #: Deferred counters on a CUDA device: (pinned host copy, the
+        #: event after the copy, the capacities they were binned under,
+        #: the frame they belong to).
+        self._pending_overflow = []
+        self._frame_index = 0
         #: Memoized _gate_spans results (see _spec): the analysis walks
         #: every instance row in Python, and render() derives a spec per
         #: frame.
@@ -1248,6 +1473,88 @@ class Renderer:
             self._upload_cache[key] = dev
         return dev
 
+    def _auto_instanced(self, commands):
+        """Memoized _fuse_instance_runs: the grouping is a pure function
+        of command structure, transforms and colors, so static frames
+        pay one digest instead of re-projecting hulls every call.  The
+        key captures every input the fused output embeds, transform
+        values included, so a camera change re-derives the grouping."""
+        # Structural pre-scan: fusion only ever collapses ADJACENT
+        # single-instance (STENCIL, COLOR) pairs of one shape; frames
+        # without one (e.g. a 10k-instance multi-shape text frame) skip
+        # the digest and grouping entirely.
+        if not any(
+            commands[i].operation == RenderOperation.STENCIL
+            and commands[i].n_instances == 1
+            and commands[i + 1].operation == RenderOperation.COLOR
+            and commands[i + 1].n_instances == 1
+            and commands[i].shape is commands[i + 1].shape
+            for i in range(len(commands) - 1)
+        ):
+            return commands
+        structure = tuple(
+            (
+                int(c.operation),
+                tuple((s._uid, s._geometry_version) for s in c.shapes),
+                c.clip_depth, c.alpha_layer, c.n_instances,
+                # Paints fuse by object identity; their tables are
+                # re-read from the (shared) object at pack time.
+                id(c.color) if _paint_kind(c.color) else None,
+            )
+            for c in commands
+        )
+        blob = hashlib.blake2b(digest_size=16)
+        blob.update(self._pack_transforms(commands))
+        for c in commands:
+            if not _paint_kind(c.color):
+                blob.update(np.asarray(c.color, np.float32).tobytes())
+        key = (structure, blob.digest())
+        hit = self._fuse_cache.get(key)
+        if hit is None:
+            fused, fused_any = _fuse_instance_runs(commands)
+            hit = fused if fused_any else commands
+            if len(self._fuse_cache) >= 8:
+                self._fuse_cache.pop(next(iter(self._fuse_cache)))
+            self._fuse_cache[key] = hit
+        return hit
+
+    def _defer_overflow(self, overflow, limits):
+        """Queue a non-strict frame's binning counters for a later frame
+        (see _consume_overflow) without blocking the host: on a CUDA
+        device, an asynchronous copy into pinned host memory and an
+        event after it on the current stream.  On the CPU the counters
+        are already on the host, so they are read at once."""
+        if overflow.device.type != "cuda":
+            if self._grow_capacities(overflow.numpy(), limits):
+                self._prepared_cache.clear()
+            return
+        host = torch.empty(
+            overflow.shape, dtype=overflow.dtype, pin_memory=True
+        )
+        host.copy_(overflow, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(overflow.device))
+        self._pending_overflow.append(
+            (host, event, limits, self._frame_index)
+        )
+
+    def _consume_overflow(self):
+        """Read the deferred counters whose copy has landed, and those two
+        frames old in any case (waiting on their event, which by then
+        has almost always passed), so capacities regrow within two
+        frames; growth drops the binning cache."""
+        grew = False
+        keep = []
+        for host, event, limits, born in self._pending_overflow:
+            if event.query() or self._frame_index - born >= 2:
+                event.synchronize()
+                grew |= self._grow_capacities(host.numpy(), limits)
+            else:
+                keep.append((host, event, limits, born))
+        self._pending_overflow = keep
+        if grew:
+            self._prepared_cache.clear()
+
     def _grow_capacities(self, overflow, limits) -> bool:
         grew = False
         if overflow[0] > limits[0]:
@@ -1270,10 +1577,16 @@ class Renderer:
         """Validate, pack and bin a frame: returns ``(raster_spec,
         rasterize, runtime_args)``, where ``rasterize(*runtime_args)``
         renders it.  Binning reruns only when the spec, the shapes or
-        the transforms change; capacities grow until nothing
-        overflows (the reference's strict-capacity path)."""
+        the transforms change.  With ``strict_capacity`` the capacities
+        grow until nothing overflows; without it the counters are read
+        on a later frame (_defer_overflow)."""
         self._validate(commands)
         commands, _ = _optimize_commands(commands)
+        if self.auto_instance:
+            commands = self._auto_instanced(commands)
+        self._frame_index += 1
+        if self._pending_overflow:
+            self._consume_overflow()
         shapes, shape_index = self._unique_shapes(commands)
         scene_key, scene = self._scene_arrays(shapes)
         ops = tuple(int(c.operation) for c in commands)
@@ -1309,6 +1622,14 @@ class Renderer:
                 None if paint_model is None else paint_model.tobytes(),
             )
             cached = self._prepared_cache.get(pkey)
+            if (
+                cached is not None
+                and self.strict_capacity
+                and "max_tile_entries" not in cached[1]
+            ):
+                # Cached by a non-strict render, without the counters a
+                # strict caller needs: recompute.
+                cached = None
             if cached is not None:
                 prepared, self.stats = cached
                 break
@@ -1325,20 +1646,27 @@ class Renderer:
                 spec.tile_global_capacity,
                 spec.clip_pool,
             )
-            overflow = prepared.overflow.cpu().numpy()
-            self.stats = {
+            stats = {
                 "commands": len(commands),
                 "shapes": len(shapes),
                 "triangles_per_shape": scene.t_max,
                 "tiles": spec.n_tiles,
-                "max_tile_entries": int(overflow[0]),
-                "global_triangles": int(overflow[1]),
-                "max_tile_globals": int(overflow[2]),
-                "near_plane_crossings": int(overflow[3]),
             }
-            logger.debug("prepare: %s", self.stats)
-            if self._grow_capacities(overflow, limits):
-                continue
+            if self.strict_capacity:
+                overflow = prepared.overflow.cpu().numpy()
+                stats.update(
+                    max_tile_entries=int(overflow[0]),
+                    global_triangles=int(overflow[1]),
+                    max_tile_globals=int(overflow[2]),
+                    near_plane_crossings=int(overflow[3]),
+                )
+                self.stats = stats
+                logger.debug("prepare: %s", self.stats)
+                if self._grow_capacities(overflow, limits):
+                    continue
+            else:
+                self.stats = stats
+                self._defer_overflow(prepared.overflow, limits)
             if len(self._prepared_cache) >= 8:
                 self._prepared_cache.pop(next(iter(self._prepared_cache)))
             self._prepared_cache[pkey] = (prepared, self.stats)
@@ -1365,6 +1693,7 @@ class Renderer:
         to_host: bool = True,
         as_uint8: bool = False,
         srgb: bool = False,
+        carry=None,
         uint8_kernel: bool = False,
     ):
         """Render a frame; returns (H, W, 4) premultiplied RGBA float32,
@@ -1373,13 +1702,22 @@ class Renderer:
         ``uint8_kernel=True`` resolves to packed RGBA8 inside the raster
         kernel (bit-identical to quantizing the float output); it does
         not compose with ``background``/``srgb``.  ``to_host=False``
-        returns the device tensor instead of a numpy array."""
+        returns the device tensor instead of a numpy array.
+
+        ``carry`` (a float or a 0-d tensor; implies ``to_host=False``):
+        returns ``(image, carry + sum(image[..., 3]))``, the sum in
+        float32 on the render's device and stream with no host
+        synchronise: a per-frame completion probe that throughput
+        harnesses chain from frame to frame.  ``image`` is the raster
+        output (float, or packed RGBA8 with ``uint8_kernel``)."""
         if uint8_kernel and (background is not None or srgb):
             raise ValueError(
                 "uint8_kernel does not compose with background/srgb"
             )
         _, rasterize, runtime_args = self._prepare(commands, uint8_kernel)
         image = rasterize(*runtime_args)
+        if carry is not None:
+            return image, self._carry(carry, image)
         if uint8_kernel:
             return image.cpu().numpy() if to_host else image
         if as_uint8:
@@ -1401,6 +1739,17 @@ class Renderer:
             alpha = image[..., 3:4]
             image = image + np.asarray(background, np.float32) * (1.0 - alpha)
         return image
+
+    def _carry(self, carry, image):
+        """carry + the image's alpha summed in float32.  A Python or
+        numpy scalar enters as a kernel argument (no host-to-device copy,
+        which would synchronise); a tensor is moved to the device."""
+        total = image[..., 3].to(torch.float32).sum()
+        if isinstance(carry, torch.Tensor):
+            return (
+                carry.to(device=self.device, dtype=torch.float32) + total
+            )
+        return torch.add(total, float(np.float32(carry)))
 
     def _background(self, background):
         return torch.as_tensor(

@@ -604,3 +604,78 @@ def warp_boundaries():
         api.DrawCommand(op.STENCIL, line, t),
         api.DrawCommand(op.COLOR, line, t, color=(0.1, 0.7, 0.9, 0.8)),
     ]
+
+
+#: BASELINE config 4's text (benchmarks/run_configs.py::config4): 112
+#: lines of two pangrams with digits, 10,080 glyphs.
+CONFIG4_TEXT = "\n".join(
+    "the quick brown fox jumps over the lazy dog 0123456789 " * 2
+    for _ in range(112)
+)
+#: The three command forms of config 4's text.
+CONFIG4_FORMS = ("monolith", "fused", "per_glyph")
+
+
+def config4_transform():
+    """Config 4's layout → clip transform: its glyph box, about
+    [0, 850] × [-200, 1370] layout units, onto the viewport."""
+    t = np.diag([2.0 / 1800.0, 2.0 / 1500.0, 1.0, 1.0]).astype(np.float32)
+    t[0, 3] = -1.0
+    t[1, 3] = 0.95
+    return t
+
+
+def config4_text(form, api=None, text_module=None, text=None,
+                 transform=None):
+    """BASELINE config 4 (10k TrueType glyphs; 1920×1080 in the
+    benchmark) as draw commands in one of CONFIG4_FORMS, all in colour
+    (1, 1, 1, 1):
+
+    - ``"monolith"``: ``shape_of_text``, one STENCIL and one COLOR over
+      one shape holding every glyph instance's triangles;
+    - ``"fused"``: ``text_commands_fused``, one multi-shape STENCIL over
+      the per-glyph shapes and one cover of the string's ink box;
+    - ``"per_glyph"``: ``text_commands``, one instanced pair per unique
+      glyph, with overlapping instances split into single pairs.
+
+    The text is set in the bundled font at size 16, left to right,
+    aligned at its beginning on both axes, under ``config4_transform()``;
+    the commands do not depend on the frame's size.  ``text`` and
+    ``transform`` replace CONFIG4_TEXT and that transform (the CPU tests
+    set a short text larger).  ``api`` and ``text_module`` are the
+    renderer and text modules to build with, this package's by default
+    (each text module builds with its own path module); the parity tests
+    pass the JAX package's."""
+    if form not in CONFIG4_FORMS:
+        raise ValueError(f"form must be one of {CONFIG4_FORMS}, got {form!r}")
+    if api is None:
+        from . import renderer as api
+    if text_module is None:
+        from . import text as text_module
+    from .assets import font_path
+
+    with open(font_path(), "rb") as fh:
+        face = text_module.Font("OpenSans", fh.read()).face
+    layout = text_module.Layout(
+        size=16.0,
+        orientation=text_module.Orientation.LEFT_TO_RIGHT,
+        major_alignment=text_module.Alignment.BEGIN,
+        minor_alignment=text_module.Alignment.BEGIN,
+    )
+    text = CONFIG4_TEXT if text is None else text
+    t = config4_transform() if transform is None else np.asarray(
+        transform, np.float32
+    )
+    color = (1.0, 1.0, 1.0, 1.0)
+    if form == "monolith":
+        shape = text_module.shape_of_text(face, layout, text)
+        op = api.RenderOperation
+        return [
+            api.DrawCommand(op.STENCIL, shape, t),
+            api.DrawCommand(op.COLOR, shape, t, color=color),
+        ]
+    build = (
+        text_module.text_commands_fused if form == "fused"
+        else text_module.text_commands
+    )
+    return build(face, layout, text, t, color=color)

@@ -3,10 +3,11 @@
 Replaces the reference's external `ttf-parser` crate (Cargo.toml:19,
 used by src/text.rs) with a pure-Python reader of the tables the text
 subsystem needs: head, maxp, cmap (formats 0/4/6/12), loca, glyf
-(simple and composite outlines), hhea/hmtx (advances), kern (format 0)
-and OS/2 (x-height).  Sufficient for TrueType fonts (e.g. the bundled
-OpenSans-Regular.ttf); CFF and CFF2 outlines (OpenType .otf) raise
-error.UnsupportedFontFormat.
+(simple and composite outlines), CFF (Type 2 charstrings — OpenType
+.otf outlines, see cff.py), hhea/hmtx (advances), kern (format 0) and
+OS/2 (x-height).  Sufficient for general TrueType and OpenType/CFF
+fonts (e.g. the bundled OpenSans-Regular.ttf); CFF2 variable outlines
+raise error.UnsupportedFontFormat.
 """
 
 from __future__ import annotations
@@ -68,16 +69,24 @@ class Face:
             if version >= 2 and length >= 88:
                 self._x_height = _i16(data, os2 + 86)
         self._cmap = self._parse_cmap()
+        self._cff = None
+        self._cff_bbox: Dict[int, object] = {}
         if "glyf" in self.tables and "loca" in self.tables:
             self._loca = self._parse_loca()
-        elif "CFF " in self.tables or "CFF2" in self.tables:
+        elif "CFF " in self.tables:
+            from .cff import CFFTable
+
+            offset, length = self.tables["CFF "]
+            self._cff = CFFTable(data[offset: offset + length])
+            self._loca = None
+        elif "CFF2" in self.tables:
             raise UnsupportedFontFormat(
-                "CFF outlines are not supported; supply a TrueType (glyf) "
-                "font"
+                "CFF2 (variable) outlines are not supported; supply a "
+                "static TrueType (glyf) or OpenType (CFF) font"
             )
         else:
             raise UnsupportedFontFormat(
-                "font carries no glyf/loca outline tables"
+                "font carries no glyf/loca or CFF outline tables"
             )
         self._kern = self._parse_kern()
 
@@ -203,6 +212,10 @@ class Face:
 
     def glyph_bounding_box(self, glyph_id: int):
         """(x_min, y_min, x_max, y_max) in font units, or None."""
+        if self._cff is not None:
+            if glyph_id not in self._cff_bbox:
+                self._cff_bbox[glyph_id] = self._cff.bounding_box(glyph_id)
+            return self._cff_bbox[glyph_id]
         span = self._glyph_span(glyph_id)
         if span is None:
             return None
@@ -230,6 +243,8 @@ class Face:
         quad_to/curve_to/close callbacks, like ttf_parser::OutlineBuilder,
         reference src/text.rs:66-94).  Returns False for empty glyphs.
         """
+        if self._cff is not None:
+            return self._cff.outline(glyph_id, builder)
         contours = self._glyph_contours(glyph_id, depth=0)
         if not contours:
             return False

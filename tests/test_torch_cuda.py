@@ -533,3 +533,84 @@ def test_user_paint_without_cuda_raises_on_card(card):
         renderer.render(commands)
     assert coverage.raster_launches == before
     assert not renderer._prepared_cache
+
+
+def small_text_transform():
+    """A short text at config 4's size, scaled into a 256² frame (the
+    layout is centred on the origin)."""
+    return np.diag([2.0 / 120.0, 2.0 / 120.0, 1.0, 1.0]).astype(np.float32)
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+@pytest.mark.parametrize("form", ["fused", "per_glyph"])
+def test_text_forms_match_plain(card, samples, form):
+    """Config 4's multi-shape and per-glyph forms on a short text: the
+    kernel against the plain version, and the image against the
+    monolith's."""
+    text = "the quick brown fox\njumps over the lazy dog\n0123456789 fffi"
+    config = Configuration(msaa_sample_count=samples)
+    commands = scenes.config4_text(form, text=text, transform=small_text_transform())
+    renderer = Renderer(config, SIZE, SIZE, device=card)
+    spec, _, runtime = renderer._prepare(commands)
+    assert_kernel_matches_plain(spec, *runtime)
+    monolith = scenes.config4_text("monolith", text=text,
+                                   transform=small_text_transform())
+    want = Renderer(config, SIZE, SIZE, device=card).render(monolith, as_uint8=True)
+    assert np.array_equal(renderer.render(commands, as_uint8=True), want)
+
+
+def test_fused_showcase_matches_sequential_walk_on_card(card):
+    """The showcase at 256² on the default path (auto-instanced into four
+    commands) against the same commands walked in sequence: the kernel
+    against plain on the fused frame, and the two images equal."""
+    commands = showcase.showcase_commands(
+        showcase.build_shape(with_text=True), SIZE, SIZE
+    )
+    fused = Renderer(Configuration(), SIZE, SIZE, device=card)
+    spec, _, runtime = fused._prepare(commands)
+    assert spec.n_commands == 4 and max(spec.cmd_inst) > 1
+    assert_kernel_matches_plain(spec, *runtime)
+    walked = Renderer(Configuration(), SIZE, SIZE, auto_instance=False, device=card)
+    assert np.array_equal(
+        fused.render(commands, as_uint8=True), walked.render(commands, as_uint8=True)
+    )
+
+
+def test_carry_on_card(card):
+    """render(carry=...) on the card: the image equals a render without
+    carry, the sum stays on the device and chains, from a 0-d tensor and
+    from a float, float and packed RGBA8."""
+    commands = frame_commands()
+    renderer = Renderer(Configuration(), WIDTH, HEIGHT, device=card)
+    image = renderer.render(commands, to_host=False)
+    acc = torch.zeros((), device=card)
+    for _ in range(3):
+        out, acc = renderer.render(commands, carry=acc)
+    assert acc.device.type == "cuda" and acc.dtype == torch.float32
+    assert torch.equal(out, image)
+    alpha = float(image[..., 3].double().sum())
+    assert np.isclose(float(acc), 3 * alpha, rtol=1e-5)
+    packed, acc8 = renderer.render(commands, carry=0.5, uint8_kernel=True)
+    assert packed.dtype == torch.uint8 and acc8.device.type == "cuda"
+    assert np.isclose(float(acc8), 0.5 + float(packed[..., 3].double().sum()),
+                      rtol=1e-5)
+
+
+def test_deferred_capacity_grows_on_card(card):
+    """strict_capacity=False on the card: the counters come back through
+    pinned memory and an event, capacities grow within two frames, and
+    the image then equals a strict render's."""
+    shapes = [Shape([Path.from_circle((128, 128), 112 - 4 * i)]) for i in range(20)]
+    t = scenes.ortho(SIZE, SIZE)
+    commands = []
+    for s in shapes:
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, s, t),
+            DrawCommand(RenderOperation.COLOR, s, t, color=(1.0, 0.0, 0.0, 1.0)),
+        ]
+    renderer = Renderer(Configuration(), SIZE, SIZE, tile_capacity=8,
+                        strict_capacity=False, device=card)
+    images = [renderer.render(commands, as_uint8=True) for _ in range(3)]
+    assert renderer.tile_capacity > 8
+    strict = Renderer(Configuration(), SIZE, SIZE, tile_capacity=8, device=card)
+    assert np.array_equal(images[-1], strict.render(commands, as_uint8=True))

@@ -69,6 +69,10 @@ assert image.shape == (size, size, 4), image.shape
 assert abs(float(image[32, 32, 3]) - 1.0) < 1e-6
 assert float(image[0, 0, 3]) == 0.0
 assert len(showcase.build_shape(with_text=True).triangles) > 200
+from contrast_renderer_tpu_torch import cff, scenes, text, ttf
+for form in scenes.CONFIG4_FORMS:
+    assert scenes.config4_text(form, text="ab\\nba")
+assert port.text_commands_fused is text.text_commands_fused
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 reference = sorted(
