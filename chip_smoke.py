@@ -83,7 +83,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1e-5), and the image equals a render without carry;
 18. ``strict_capacity=False``: tests/test_coverage_exec.py's 20 nested
    circles at 256² with ``tile_capacity=8``: the capacity grows within
-   two frames, and the image then equals a strict render's.
+   two frames, and the image then equals a strict render's;
+19. the moving camera: the showcase with text under the orbit of
+   benchmarks/run_configs.py::config5_orbit (0.05 rad a frame about the y
+   axis, the dash phase 0.032 a frame), at 3840×2160 and at 1920×1080,
+   through ``Renderer.compile_frame(uint8_output=True)``: the settled
+   capacities, ``plan_for_motion`` over the 99 frames timed (the fused
+   plan, its commands, the scouted capacities), the time to build one
+   variant, each frame's near-plane crossings (from the sequential
+   walk's binning); three windows of 99 frames chained through ``carry``
+   with one fetch each: frames/s, the coverage kernel launched once a
+   frame, the host time a frame for planning, binning dispatch and
+   raster dispatch, peak device memory and rebuilds; the calls of one
+   frame that wait for the device; under torch.profiler, the device's
+   busy share, the kernel's and binning's device time and the device
+   operations a frame; the frame with the most
+   crossings, a fused frame and a frame that fell back (where one does)
+   against ``Renderer(auto_instance=False).render``, packed RGBA8, to
+   the bit; the kernel against plain on the crossing frame, its times and
+   bound; and ``render_sequence`` over 16 frames against the per-frame
+   calls, to the bit, with its frames/s.
 
 Kernel times are the median of 5 batches of launches, printed with the
 batches' least and greatest.  Beside each frame's bound it prints what
@@ -108,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 WIDTH, HEIGHT = 1920, 1080
 SHOWCASE_W, SHOWCASE_H = 3840, 2160
@@ -124,6 +144,12 @@ LAYER_MEMORY_LIMIT = 1 << 30
 #: differ (see compare_with_monolith).
 TEXT_MISMATCH_LIMIT = 1e-3
 TEXT_MISMATCH_SAMPLES = 2
+#: Frames of the orbit timed (the reference's 99-frame animation), and of
+#: the render_sequence segment held to per-frame calls.
+ORBIT_FRAMES = 99
+ORBIT_SEQUENCE = 16
+#: Timed windows of the orbit's frames per resolution.
+ORBIT_WINDOWS = 3
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -800,6 +826,11 @@ def main():
     deferred_capacity_phase(scenes, Configuration, DrawCommand, RenderOperation,
                             Renderer, Shape)
 
+    # ---- 19. the showcase orbit through FrameProgram ----------------------------
+    orbit = orbit_phase(coverage, showcase, Configuration, Renderer, card,
+                        SHOWCASE_W, SHOWCASE_H)
+    orbit_phase(coverage, showcase, Configuration, Renderer, card, WIDTH, HEIGHT)
+
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     if any(m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
@@ -828,6 +859,10 @@ def main():
         frames[label] = (spec_v, runtime_v, launches_v, err_v)
         times[label] = (k_ms, p_ms)
         bounds[label] = bound
+    spec_v, runtime_v, launches_v, err_v, k_ms, p_ms, bound = orbit
+    frames["orbit"] = (spec_v, runtime_v, launches_v, err_v)
+    times["orbit"] = (k_ms, p_ms)
+    bounds["orbit"] = bound
 
     def entry(name, line, label, frame):
         _, _, launches_v, err_v = frames[label]
@@ -867,6 +902,11 @@ def main():
         entry("coverage_raster: config 4, per-glyph", 1446, "config 4 per-glyph",
               "config 4 per-glyph (text_commands: one instanced pair per "
               "unique glyph), 1920x1080"),
+        dict(entry("coverage_raster: showcase orbit (FrameProgram)", 1446, "orbit",
+                   f"showcase with text under the orbit, {ORBIT_FRAMES} frames "
+                   f"through FrameProgram, packed RGBA8, 3840x2160; times on the "
+                   f"frame with the most near-plane crossings"),
+             frames=ORBIT_FRAMES, launches_per_frame=orbit[2] / ORBIT_FRAMES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1218,6 +1258,255 @@ def deferred_capacity_phase(scenes, Configuration, DrawCommand, RenderOperation,
     if grown_at is None or differ:
         fail("deferred capacity: the capacity did not grow within two frames, "
              "or the image differs from a strict render's")
+
+
+def device_busy(prof, raster_name="coverage_raster"):
+    """(device busy µs, coverage_raster µs, other device µs, device
+    events) of a torch.profiler trace: the union of its device events'
+    intervals, the sums of the kernel's and of every other device
+    event's durations, and their count; None where the trace holds no
+    device event."""
+    from torch.autograd import DeviceType
+
+    spans, raster, other = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        begin, end = e.time_range.start, e.time_range.end
+        spans.append((begin, end))
+        if raster_name in e.name:
+            raster += end - begin
+        else:
+            other += end - begin
+    if not spans:
+        return None
+    busy, reach = 0.0, None
+    for begin, end in sorted(spans):
+        if reach is None or begin > reach:
+            busy += end - begin
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return busy, raster, other, len(spans)
+
+
+def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height):
+    """Phase 19: the showcase with text under the orbit of
+    run_configs.config5_orbit (0.05 rad a frame about the y axis, the
+    dash phase 0.032 a frame) through ``Renderer.compile_frame`` with
+    packed RGBA8 output and ``plan_for_motion`` over the frames timed.
+    Returns (spec, runtime, launches, max_abs_err, kernel ms, plain ms,
+    bound) for the kernels line, on the orbit frame with the most
+    near-plane crossings."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    label = f"orbit {width}x{height}"
+    n = ORBIT_FRAMES
+    shape = showcase.build_shape(with_text=True)
+    commands = showcase.showcase_commands(shape, width, height)
+    stacks = [showcase.orbit_transforms(i, width, height) for i in range(n)]
+
+    def at(i):
+        """Frame i's dash phase, set on the shape; its transform stack."""
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP)
+        )
+        return stacks[i]
+
+    renderer = Renderer(Configuration(), width, height, strict_capacity=False,
+                        device="cuda")
+    start = time.perf_counter()
+    program = renderer.compile_frame(commands, uint8_output=True)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - start
+    settled = dict(program._caps)
+    start = time.perf_counter()
+    fused = program.plan_for_motion(stacks)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - start
+    plan = program._plan
+    walked = program._seq.opt_commands if plan is None else plan.commands
+    print(f"{label}: compile_frame {compile_s:.2f} s, settled capacities "
+          f"{settled}; plan_for_motion over {n} frames {plan_s:.2f} s: fused "
+          f"plan active {fused}, {len(commands)} commands -> {len(walked)} "
+          f"after fusion (groups {[len(g) for g in plan.signature[0][1:]] if plan else None}), "
+          f"capacities {program._caps}", flush=True)
+    builds = []
+    for _ in range(5):
+        start = time.perf_counter()
+        program._build_variant(walked)
+        builds.append((time.perf_counter() - start) * 1e3)
+    print(f"{label}: building one variant (in the calling thread) median "
+          f"{statistics.median(builds):.2f} ms of 5", flush=True)
+
+    # Near-plane crossings of every frame, from the sequential walk.
+    walk = Renderer(Configuration(), width, height, auto_instance=False,
+                    device="cuda")
+
+    def walk_commands(i):
+        return showcase.showcase_commands(
+            shape, width, height, view_rotation=showcase.orbit_rotor(i)
+        )
+
+    crossings = []
+    for i in range(n):
+        at(i)
+        walk._prepare(walk_commands(i))
+        crossings.append(walk.stats["near_plane_crossings"])
+    crossing = int(np.argmax(crossings))
+    print(f"{label}: {sum(c > 0 for c in crossings)} of {n} frames cross the "
+          f"near plane; the most crossings {crossings[crossing]} at frame "
+          f"{crossing}", flush=True)
+    if crossings[crossing] == 0:
+        fail(f"{label}: no orbit frame crosses the near plane")
+
+    # The timed window, three times: n frames chained through carry, one
+    # fetch at the end of each.
+    acc = torch.zeros((), device=renderer.device)
+    for i in range(3):
+        _, acc = program(at(i), carry=acc)
+    torch.cuda.synchronize()
+    built = program.builds
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for window in range(ORBIT_WINDOWS):
+        host = {"plan_ms": 0.0, "bin_ms": 0.0, "raster_ms": 0.0}
+        fused_at = []
+        coverage.raster_launches = 0
+        start = time.perf_counter()
+        for i in range(n):
+            _, acc = program(at(i), carry=acc)
+            for key in host:
+                host[key] += program.stats[key]
+            fused_at.append(program.stats["fused"])
+        total = float(acc)
+        walls.append(time.perf_counter() - start)
+        launches = coverage.raster_launches
+        print(f"{label} ({card}), window {window + 1}: {n} frames in "
+              f"{walls[-1] * 1e3:.1f} ms, {n / walls[-1]:.2f} frames/s; "
+              f"{launches} coverage_raster launches; {sum(fused_at)} frames "
+              f"fused; host per frame: planning {host['plan_ms'] / n:.3f} ms, "
+              f"binning dispatch {host['bin_ms'] / n:.3f} ms, raster dispatch "
+              f"and carry {host['raster_ms'] / n:.3f} ms; alpha sum {total:.6g}",
+              flush=True)
+        if launches != n:
+            fail(f"{label}: {launches} coverage_raster launches for {n} frames")
+        if not np.isfinite(total) or total <= 0:
+            fail(f"{label}: the frames' alpha sum is {total}")
+    wall = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated() - base
+    rebuilds = program.builds - built
+    print(f"{label} ({card}): median of {ORBIT_WINDOWS} windows "
+          f"{n / wall:.2f} frames/s ({wall * 1e3 / n:.3f} ms a frame); peak "
+          f"device memory over the windows {peak / 2**20:.1f} MiB; rebuilds "
+          f"{rebuilds}", flush=True)
+
+    # Calls that wait for the device in one frame (each upload from
+    # pageable host memory is one).
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, acc = program(at(5), carry=acc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"{label}: {syncs} synchronising CUDA calls in one frame "
+          f"(torch.cuda.set_sync_debug_mode)", flush=True)
+
+    # The same frames under torch.profiler: device busy share, binning's
+    # and the kernel's device time.
+    frames = range(min(n, 33))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in frames:
+            _, acc = program(at(i), carry=acc)
+        float(acc)
+        profiled = time.perf_counter() - start
+    busy = device_busy(prof)
+    if busy is None:
+        print(f"{label}: device time not measured (the trace holds no device "
+              f"events)", flush=True)
+    else:
+        b_us, r_us, o_us, count = busy
+        k = len(frames)
+        print(f"{label} ({card}), torch.profiler over {k} frames: device busy "
+              f"{b_us / k / 1e3:.3f} ms a frame, {b_us / (profiled * 1e6):.3f} of "
+              f"the profiled window and {b_us / k / 1e3 / (wall * 1e3 / n):.3f} of "
+              f"an unprofiled frame; coverage_raster {r_us / k / 1e3:.3f} ms a "
+              f"frame; binning and the rest {o_us / k / 1e3:.3f} ms a frame, in "
+              f"{count / k:.1f} device operations a frame", flush=True)
+
+    # Images against the sequential walk: the frame with the most
+    # crossings, a fused frame without crossings, a frame that fell back.
+    chosen = {"most near-plane crossings": crossing}
+    plain_frames = [i for i in range(n) if fused_at[i] and crossings[i] == 0]
+    if plain_frames:
+        chosen["fused, no crossing"] = plain_frames[0]
+    fallback = [i for i in range(n) if not fused_at[i]]
+    if fallback:
+        chosen["fell back to the sequential walk"] = fallback[0]
+    else:
+        print(f"{label}: no frame fell back to the sequential walk", flush=True)
+    for why, i in chosen.items():
+        got = program(at(i))
+        was_fused = program.stats["fused"]
+        want = walk.render(walk_commands(i), to_host=False, as_uint8=True)
+        torch.cuda.synchronize()
+        differ = int((got != want).any(-1).sum())
+        print(f"{label}: frame {i} ({why}; fused {was_fused}, {crossings[i]} "
+              f"crossings) vs Renderer(auto_instance=False).render, packed "
+              f"RGBA8: {differ} pixels differ", flush=True)
+        if got.dtype != torch.uint8 or differ:
+            fail(f"{label}: frame {i} differs from the sequential walk")
+
+    # The kernel on the crossing frame as the program bins it.
+    at(crossing)
+    variant, runtime = program._bin(program._opt_rows(stacks[crossing]))
+    err = kernel_vs_plain(coverage, variant.spec, runtime,
+                          f"{label} frame {crossing}")
+    args = raster_args(coverage, variant.spec, runtime)
+    k_ms, k_lo, k_hi = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
+    p_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 1, 1, 0)[0]
+    work = {}
+    bound = kernel_bound(coverage, variant.spec, runtime, work)
+    print(f"timing {label} frame {crossing} ({card}): coverage_raster "
+          f"{k_ms:.3f} ms [{k_lo:.3f}, {k_hi:.3f}], rasterize_plain "
+          f"{p_ms:.3f} ms; kernel_bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); box test "
+          f"culled {work.get('culled', 0)} of {work.get('entry_warps', 0)} "
+          f"(warp, entry) pairs", flush=True)
+
+    # render_sequence over a segment at one dash phase, against __call__.
+    segment = np.stack(stacks[:ORBIT_SEQUENCE])
+    at(0)
+    frames_seq = program.render_sequence(segment)
+    singles = [program(t) for t in segment]
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(frames_seq, singles)]
+    holds = all(
+        program._plan_transforms_if_valid(program._plan, program._opt_rows(t))
+        is not None for t in segment
+    ) if program._plan is not None else False
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        program.render_sequence(segment)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    seq_s = statistics.median(times)
+    print(f"{label} ({card}): render_sequence of {len(segment)} frames "
+          f"{tuple(frames_seq.shape)} {frames_seq.dtype}, fused plan holds on "
+          f"every frame {holds}; frames equal to __call__'s {sum(equal)} of "
+          f"{len(equal)}; median {seq_s * 1e3:.1f} ms, "
+          f"{len(segment) / seq_s:.2f} frames/s", flush=True)
+    if not all(equal):
+        fail(f"{label}: render_sequence differs from __call__")
+    return variant.spec, runtime, launches, err, k_ms, p_ms, bound
 
 
 if __name__ == "__main__":

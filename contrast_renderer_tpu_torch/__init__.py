@@ -12,8 +12,10 @@ nothing of the JAX package: the host modules it needs (``path``,
 Ported so far: filled and stroked paths with solid, gradient and user
 paints, clips, alpha groups and depth, instanced and multi-shape draws
 with auto-instancing, text as shapes and draw commands, the deferred
-capacity check and the ``carry`` probe, through ``Renderer.render`` (see
-ROADMAP.md for what follows).
+capacity check and the ``carry`` probe, through ``Renderer.render``; and
+the moving camera through ``Renderer.compile_frame`` (``FrameProgram``,
+with its fusion planners, ``plan_for_motion`` and ``render_sequence``).
+See ROADMAP.md for what follows.
 """
 
 __version__ = "0.1.0"
@@ -31,7 +33,7 @@ from .error import (  # noqa: F401
 
 _RENDERER_NAMES = {
     "BlendComponent", "BlendState", "Configuration", "DrawCommand",
-    "LinearGradient", "RadialGradient", "RenderOperation", "Renderer",
+    "FrameProgram", "LinearGradient", "RadialGradient", "RenderOperation", "Renderer",
     "Shape", "UserPaint",
 }
 

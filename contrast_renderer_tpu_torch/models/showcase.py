@@ -210,6 +210,28 @@ def command_transforms(
     return np.ascontiguousarray(stack, np.float32)
 
 
+#: The showcase orbit (benchmarks/run_configs.py::config5_orbit, from
+#: examples/showcase/main.rs:255-274): the camera turns this many radians
+#: about the y axis per frame, and the dash phase advances this much.
+ORBIT_STEP = 0.05
+ORBIT_DASH_STEP = 0.032
+
+
+def orbit_rotor(frame: int) -> np.ndarray:
+    """The view rotor of the orbit's frame ``frame``."""
+    angle = ORBIT_STEP * frame
+    return np.array([math.cos(angle / 2), 0.0, math.sin(angle / 2), 0.0])
+
+
+def orbit_transforms(frame: int, width: int, height: int, **kwargs) -> np.ndarray:
+    """The (R, 4, 4) transform stack of the orbit's frame ``frame``, in
+    the order of ``showcase_commands`` (``command_transforms``'s keywords
+    pass through)."""
+    return command_transforms(
+        width, height, view_rotation=orbit_rotor(frame), **kwargs
+    )
+
+
 _CLIP_SHAPES = {}
 
 

@@ -21,6 +21,11 @@ groups.  As in the reference, the machinery of a balanced clip or
 alpha bracket is dropped from the tiles that no content draw of the
 frame touches (``_gate_spans``, ``FrameSpec.gate_spans``), which
 changes no pixel.
+
+``Renderer.compile_frame`` returns a ``FrameProgram``, the moving-camera
+path: the transforms become a per-call input, each call bins and
+rasterizes its frame, and fusable runs regroup under each frame's
+transforms (or once for a whole camera path, ``plan_for_motion``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from __future__ import annotations
 import enum
 import hashlib
 import logging
+import math
+import time
 from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
@@ -704,9 +711,9 @@ def _fuse_instance_runs(commands):
 
     Applied by ``Renderer.render`` per call with the current
     transforms, so the decision is always sound for the frame being
-    rendered.  The reference's ``FrameProgram`` (not in this package
-    yet) detects the same runs with ``check_transforms=False`` and
-    re-validates disjointness at every call.
+    rendered.  ``FrameProgram`` detects the same runs with
+    ``check_transforms=False`` (``_structural_runs``) and re-validates
+    disjointness at every call.
     """
     n = len(commands)
     out = []
@@ -770,6 +777,338 @@ def _fuse_instance_runs(commands):
                 replace(group[0][1], transform=transforms, color=color)
             )
     return out, fused_any
+
+
+# ---------------------------------------------------------------------------
+# FrameProgram's fusion planners: host numpy in float64, as in the reference
+# (renderer.py:884-1441), operation for operation, so that boxes, polygons
+# and groupings equal the reference's to the bit.
+# ---------------------------------------------------------------------------
+
+
+class _FusionRun:
+    """One structural run of fusable (STENCIL, COLOR) pairs inside a
+    FrameProgram's optimized command list (see _structural_runs)."""
+
+    __slots__ = (
+        "start", "pairs", "shape", "stencil_rows", "cover_rows", "escape",
+    )
+
+
+def _structural_runs(commands):
+    """Maximal fusable runs of >= 2 pairs in the optimized command list,
+    transform values left out of the test (a FrameProgram's transforms
+    are runtime inputs).  Returns a list of _FusionRun with the
+    optimized layout's row index of each pair."""
+    rows_before = np.cumsum([0] + [c.n_instances for c in commands])
+    runs = []
+    i = 0
+    n = len(commands)
+    while i < n:
+        run, next_i = _collect_fusable_run(
+            commands, i, check_transforms=False
+        )
+        if len(run) < 2:
+            i = next_i if run else i + 1
+            continue
+        r = _FusionRun()
+        r.start = i
+        r.pairs = run
+        r.shape = run[0][0].shape
+        r.stencil_rows = rows_before[np.arange(i, next_i, 2)].astype(
+            np.int64
+        )
+        r.cover_rows = r.stencil_rows + 1
+        r.escape = _run_overlap_escape(run)
+        runs.append(r)
+        i = next_i
+    return runs
+
+
+#: Near-plane eps of the host cover model.  It is no larger than either
+#: of binning's: the cover hull clip (1e-5) and the stencil triangle clip
+#: (w_eps = 1e-6), so the host polygon contains everything an instance
+#: can touch on screen, its cover and its stencil winding alike.
+#: Disjoint supersets imply disjoint regions; near-eps projections blow
+#: up to huge coordinates and simply refuse to fuse.
+_NEAR_CLIP_EPS = 1e-6
+
+
+def _clip_poly_near(hclip):
+    """Sutherland-Hodgman clip of one homogeneous polygon (h, 4) against
+    ``w > _NEAR_CLIP_EPS``, projected to NDC.  Returns (k, 2), with
+    k < 3 meaning an empty cover."""
+    eps = _NEAR_CLIP_EPS
+    out = []
+    h = len(hclip)
+    for i in range(h):
+        a, b = hclip[i], hclip[(i + 1) % h]
+        wa, wb = a[3], b[3]
+        if wa > eps:
+            out.append(a)
+        if (wa > eps) != (wb > eps):
+            t = (eps - wa) / (wb - wa)
+            out.append(a + t * (b - a))
+    if len(out) < 3:
+        return np.zeros((0, 2))
+    out = np.asarray(out)
+    return out[:, :2] / out[:, 3:4]
+
+
+def _run_boxes(shape: "Shape", transforms):
+    """Projected covers of one shape under a stack of transforms:
+    ``(boxes (m, 4) NDC min/max, ok (m,) bool, polys (m, h+1, 2))``; ok
+    is False only where the transform itself is not finite.  ``polys``
+    are the projected hull polygons clipped against the near plane, a
+    convex superset of the cover and of the stencil winding, and the
+    boxes their AABBs.  A hull wholly behind the plane touches nothing:
+    its box is the empty interval (+inf mins, -inf maxes) and its
+    polygon a point (orientation sign 0, which escape groups reject)."""
+    hull = np.asarray(shape.convex_hull, np.float64)
+    m = len(transforms)
+    if len(hull) == 0:
+        return np.zeros((m, 4)), np.zeros(m, bool), np.zeros((m, 1, 2))
+    hom = np.concatenate(
+        [hull, np.zeros((len(hull), 1)), np.ones((len(hull), 1))], axis=1
+    )
+    clip = np.einsum(
+        "mrk,hk->mhr", np.asarray(transforms, np.float64), hom
+    )
+    ok = np.all(np.isfinite(clip), axis=(1, 2))
+    w = clip[..., 3]
+    front = w > _NEAR_CLIP_EPS
+    all_front = np.all(front, axis=-1) & ok
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ndc = clip[..., :2] / np.where(
+            front[..., None], w[..., None], 1.0
+        )
+    # One extra slot: clipping a convex polygon against one plane adds
+    # at most one vertex; unused slots repeat a vertex (degenerate edges
+    # are inert in the SAT and add no signed area).
+    polys = np.concatenate([ndc, ndc[:, :1]], axis=1)
+    boxes = np.concatenate([ndc.min(axis=1), ndc.max(axis=1)], axis=-1)
+    for i in np.nonzero(~all_front & ok)[0]:
+        p = _clip_poly_near(clip[i])
+        if len(p) == 0:
+            boxes[i] = (np.inf, np.inf, -np.inf, -np.inf)
+            polys[i] = 0.0
+            continue
+        boxes[i] = (*p.min(axis=0), *p.max(axis=0))
+        polys[i, : len(p)] = p
+        polys[i, len(p):] = p[-1]
+    return boxes, ok, polys
+
+
+def _convex_polys_disjoint(pa, pb) -> bool:
+    """Strict separating-axis test between two convex screen polygons of
+    either winding: True iff an edge line of one has the whole other
+    polygon strictly outside.  Touching or degenerate polygons count as
+    overlapping."""
+    for first, second in ((pa, pb), (pb, pa)):
+        e = np.roll(first, -1, axis=0) - first
+        nx, ny = e[:, 1], -e[:, 0]
+        c = -(nx * first[:, 0] + ny * first[:, 1])
+        centroid = first.mean(axis=0)
+        side = nx * centroid[0] + ny * centroid[1] + c
+        flip = np.where(side > 0.0, -1.0, 1.0)
+        nx, ny, c = nx * flip, ny * flip, c * flip
+        d = (
+            nx[:, None] * second[None, :, 0]
+            + ny[:, None] * second[None, :, 1]
+            + c[:, None]
+        )
+        if bool(np.any(np.all(d > 0.0, axis=1))):
+            return True
+    return False
+
+
+def _covers_disjoint(boxes, polys, i, j) -> bool:
+    """Cover disjointness of pair ``i`` and ``j``: the AABB test, then
+    the polygon SAT where the boxes touch (rotated cells can have
+    overlapping boxes and apart covers)."""
+    if _boxes_disjoint(boxes[i], boxes[j]):
+        return True
+    return _convex_polys_disjoint(polys[i], polys[j])
+
+
+def _poly_orientation_signs(polys):
+    """Sign of the signed area of each projected hull polygon (m, h, 2):
+    the orientation parity of each instance's screen mapping."""
+    x, y = polys[..., 0], polys[..., 1]
+    area2 = np.sum(
+        x * np.roll(y, -1, axis=1) - np.roll(x, -1, axis=1) * y, axis=1
+    )
+    return np.sign(area2)
+
+
+def _idempotent_blend(blending) -> bool:
+    """Whether painting one opaque colour twice at a sample equals
+    painting it once: source-over back to front, or front to back (the
+    precondition of the overlap escape, _run_overlap_escape)."""
+    canonical = (
+        blending if isinstance(blending, str) else blending.canonical()
+    )
+    return canonical in ("back_to_front", "front_to_back")
+
+
+def _run_overlap_escape(pairs) -> bool:
+    """True when every pair of a run paints the same opaque solid
+    colour: the fused draw is then exact even where covers overlap,
+    given an idempotent blend, no depth state and one orientation sign
+    for every instance (checked per frame).  Overlap changes only which
+    cover paints a shared sample and how often, which one opaque colour
+    hides, and winding borrowed across instances of one orientation
+    cannot cancel."""
+    first = _solid_rgba(pairs[0][1].color)
+    if first is None or first[3] != 1.0:
+        return False
+    return all(
+        _solid_rgba(c.color) == first for _, c in pairs[1:]
+    )
+
+
+def _greedy_box_groups(boxes, ok, polys):
+    """Greedy disjoint grouping in walk order: a pair joins the current
+    group iff its cover is well-defined and disjoint from every cover in
+    the group.  Returns a tuple of tuples of pair indices."""
+    groups = []
+    current = []
+    for i in range(len(boxes)):
+        if ok[i] and all(
+            _covers_disjoint(boxes, polys, i, j) for j in current
+        ):
+            current.append(i)
+        else:
+            if current:
+                groups.append(tuple(current))
+            current = [i]
+            if not ok[i]:
+                # A pair without a box never accepts neighbours.
+                groups.append(tuple(current))
+                current = []
+    if current:
+        groups.append(tuple(current))
+    return tuple(groups)
+
+
+def _greedy_box_groups_multi(per_stack, ok):
+    """_greedy_box_groups across a motion: a pair joins the current
+    group only if its cover is disjoint from every member's in every
+    frame (``per_stack``: one ``(boxes, polys)`` per frame), so one
+    variant serves the whole path."""
+    groups = []
+    current = []
+    for i in range(len(ok)):
+        if ok[i] and all(
+            _covers_disjoint(boxes, polys, i, j)
+            for j in current
+            for boxes, polys in per_stack
+        ):
+            current.append(i)
+        else:
+            if current:
+                groups.append(tuple(current))
+            current = [i]
+            if not ok[i]:
+                groups.append(tuple(current))
+                current = []
+    if current:
+        groups.append(tuple(current))
+    return tuple(groups)
+
+
+class _FusionPlan:
+    """A grouping of a FrameProgram's structural runs: the fused command
+    list, the optimized-layout to fused-layout row gather, and per fused
+    group the rows to re-validate each call."""
+
+    __slots__ = ("commands", "gather", "groups", "signature")
+
+
+def _plan_for_groups(commands, runs, groupings):
+    """The fused command list for one grouping choice.
+
+    ``groupings[k]`` is ``(groups, escape)`` for ``runs[k]``: tuples of
+    pair indices (from _greedy_box_groups, or one group of all pairs
+    under the overlap escape) and whether the escape's validation
+    applies.  A group of two or more pairs becomes one instanced
+    (STENCIL, COLOR) pair; a single pair stays as it was.  Returns None
+    when no group fuses."""
+    rows_before = np.cumsum([0] + [c.n_instances for c in commands])
+    run_at = {r.start: (r, g) for r, g in zip(runs, groupings)}
+    out = []
+    gather = []
+    groups_meta = []
+    fused_any = False
+    i = 0
+    n = len(commands)
+    while i < n:
+        hit = run_at.get(i)
+        if hit is None:
+            gather.extend(range(rows_before[i], rows_before[i + 1]))
+            out.append(commands[i])
+            i += 1
+            continue
+        r, (grouping, escape) = hit
+        for group in grouping:
+            if len(group) < 2:
+                for gi in group:
+                    s, c = r.pairs[gi]
+                    out.append(s)
+                    out.append(c)
+                    gather.append(int(r.stencil_rows[gi]))
+                    gather.append(int(r.cover_rows[gi]))
+                continue
+            fused_any = True
+            idx = list(group)
+            transforms = np.ascontiguousarray(
+                np.stack([
+                    np.asarray(r.pairs[gi][0].transform, np.float32)
+                    for gi in idx
+                ])
+            )
+            first_color = r.pairs[0][1].color
+            if _paint_kind(first_color):
+                color = first_color
+            else:
+                color = np.ascontiguousarray(
+                    np.stack([
+                        np.asarray(
+                            r.pairs[gi][1].color, np.float32
+                        ).reshape(4)
+                        for gi in idx
+                    ])
+                )
+            out.append(replace(r.pairs[idx[0]][0], transform=transforms))
+            out.append(
+                replace(
+                    r.pairs[idx[0]][1], transform=transforms, color=color
+                )
+            )
+            srows = [int(r.stencil_rows[gi]) for gi in idx]
+            crows = [int(r.cover_rows[gi]) for gi in idx]
+            gather.extend(srows)
+            gather.extend(crows)
+            groups_meta.append(
+                (
+                    r.shape,
+                    np.asarray(srows, np.int64),
+                    np.asarray(crows, np.int64),
+                    escape,
+                )
+            )
+        i = r.start + 2 * len(r.pairs)
+    if not fused_any:
+        return None
+    plan = _FusionPlan()
+    plan.commands = out
+    plan.gather = np.asarray(gather, np.int32)
+    plan.groups = groups_meta
+    plan.signature = tuple(
+        (escape,) + tuple(tuple(g) for g in grouping)
+        for grouping, escape in groupings
+    )
+    return plan
 
 
 #: Clip and alpha-group ops: the machinery of a bracket (see _gate_spans).
@@ -1042,6 +1381,55 @@ def _fit_capacity(count: int, floor_: int, ceiling: int) -> int:
     return min(
         ceiling, max(floor_, _next_pow2(int(count * FIT_MARGIN) + 1))
     )
+
+
+#: In-plane rotation (radians) of the capacity-settling probe frame: 45°
+#: misaligns the scene with the tile grid the most.
+SETTLE_PROBE_ANGLE = math.pi / 4
+
+
+def _rotated_probe_commands(commands):
+    """A copy of ``commands`` with every transform pre-rotated in clip
+    space: FrameProgram's second capacity-settling frame.
+
+    An axis-aligned scene bins optimistically: tiles a rect covers
+    whole take the trivial-accept bulk winding and list no entries, so
+    the natural frame under-predicts what camera motion needs.  Settling
+    on the worst counters of both frames lets a program sized to fit
+    survive motion without a deferred-growth rebuild on its first moving
+    frame; motions the probe cannot foresee still regrow through that
+    rebuild."""
+    c = math.cos(SETTLE_PROBE_ANGLE)
+    s = math.sin(SETTLE_PROBE_ANGLE)
+    rot = np.array(
+        [[c, -s, 0.0, 0.0],
+         [s, c, 0.0, 0.0],
+         [0.0, 0.0, 1.0, 0.0],
+         [0.0, 0.0, 0.0, 1.0]],
+        np.float32,
+    )
+    out = []
+    for cmd in commands:
+        t = np.asarray(cmd.transform, np.float32)
+        rt = rot @ t if t.ndim == 2 else np.einsum(
+            "ij,njk->nik", rot, t
+        )
+        out.append(replace(cmd, transform=rt))
+    return out
+
+
+def _copy_to_host_async(tensor):
+    """``(host copy, event)``: on a CUDA device an asynchronous copy into
+    pinned host memory and an event after it on the current stream, so
+    that a later frame can read the copy without blocking the host; on
+    the CPU the tensor itself and no event."""
+    if tensor.device.type != "cuda":
+        return tensor, None
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(tensor.device))
+    return host, event
 
 
 class Renderer:
@@ -1524,16 +1912,11 @@ class Renderer:
         device, an asynchronous copy into pinned host memory and an
         event after it on the current stream.  On the CPU the counters
         are already on the host, so they are read at once."""
-        if overflow.device.type != "cuda":
-            if self._grow_capacities(overflow.numpy(), limits):
+        host, event = _copy_to_host_async(overflow)
+        if event is None:
+            if self._grow_capacities(host.numpy(), limits):
                 self._prepared_cache.clear()
             return
-        host = torch.empty(
-            overflow.shape, dtype=overflow.dtype, pin_memory=True
-        )
-        host.copy_(overflow, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(overflow.device))
         self._pending_overflow.append(
             (host, event, limits, self._frame_index)
         )
@@ -1740,6 +2123,15 @@ class Renderer:
             image = image + np.asarray(background, np.float32) * (1.0 - alpha)
         return image
 
+    def compile_frame(
+        self, commands: Sequence[DrawCommand], uint8_output: bool = False
+    ) -> "FrameProgram":
+        """A frame program for this command structure, with the
+        transforms as a per-call input (see :class:`FrameProgram`).
+        ``uint8_output=True`` resolves to packed RGBA8 inside the kernel,
+        the presentation path."""
+        return FrameProgram(self, commands, uint8_output=uint8_output)
+
     def _carry(self, carry, image):
         """carry + the image's alpha summed in float32.  A Python or
         numpy scalar enters as a kernel argument (no host-to-device copy,
@@ -1782,3 +2174,623 @@ class Renderer:
         )
         image = torch.cat([rgb, image[..., 3:]], -1)
         return (image * 255.0 + 0.5).to(torch.uint8)
+
+
+#: FrameSpec capacity fields, in the order of binning's overflow counters.
+_CAP_NAMES = (
+    "capacity", "global_capacity", "tile_global_capacity", "clip_pool",
+)
+#: Renderer.stats keys of those counters, in the same order.
+_CAP_STATS = (
+    "max_tile_entries", "global_triangles", "max_tile_globals",
+    "near_plane_crossings",
+)
+
+
+class _ProgramVariant:
+    """One command-walk variant of a FrameProgram, the sequential walk or
+    a fused one: its FrameSpec, its binning and raster executors, and its
+    command tables on the renderer's device."""
+
+    __slots__ = (
+        "spec", "opt_commands", "prepare", "rasterize", "paint_model",
+        "packed_constant", "cmd_i", "cmd_f",
+    )
+
+
+class FrameProgram:
+    """A frame step for a fixed command structure, with the instance
+    transforms as a per-call input: the moving-camera path (the camera is
+    just a matrix, examples/showcase/main.rs:255-274).
+
+    ``Renderer.render`` keys its binning cache on the transform bytes,
+    which suits a still camera; a moving one bins every frame.  Here
+    each call takes an (R, 4, 4) transform stack, bins it
+    (``make_prepare``) and runs the raster kernel once, eagerly, on the
+    renderer's device.
+
+    Runs of single-instance (STENCIL, COLOR) pairs are found once, by
+    structure (``_structural_runs``); each call groups them by cover
+    disjointness under its own transforms and dispatches that grouping's
+    fused variant, or the sequential walk where no grouping holds.
+    Either gives the same pixels.  ``plan_for_motion`` fixes one
+    grouping for a whole camera path.
+
+    Dash phases animate through ``Shape.set_dynamic_stroke_options``
+    (descriptors are packed every call) and the blend constant through
+    ``Renderer.set_blend_constant``, with no rebuild.  Capacities start
+    shrunk to fit two settle frames; binning overflow is read a few
+    frames late (a CUDA event behind a pinned copy, forced at
+    ``OVERFLOW_MAX_LAG`` frames), so a scene that outgrows them renders
+    at most that many under-populated frames before the program
+    rebuilds at larger capacities.
+    """
+
+    #: Distinct fused groupings kept per program.  Motion that keeps
+    #: re-grouping the scene past this many variants walks in sequence.
+    MAX_FUSED_VARIANTS = 8
+
+    #: Frames an unread overflow counter may age before the host waits
+    #: on it: the most under-populated frames a growing scene renders.
+    OVERFLOW_MAX_LAG = 16
+
+    def __init__(self, renderer: Renderer, commands: Sequence[DrawCommand],
+                 uint8_output: bool = False):
+        self._renderer = renderer
+        self._commands = list(commands)
+        #: Resolve to packed RGBA8 inside the kernel: frames come back
+        #: (H, W, 4) uint8, equal to Renderer._quantize of the float path.
+        self._uint8 = bool(uint8_output)
+        renderer._validate(self._commands)
+        # The kernel walks the optimized list (SAVE+SCALE pairs fused);
+        # callers' stacks keep one row per public draw and are gathered
+        # through _keep_rows.
+        opt, self._keep_rows = _optimize_commands(self._commands)
+        self._opt_commands = opt
+        self._shapes, _ = renderer._unique_shapes(opt)
+        self._runs = _structural_runs(opt) if renderer.auto_instance else []
+        # Settle the capacities on two strict frames, the natural one and
+        # a rotated probe (see _rotated_probe_commands); the renderer's
+        # stats go back to the natural frame's.
+        was_strict = renderer.strict_capacity
+        renderer.strict_capacity = True
+        try:
+            renderer.render(self._commands, to_host=False)
+            natural_stats = dict(renderer.stats)
+            stats = dict(natural_stats)
+            renderer.render(
+                _rotated_probe_commands(self._commands), to_host=False
+            )
+            for key in _CAP_STATS:
+                if key in renderer.stats:
+                    stats[key] = max(stats.get(key, 0), renderer.stats[key])
+            renderer.stats = natural_stats
+        finally:
+            renderer.strict_capacity = was_strict
+        # Shrink to fit: oversized capacities cost every frame (binning
+        # materialises O(tiles x K) rows), so the program runs at
+        # next-pow2(count x 1.5) with floors, clamped to the renderer's.
+        self._caps = {
+            name: _fit_capacity(stats.get(key, ceiling), floor_, ceiling)
+            for name, key, floor_, ceiling in zip(
+                _CAP_NAMES, _CAP_STATS, FIT_FLOORS, self._ceilings()
+            )
+        }
+        #: Deferred overflow counters: (host copy, event or None, frame).
+        self._pending = []
+        self._frame = 0
+        #: Builds of the program, the first included (a capacity growth
+        #: or a geometry edit rebuilds it).
+        self.builds = 0
+        #: The last call's host times: choosing the variant
+        #: (``plan_ms``), dispatching the binning (``bin_ms``) and the
+        #: raster (``raster_ms``), in ms, and whether it was fused.
+        self.stats = {}
+        self._build()
+
+    def _build(self):
+        renderer = self._renderer
+        _, self._scene = renderer._scene_arrays(self._shapes)
+        self._seq = self._build_variant(self._opt_commands)
+        #: grouping signature -> (plan, variant), emptied so that new
+        #: capacities apply to every fused variant.
+        self._fused_variants = {}
+        self._plan = None
+        self.builds += 1
+        if self._runs:
+            plan = self._derive_plan(
+                Renderer._pack_transforms(self._opt_commands)
+            )
+            if plan is not None:
+                self._install(plan)
+                self._plan = plan
+
+    def _variant_spec(self, opt_commands) -> coverage.FrameSpec:
+        """The FrameSpec of one command-walk variant (shared by
+        _build_variant and plan_for_motion's capacity scout)."""
+        renderer = self._renderer
+        _, shape_index = renderer._unique_shapes(opt_commands)
+        ops = tuple(int(c.operation) for c in opt_commands)
+        cmd_shape = tuple(
+            Renderer._cmd_shape_entry(c, shape_index) for c in opt_commands
+        )
+        paints = tuple(_spec_paint(c.color) for c in opt_commands)
+        inst = tuple(c.n_instances for c in opt_commands)
+        cmd_inst = inst if any(n != 1 for n in inst) else ()
+        spec = renderer._spec(
+            ops, cmd_shape, cmd_inst, self._scene, paints,
+            commands=opt_commands,
+        )
+        spec = replace(spec, **self._caps)
+        if self._uint8:
+            spec = replace(spec, out_uint8=True)
+        return spec
+
+    def _build_variant(self, opt_commands) -> _ProgramVariant:
+        """One command-walk variant.  It compiles nothing: its kernel
+        library is keyed on features that every variant of the program
+        shares, and is loaded by the first frame."""
+        renderer = self._renderer
+        spec = self._variant_spec(opt_commands)
+        v = _ProgramVariant()
+        v.spec = spec
+        v.opt_commands = opt_commands
+        v.prepare = coverage.make_prepare(spec)
+        v.rasterize = coverage.make_rasterize(spec)
+        v.paint_model = Renderer._pack_paints(opt_commands)
+        # cmd_f carries the blend constant where the state reads it;
+        # _ensure_constant re-packs it when it changes.
+        v.packed_constant = renderer._blend_constant_arg()
+        cmd_i, cmd_f = Renderer._pack_commands_runtime(
+            opt_commands, v.packed_constant
+        )
+        v.cmd_i = torch.as_tensor(cmd_i, device=renderer.device)
+        v.cmd_f = torch.as_tensor(cmd_f, device=renderer.device)
+        return v
+
+    def _install(self, plan) -> _ProgramVariant:
+        """Build ``plan``'s variant and cache it under its signature."""
+        variant = self._build_variant(plan.commands)
+        self._fused_variants[plan.signature] = (plan, variant)
+        return variant
+
+    def _variants(self):
+        return (self._seq,) + tuple(
+            v for _, v in self._fused_variants.values()
+        )
+
+    def _ensure_constant(self, v):
+        """Re-pack a variant's cmd_f when the renderer's blend constant
+        changed since its last pack (no rebuild: cmd_f is an input)."""
+        constant = self._renderer._blend_constant_arg()
+        if constant != v.packed_constant:
+            v.packed_constant = constant
+            _, cmd_f = Renderer._pack_commands_runtime(
+                v.opt_commands, constant
+            )
+            v.cmd_f = torch.as_tensor(cmd_f, device=self._renderer.device)
+
+    def _refresh_cmd_f(self):
+        for v in self._variants():
+            self._ensure_constant(v)
+
+    def _escape_allowed(self, r) -> bool:
+        """Whether the overlap escape (_run_overlap_escape) may apply to
+        run ``r`` under the renderer's state: an idempotent blend, no
+        depth test or write, and winding headroom for the summed
+        instances."""
+        config = self._renderer.config
+        return (
+            r.escape
+            and _idempotent_blend(config.blending)
+            and config.depth_compare == "always"
+            and not config.depth_write_enabled
+            and len(r.pairs)
+            <= (1 << (config.winding_counter_bits - 1)) - 1
+        )
+
+    @staticmethod
+    def _rows_equal(transforms, srows, crows) -> bool:
+        return np.array_equal(transforms[srows], transforms[crows])
+
+    def _derive_plan(self, transforms):
+        """The grouping of every structural run under the given
+        optimized-layout transforms, as a _FusionPlan, or None when
+        nothing fuses.  Runs the overlap escape allows fuse whole where
+        every projection is well-defined with one orientation sign;
+        the others group greedily by cover disjointness."""
+        groupings = []
+        for r in self._runs:
+            boxes, ok, polys = _run_boxes(
+                r.shape, transforms[r.stencil_rows]
+            )
+            # A fused draw shares one transform row per instance: pairs
+            # whose stencil and cover rows differ never fuse.
+            for k, (s, c) in enumerate(
+                zip(r.stencil_rows, r.cover_rows)
+            ):
+                if ok[k] and not np.array_equal(
+                    transforms[s], transforms[c]
+                ):
+                    ok[k] = False
+            if self._escape_allowed(r) and ok.all():
+                signs = _poly_orientation_signs(polys)
+                if signs[0] != 0.0 and np.all(signs == signs[0]):
+                    groupings.append(
+                        ((tuple(range(len(r.pairs))),), True)
+                    )
+                    continue
+            groupings.append((_greedy_box_groups(boxes, ok, polys), False))
+        return _plan_for_groups(self._opt_commands, self._runs, groupings)
+
+    def _plan_transforms_if_valid(self, plan, transforms):
+        """The fused-layout transform stack when this frame's transforms
+        keep ``plan`` exact, else None.  Escape groups need equal stencil
+        and cover rows, well-defined projections and one orientation
+        sign; disjointness groups need pairwise disjoint covers."""
+        for shape, srows, crows, escape in plan.groups:
+            if not self._rows_equal(transforms, srows, crows):
+                return None
+            boxes, ok, polys = _run_boxes(shape, transforms[srows])
+            if not ok.all():
+                return None
+            if escape:
+                signs = _poly_orientation_signs(polys)
+                if signs[0] == 0.0 or not np.all(signs == signs[0]):
+                    return None
+                continue
+            disjoint = (
+                (boxes[:, None, 2] < boxes[None, :, 0])
+                | (boxes[None, :, 2] < boxes[:, None, 0])
+                | (boxes[:, None, 3] < boxes[None, :, 1])
+                | (boxes[None, :, 3] < boxes[:, None, 1])
+            )
+            np.fill_diagonal(disjoint, True)
+            if not disjoint.all():
+                # Boxes touch: the hull polygons may still be apart.
+                for i, j in zip(*np.nonzero(~disjoint)):
+                    if i < j and not _convex_polys_disjoint(
+                        polys[i], polys[j]
+                    ):
+                        return None
+        return np.ascontiguousarray(transforms[plan.gather])
+
+    def _try_fused(self, transforms):
+        """(variant, fused-layout transforms) for this frame, or None for
+        the sequential walk.
+
+        The active plan is re-validated first, then the other cached
+        groupings; if none holds, a grouping is derived from this frame
+        and its variant built at once, until MAX_FUSED_VARIANTS are
+        cached.  The reference builds on a background thread with a
+        hysteresis, since its build is a compile of seconds; here a
+        build makes a spec and two executors over kernel libraries the
+        program has loaded already (chip_smoke.py times it)."""
+        if self._plan is not None:
+            tf = self._plan_transforms_if_valid(self._plan, transforms)
+            if tf is not None:
+                return self._fused_variants[self._plan.signature][1], tf
+        for plan, variant in self._fused_variants.values():
+            if plan is self._plan:
+                continue
+            tf = self._plan_transforms_if_valid(plan, transforms)
+            if tf is not None:
+                self._plan = plan
+                return variant, tf
+        self._plan = None
+        if len(self._fused_variants) >= self.MAX_FUSED_VARIANTS:
+            return None
+        plan = self._derive_plan(transforms)
+        if plan is None:
+            return None
+        # Derived from this frame, the plan holds on it.
+        self._plan = plan
+        return self._install(plan), np.ascontiguousarray(
+            transforms[plan.gather]
+        )
+
+    def plan_for_motion(self, transforms_seq) -> bool:
+        """Derive one fused grouping that stays exact across every
+        transform stack of ``transforms_seq`` (the frames of a camera
+        path, each in the public layout of ``__call__``), size the
+        capacities for every one of those frames, build the grouping's
+        variant and make it the active plan.
+
+        Pairs fuse only where their covers are disjoint (or the overlap
+        escape holds) in every frame, so one variant serves the whole
+        path; each call still re-validates, so motion beyond the path
+        walks in sequence, never renders a wrong frame.  Returns True
+        when the plan's variant is built and active; False when nothing
+        fuses across the motion, or when MAX_FUSED_VARIANTS leaves no
+        room for its variant."""
+        if not self._runs:
+            return False
+        stacks = [self._opt_rows(t) for t in transforms_seq]
+        if not stacks:
+            return False
+        groupings = []
+        for r in self._runs:
+            per = [
+                _run_boxes(r.shape, t[r.stencil_rows]) for t in stacks
+            ]
+            ok_all = np.logical_and.reduce([ok for _, ok, _ in per])
+            for k, (s, c) in enumerate(
+                zip(r.stencil_rows, r.cover_rows)
+            ):
+                if ok_all[k] and not all(
+                    np.array_equal(t[s], t[c]) for t in stacks
+                ):
+                    ok_all[k] = False
+            if self._escape_allowed(r) and ok_all.all():
+                sign_ok = True
+                for _, _, polys in per:
+                    signs = _poly_orientation_signs(polys)
+                    if signs[0] == 0.0 or not np.all(signs == signs[0]):
+                        sign_ok = False
+                        break
+                if sign_ok:
+                    groupings.append(
+                        ((tuple(range(len(r.pairs))),), True)
+                    )
+                    continue
+            groupings.append(
+                (
+                    _greedy_box_groups_multi(
+                        [(boxes, polys) for boxes, _, polys in per],
+                        ok_all,
+                    ),
+                    False,
+                )
+            )
+        plan = _plan_for_groups(self._opt_commands, self._runs, groupings)
+        if plan is None:
+            return False
+        # Capacity scout over every frame of the path (the reference
+        # samples one frame in len/128 past 128 frames and can undersize
+        # the frames it skips): near-plane crossings fill the clip pool
+        # and spread huge covers over many tiles, and each overflow found
+        # mid-motion would cost under-populated frames and a rebuild.
+        renderer = self._renderer
+        paint_model = Renderer._pack_paints(plan.commands)
+        desc_static, paints, _, _ = self._descriptors(paint_model)
+        grew_any = False
+        for _round in range(6):
+            prepare = coverage.make_prepare(self._variant_spec(plan.commands))
+            worst = None
+            for t in stacks:
+                overflow = prepare(
+                    *self._scene.arrays,
+                    torch.as_tensor(t[plan.gather], device=renderer.device),
+                    desc_static, paints,
+                ).overflow
+                worst = (
+                    overflow if worst is None
+                    else torch.maximum(worst, overflow)
+                )
+            worst = worst.cpu().numpy()
+            grew = False
+            for i, name in enumerate(_CAP_NAMES):
+                if int(worst[i]) > self._caps[name]:
+                    # Exact fit: the scout saw the path's true worst.
+                    self._caps[name] = _next_pow2(int(worst[i]))
+                    grew = True
+            if not grew:
+                break
+            renderer._grow_capacities(worst, self._ceilings())
+            grew_any = True
+        if grew_any:
+            self._build()
+        if plan.signature not in self._fused_variants:
+            if self.MAX_FUSED_VARIANTS < 1:
+                return False
+            # A motion plan outranks groupings cached on the way: evict
+            # the oldest (the active plan is replaced just below).
+            while len(self._fused_variants) >= self.MAX_FUSED_VARIANTS:
+                del self._fused_variants[next(iter(self._fused_variants))]
+            self._install(plan)
+        self._plan = self._fused_variants[plan.signature][0]
+        return True
+
+    def wait_fused_compiles(self, timeout=None) -> bool:
+        """True: variants build in the calling thread, so none is ever
+        in flight (the reference's background compiles are waited on
+        here)."""
+        return True
+
+    def _ceilings(self):
+        renderer = self._renderer
+        return (
+            renderer.tile_capacity, renderer._global_capacity,
+            renderer._tile_global_capacity, renderer._clip_pool,
+        )
+
+    def _sync(self):
+        """Per-call upkeep of __call__ and render_sequence: read the
+        overflow counters whose copy has landed (and those
+        OVERFLOW_MAX_LAG frames old in any case), growing the program's
+        capacities with x2 headroom, and pick up geometry edits
+        (Shape.update_paths); either may rebuild the program."""
+        renderer = self._renderer
+        grew = False
+        keep = []
+        for host, event, born in self._pending:
+            if (
+                event is None
+                or event.query()
+                or self._frame - born >= self.OVERFLOW_MAX_LAG
+            ):
+                if event is not None:
+                    event.synchronize()
+                worst = host.numpy()
+                for i, name in enumerate(_CAP_NAMES):
+                    if int(worst[i]) > self._caps[name]:
+                        # A sweep that overflowed once tends to keep
+                        # growing, and every growth is a rebuild.
+                        self._caps[name] = _next_pow2(int(worst[i]) * 2)
+                        grew = True
+                renderer._grow_capacities(worst, self._ceilings())
+            else:
+                keep.append((host, event, born))
+        self._pending = keep
+        if grew:
+            self._build()
+        # A geometry edit re-enters through the scene cache; a changed
+        # padded size rebuilds the program.
+        _, scene = renderer._scene_arrays(self._shapes)
+        if (scene.t_max, scene.h_max) != (
+            self._scene.t_max, self._scene.h_max
+        ):
+            self._scene = scene
+            self._build()
+        else:
+            self._scene = scene
+
+    def _opt_rows(self, transforms):
+        """One frame's public (R, 4, 4) stack, one row per command
+        instance before fusion, validated and gathered to the optimized
+        layout; the commands' own transforms for None."""
+        if transforms is None:
+            return Renderer._pack_transforms(self._opt_commands)
+        transforms = np.ascontiguousarray(transforms, np.float32).reshape(
+            -1, 4, 4
+        )
+        # Validate before the gather: a longer stack would index in range
+        # and render with misattributed rows.
+        expected = sum(c.n_instances for c in self._commands)
+        if transforms.shape[0] != expected:
+            raise ValueError(
+                f"expected {expected} transform rows (one per command "
+                f"instance, pre-fusion), got {transforms.shape[0]}"
+            )
+        if self._keep_rows is not None:
+            transforms = transforms[self._keep_rows]
+        return transforms
+
+    def _descriptors(self, paint_model):
+        """(desc_static, paint points, desc_f, desc_i) on the device,
+        packed anew every call so that dash phases animate; uploaded
+        only when their bytes change."""
+        renderer = self._renderer
+        desc_f, desc_i = Renderer._pack_descriptors(self._shapes)
+        desc_static = np.ascontiguousarray(desc_i[:, [9, 8]])
+        return (
+            renderer._dev_cached("fp_desc_static", desc_static),
+            None if paint_model is None
+            else renderer._dev_cached("fp_paints", paint_model),
+            renderer._dev_cached("fp_desc_f", desc_f),
+            renderer._dev_cached("fp_desc_i", desc_i),
+        )
+
+    def _bin(self, transforms):
+        """Choose the frame's variant and bin the frame: returns
+        ``(variant, runtime)``, where ``variant.rasterize(*runtime)``
+        renders it, and records both steps' host time in ``stats``."""
+        start = time.perf_counter()
+        variant = self._seq
+        if self._runs:
+            fused = self._try_fused(transforms)
+            if fused is not None:
+                variant, transforms = fused
+        planned = time.perf_counter()
+        desc_static, paints, desc_f, desc_i = self._descriptors(
+            variant.paint_model
+        )
+        prepared = variant.prepare(
+            *self._scene.arrays,
+            torch.as_tensor(transforms, device=self._renderer.device),
+            desc_static, paints,
+        )
+        self.stats = {
+            "fused": variant is not self._seq,
+            "plan_ms": (planned - start) * 1e3,
+            "bin_ms": (time.perf_counter() - planned) * 1e3,
+        }
+        return variant, (prepared, variant.cmd_i, variant.cmd_f, desc_f,
+                         desc_i)
+
+    def _defer(self, overflow):
+        self._pending.append((*_copy_to_host_async(overflow), self._frame))
+
+    def __call__(self, transforms=None, carry=None):
+        """Render one frame; returns the (H, W, 4) image on the device, a
+        new tensor each call.  ``transforms``: an (R, 4, 4) row-major
+        model-to-clip stack, one row per (command, instance) draw of the
+        commands as given (the commands' own transforms for None).
+
+        ``carry``: with it, returns ``(image, carry + sum(image[...,
+        3]))``, the sum on the device with no host synchronise (see
+        ``Renderer.render``)."""
+        transforms = self._opt_rows(transforms)
+        require_finite(transforms, "frame transforms")
+        self._frame += 1
+        self._sync()
+        self._refresh_cmd_f()
+        variant, runtime = self._bin(transforms)
+        start = time.perf_counter()
+        image = variant.rasterize(*runtime)
+        if carry is not None:
+            carry = self._renderer._carry(carry, image)
+        self.stats["raster_ms"] = (time.perf_counter() - start) * 1e3
+        self._defer(runtime[0].overflow)
+        return image if carry is None else (image, carry)
+
+    def render_sequence(self, transforms, as_uint8: bool = True):
+        """Render B frames, ``transforms`` (B, R, 4, 4) in the layout of
+        ``__call__``, into one (B, H, W, 4) tensor on the device, uint8
+        by default (quantized per frame, or packed by the kernel with
+        ``uint8_output``).  One descriptor set serves the segment.  The
+        active fused plan is used only when every frame validates under
+        it; the segment's overflow counters are reduced by max and read
+        as one frame's."""
+        transforms = np.ascontiguousarray(transforms, np.float32)
+        if transforms.ndim != 4:
+            transforms = transforms.reshape(len(transforms), -1, 4, 4)
+        if len(transforms) == 0:
+            raise ValueError("render_sequence needs at least one frame")
+        expected = sum(c.n_instances for c in self._commands)
+        if transforms.shape[1] != expected:
+            raise ValueError(
+                f"expected {expected} transform rows per frame (one per "
+                f"command instance, pre-fusion), got {transforms.shape[1]}"
+            )
+        if self._keep_rows is not None:
+            transforms = transforms[:, self._keep_rows]
+        require_finite(transforms, "sequence transforms")
+        self._frame += len(transforms)
+        self._sync()
+        self._refresh_cmd_f()
+        variant = self._seq
+        if self._runs and self._plan is not None:
+            fused_frames = [
+                self._plan_transforms_if_valid(self._plan, t)
+                for t in transforms
+            ]
+            if all(f is not None for f in fused_frames):
+                variant = self._fused_variants[self._plan.signature][1]
+                transforms = np.stack(fused_frames)
+        desc_static, paints, desc_f, desc_i = self._descriptors(
+            variant.paint_model
+        )
+        stack = torch.as_tensor(transforms, device=self._renderer.device)
+        frames = worst = None
+        for b in range(len(stack)):
+            prepared = variant.prepare(
+                *self._scene.arrays, stack[b], desc_static, paints
+            )
+            image = variant.rasterize(
+                prepared, variant.cmd_i, variant.cmd_f, desc_f, desc_i
+            )
+            if as_uint8 and image.dtype != torch.uint8:
+                image = Renderer._quantize(image)
+            if frames is None:
+                frames = torch.empty(
+                    (len(stack),) + tuple(image.shape), dtype=image.dtype,
+                    device=image.device,
+                )
+            frames[b] = image
+            worst = (
+                prepared.overflow if worst is None
+                else torch.maximum(worst, prepared.overflow)
+            )
+        self._defer(worst)
+        return frames

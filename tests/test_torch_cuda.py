@@ -614,3 +614,91 @@ def test_deferred_capacity_grows_on_card(card):
     assert renderer.tile_capacity > 8
     strict = Renderer(Configuration(), SIZE, SIZE, tile_capacity=8, device=card)
     assert np.array_equal(images[-1], strict.render(commands, as_uint8=True))
+
+
+ORBIT_W, ORBIT_H = 1920, 1080
+#: An orbit frame whose instances cross the near plane, and one whose do
+#: not (tests/test_torch_frame_program_plan.py counts them on the host).
+ORBIT_CROSSING, ORBIT_CLEAR = 30, 0
+
+
+@pytest.fixture(scope="module")
+def orbit(card):
+    """The showcase with text at 1920x1080 through compile_frame (packed
+    RGBA8), planned over the orbit's 99 frames; the sequential walk."""
+    shape = showcase.build_shape(with_text=True)
+    program = Renderer(Configuration(), ORBIT_W, ORBIT_H, strict_capacity=False,
+                       device=card).compile_frame(
+        showcase.showcase_commands(shape, ORBIT_W, ORBIT_H), uint8_output=True
+    )
+    assert program.plan_for_motion(
+        [showcase.orbit_transforms(i, ORBIT_W, ORBIT_H) for i in range(99)]
+    )
+    walk = Renderer(Configuration(), ORBIT_W, ORBIT_H, auto_instance=False,
+                    device=card)
+    return shape, program, walk
+
+
+def orbit_walk(shape, walk, frame):
+    """The sequential walk's packed frame of the orbit, and its stats."""
+    image = walk.render(showcase.showcase_commands(
+        shape, ORBIT_W, ORBIT_H, view_rotation=showcase.orbit_rotor(frame)
+    ), as_uint8=True)
+    return image, walk.stats
+
+
+@pytest.mark.parametrize("frame", [ORBIT_CROSSING, ORBIT_CLEAR])
+def test_orbit_program_matches_sequential_walk_on_card(orbit, frame):
+    """The 1080p orbit's program frame, fused, equals the sequential
+    walk's to the bit, with and without near-plane crossings; the kernel
+    equals plain on the program's own binning of the frame."""
+    shape, program, walk = orbit
+    transforms = showcase.orbit_transforms(frame, ORBIT_W, ORBIT_H)
+    image = program(transforms)
+    assert program.stats["fused"] and image.dtype == torch.uint8
+    want, stats = orbit_walk(shape, walk, frame)
+    assert (stats["near_plane_crossings"] > 0) == (frame == ORBIT_CROSSING)
+    assert np.array_equal(image.cpu().numpy(), want)
+    variant, runtime = program._bin(program._opt_rows(transforms))
+    assert_kernel_matches_plain(variant.spec, *runtime)
+
+
+def test_orbit_render_sequence_matches_calls_on_card(orbit):
+    """render_sequence over 8 orbit frames equals the per-frame calls."""
+    _, program, _ = orbit
+    segment = np.stack([showcase.orbit_transforms(i, ORBIT_W, ORBIT_H)
+                        for i in range(24, 32)])
+    before = coverage.raster_launches
+    frames = program.render_sequence(segment)
+    assert coverage.raster_launches == before + len(segment)
+    for got, t in zip(frames, segment):
+        assert torch.equal(got, program(t))
+
+
+def test_frame_program_deferred_growth_on_card(card):
+    """A program whose capacity is shrunk below what its frame bins: the
+    counters come back through pinned memory behind a CUDA event, the
+    program rebuilds within OVERFLOW_MAX_LAG frames, and its frame then
+    equals a strict render's."""
+    t = scenes.ortho(SIZE, SIZE)
+    commands = []
+    for i in range(20):
+        s = Shape([Path.from_circle((128, 128), 112 - 4 * i)])
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, s, t),
+            DrawCommand(RenderOperation.COLOR, s, t,
+                        color=(i / 20, 1 - i / 20, 0.5, 1.0)),
+        ]
+    program = Renderer(Configuration(), SIZE, SIZE, strict_capacity=False,
+                       device=card).compile_frame(commands)
+    program._caps["capacity"] = 8
+    program._build()
+    builds = program.builds
+    for _ in range(port.FrameProgram.OVERFLOW_MAX_LAG):
+        program()
+        if program.builds > builds:
+            break
+    assert program.builds == builds + 1 and program._caps["capacity"] > 8
+    want = Renderer(Configuration(), SIZE, SIZE, device=card).render(
+        commands, to_host=False)
+    assert torch.equal(program(), want)
