@@ -102,7 +102,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against ``Renderer(auto_instance=False).render``, packed RGBA8, to
    the bit; the kernel against plain on the crossing frame, its times and
    bound; and ``render_sequence`` over 16 frames against the per-frame
-   calls, to the bit, with its frames/s.
+   calls, to the bit, with its frames/s;
+20. the orbit example's app (``examples.orbit_camera``) through
+   ``FrameLoop`` at 3840×2160 for 24 frames: a scripted drag and a wheel
+   event, 1920×1080 asked for after frame 12, a ``PngSink`` every 8
+   frames; the last frame at each size against the app's
+   ``compile_frame`` program called outside the loop, RGBA8, to the bit;
+   each PNG read back against the frame presented; ``FrameTimer``'s fps
+   and average at each size; one more frame under
+   ``utils.profiling.device_trace``, whose trace must hold the kernel;
+21. the standalone fill rasterizer (``ops.raster.make_fill_rasterizer``,
+   plain torch on the card): BASELINE config 1 (the circle at 256²)
+   against the port's oracle, error 0.0; config 2's fill table at
+   1920×1080: its time, ``max_count``, tile chunk and peak memory, the
+   overflow reported below ``max_count``, and the winding on the card
+   against the CPU's to the bit;
+22. the showcase with text at 3840×2160 over a ``parallel.Mesh`` of 4
+   row bands (``cuda:{i % n}``): ``render_sharded`` of the showcase and
+   of its clip/alpha variant, and ``render_sharded_2d`` on 2×2, against
+   the single-device render (mean |Δ| < 1e-4); ``ShardedFrameProgram``
+   on 8 orbit frames against ``render_sharded`` (atol 1e-6) and its
+   packed-RGBA8 twin; the time a frame; each band's kernel time, and the
+   slowest band's kernel against plain with its bound;
+23. the viewer example at 1920×1080 served on 127.0.0.1: the page and 3
+   frames over HTTP;
+24. the examples ``render_showcase`` (4 frames at 1920×1080) and
+   ``gradients`` (3840×2160), their PNGs read back; the gradient card's
+   PNG against phase 12's image over white.
 
 Kernel times are the median of 5 batches of launches, printed with the
 batches' least and greatest.  Beside each frame's bound it prints what
@@ -150,6 +176,17 @@ ORBIT_FRAMES = 99
 ORBIT_SEQUENCE = 16
 #: Timed windows of the orbit's frames per resolution.
 ORBIT_WINDOWS = 3
+#: Frames of the orbit example through FrameLoop, the frame after which
+#: it asks for 1920x1080, and the PngSink's stride.
+LOOP_FRAMES, LOOP_RESIZE_AFTER, LOOP_PNG_EVERY = 24, 12, 8
+#: Row bands of the sharded phase, and ShardedFrameProgram's orbit frames.
+SHARD_BANDS, SHARD_FRAMES = 4, 8
+#: Sharded against single-device frames: mean |Δ| over the float image
+#: (tests/test_showcase.py's bar for the JAX package); a sharded
+#: program's frame against render_sharded (tests/test_showcase.py).
+SHARD_MEAN_ABS, SHARD_PROGRAM_ATOL = 1e-4, 1e-6
+#: Viewer frames fetched over HTTP at 1920x1080.
+VIEWER_FRAMES = 3
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -831,6 +868,21 @@ def main():
                         SHOWCASE_W, SHOWCASE_H)
     orbit_phase(coverage, showcase, Configuration, Renderer, card, WIDTH, HEIGHT)
 
+    # ---- 20. the orbit example through FrameLoop ---------------------------------
+    frame_loop_phase(coverage, Renderer, card)
+
+    # ---- 21. the standalone fill rasterizer -----------------------------------------
+    fill_raster_phase(scenes, card)
+
+    # ---- 22. row bands and tiles over a Mesh of the cards -----------------------------
+    sharded = sharded_phase(coverage, showcase, Configuration, Renderer, card)
+
+    # ---- 23. the HTTP viewer ---------------------------------------------------------
+    viewer_phase(card)
+
+    # ---- 24. the examples -------------------------------------------------------------
+    examples_phase(Renderer, card_image)
+
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     if any(m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
@@ -859,10 +911,11 @@ def main():
         frames[label] = (spec_v, runtime_v, launches_v, err_v)
         times[label] = (k_ms, p_ms)
         bounds[label] = bound
-    spec_v, runtime_v, launches_v, err_v, k_ms, p_ms, bound = orbit
-    frames["orbit"] = (spec_v, runtime_v, launches_v, err_v)
-    times["orbit"] = (k_ms, p_ms)
-    bounds["orbit"] = bound
+    for label, result in (("orbit", orbit), ("sharded", sharded)):
+        spec_v, runtime_v, launches_v, err_v, k_ms, p_ms, bound = result
+        frames[label] = (spec_v, runtime_v, launches_v, err_v)
+        times[label] = (k_ms, p_ms)
+        bounds[label] = bound
 
     def entry(name, line, label, frame):
         _, _, launches_v, err_v = frames[label]
@@ -907,6 +960,11 @@ def main():
                    f"through FrameProgram, packed RGBA8, 3840x2160; times on the "
                    f"frame with the most near-plane crossings"),
              frames=ORBIT_FRAMES, launches_per_frame=orbit[2] / ORBIT_FRAMES),
+        entry("coverage_raster: showcase over 4 row bands (render_sharded)", 1446,
+              "sharded",
+              f"showcase with text, 3840x2160 over a Mesh of {SHARD_BANDS} row "
+              f"bands (3840x540 each); launches over one render_sharded frame; "
+              f"times and bound of its slowest band"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1507,6 +1565,431 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     if not all(equal):
         fail(f"{label}: render_sequence differs from __call__")
     return variant.spec, runtime, launches, err, k_ms, p_ms, bound
+
+
+def frame_loop_phase(coverage, Renderer, card):
+    """Phase 20: the orbit example's app through FrameLoop at 3840x2160
+    for LOOP_FRAMES frames: a scripted drag (button down, 8 pointer
+    moves, up) and a wheel event, 1920x1080 asked for after frame
+    LOOP_RESIZE_AFTER, a PngSink every LOOP_PNG_EVERY frames.  The last
+    frame at each size equals Renderer._quantize of the app's
+    FrameProgram called outside the loop under the same camera and dash
+    phase (the first frame of a program built after the resize may be
+    under-populated until its deferred overflow counters are read,
+    FrameProgram's contract); every PNG reads back as the frame
+    presented; no frame is blank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from contrast_renderer_tpu_torch.app import FrameLoop, PngSink
+    from contrast_renderer_tpu_torch.examples.orbit_camera import ShowcaseOrbitApp
+    from contrast_renderer_tpu_torch.utils.png import read_png
+    from contrast_renderer_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    label = "frame loop"
+    with tempfile.TemporaryDirectory() as out:
+        png_sink = PngSink(out, every=LOOP_PNG_EVERY)
+        presented = {}
+
+        def sink(image, index):
+            presented[index] = image
+            png_sink(image, index)
+
+        app = ShowcaseOrbitApp(with_text=True)
+        start = time.perf_counter()
+        loop = FrameLoop(app, SHOWCASE_W, SHOWCASE_H, sink=sink)
+        print(f"{label}: FrameLoop on {loop.renderer.device}, the orbit app "
+              f"created at {SHOWCASE_W}x{SHOWCASE_H} in "
+              f"{time.perf_counter() - start:.2f} s", flush=True)
+        if loop.renderer.device.type != "cuda":
+            fail(f"{label}: the loop's renderer is on {loop.renderer.device}")
+        seconds = {}
+        coverage.raster_launches = 0
+        for index in range(LOOP_FRAMES):
+            if index == 0:
+                loop.send_button(True)
+                loop.send_pointer(0.0, 0.0)
+            elif index <= 8:
+                loop.send_pointer(40.0 * index, 6.0 * index)
+            elif index == 9:
+                loop.send_button(False)
+            elif index == 10:
+                loop.send_wheel(-2.0)
+            image = loop.step()
+            size = (loop.renderer.width, loop.renderer.height)
+            seconds.setdefault(size, []).append(loop.timer.last_s)
+            if index in (LOOP_RESIZE_AFTER, LOOP_FRAMES - 1):
+                # The app's program outside the loop, same camera and
+                # dash phase (set on the shape by the frame's render).
+                want = Renderer._quantize(app._program(app.transforms(loop.renderer)))
+                differ = int((torch.from_numpy(image) != want.cpu()).any(-1).sum())
+                print(f"{label}: frame {index} at {size[0]}x{size[1]} vs the "
+                      f"app's compile_frame program called outside the loop, "
+                      f"RGBA8: {differ} pixels differ", flush=True)
+                if differ:
+                    fail(f"{label}: frame {index} differs from its direct render")
+            if not (image[..., 3] > 0).any():
+                fail(f"{label}: frame {index} is blank")
+            if index == LOOP_RESIZE_AFTER:
+                print(f"{label} ({card}): FrameTimer after {index + 1} "
+                      f"frames at {size[0]}x{size[1]}: fps {loop.timer.fps:.2f}, "
+                      f"average_s {loop.timer.average_s:.5f}", flush=True)
+                loop.request_resize(WIDTH, HEIGHT)
+        launches = coverage.raster_launches
+        print(f"{label} ({card}): FrameTimer after {LOOP_FRAMES} frames: "
+              f"fps {loop.timer.fps:.2f}, average_s {loop.timer.average_s:.5f}; "
+              + "; ".join(
+                  f"{w}x{h}: {len(v)} frames, median {statistics.median(v) * 1e3:.2f} "
+                  f"ms a frame (render, quantize and fetch)"
+                  for (w, h), v in seconds.items())
+              + f"; {launches} coverage_raster launches; builds of the "
+              f"{WIDTH}x{HEIGHT} program {app._program.builds}", flush=True)
+        if launches < LOOP_FRAMES:
+            fail(f"{label}: {launches} coverage_raster launches for "
+                 f"{LOOP_FRAMES} frames")
+        if (WIDTH, HEIGHT) not in seconds:
+            fail(f"{label}: the resize did not take effect")
+        written = sorted(os.listdir(out))
+        for name in written:
+            index = int(name[len("frame_"):-len(".png")])
+            if not np.array_equal(read_png(os.path.join(out, name)), presented[index]):
+                fail(f"{label}: {name} does not read back as the frame presented")
+        print(f"{label}: {len(written)} PNGs ({', '.join(written)}) read back "
+              f"equal to the frames presented", flush=True)
+        if len(written) != -(-LOOP_FRAMES // LOOP_PNG_EVERY):
+            fail(f"{label}: {len(written)} PNGs written")
+        # One more frame under utils.profiling.device_trace.
+        loop.sink = None
+        trace_dir = os.path.join(out, "trace")
+        with device_trace(trace_dir) as prof:
+            loop.step()
+        raster_us = sum(e.device_time_total for e in prof.key_averages()
+                        if "coverage_raster" in e.key)
+        trace_bytes = os.path.getsize(os.path.join(trace_dir, TRACE_FILE))
+        print(f"{label}: device_trace of one {WIDTH}x{HEIGHT} frame: a Chrome "
+              f"trace of {trace_bytes} bytes; coverage_raster device time "
+              f"{raster_us / 1e3:.3f} ms in it", flush=True)
+        if not raster_us > 0:
+            fail(f"{label}: device_trace holds no coverage_raster device time")
+
+
+def fill_raster_phase(scenes, card):
+    """Phase 21: ops/raster.py's make_fill_rasterizer on the card.
+    BASELINE config 1 (the circle at 256², radius 90) against the port's
+    scalar oracle: error 0.0.  Config 2's fill table (one FillBuilder over
+    its 1,000 Bézier paths) at 1920x1080: times (CUDA events), max_count,
+    the tile chunk and the peak memory at the default capacity; a run at
+    a capacity below max_count reports the overflow; and the winding on
+    the card equals the same function on the CPU to the bit, both at the
+    capacity max_count (a host refitting its capacity to max_count, as
+    the overflow report invites; at 256 slots the CPU would take minutes
+    for slots that hold nothing)."""
+    import numpy as np
+    import torch
+
+    from contrast_renderer_tpu_torch import oracle
+    from contrast_renderer_tpu_torch.fill import FillBuilder
+    from contrast_renderer_tpu_torch.ops import raster
+
+    def table_of(paths):
+        builder = FillBuilder()
+        for p in paths:
+            builder.add_path([], p)
+        return builder.build()
+
+    def args_of(table, width, height):
+        return (table.xy, table.aux, table.kind, table.meta,
+                scenes.ortho(width, height))
+
+    size = CIRCLE_SIZE
+    circle = table_of([scenes.Path.from_circle((128, 128), 90)])
+    winding, max_count = raster.make_fill_rasterizer(size, size)(
+        *args_of(circle, size, size))
+    err = float(np.mean(winding.cpu().numpy()
+                        != oracle.rasterize_fill_table(circle, size, size)))
+    print(f"fill raster: config 1 circle {size}² on {winding.device}: error vs "
+          f"the oracle {err} (fraction of samples), max_count {int(max_count)}",
+          flush=True)
+    if winding.device.type != "cuda" or err != 0.0:
+        fail("fill raster: config 1 is not exact on the card")
+
+    start = time.perf_counter()
+    table = table_of(scenes.bezier_fill_paths(1000, WIDTH, HEIGHT, seed=0))
+    build_s = time.perf_counter() - start
+    args = args_of(table, WIDTH, HEIGHT)
+    # The table on the card once, as a caller that keeps it there would.
+    on_card = tuple(torch.as_tensor(np.asarray(a), device="cuda") for a in args)
+    rasterize = raster.make_fill_rasterizer(WIDTH, HEIGHT)
+    rasterize(*on_card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    winding, max_count = rasterize(*on_card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    fit = int(max_count)
+    triangles = len(table.kind)
+    capacity = min(256, triangles)
+    med, lo, hi = cuda_ms(lambda: rasterize(*on_card), 5, 3, 2)
+    print(f"fill raster ({card}): config 2 table ({triangles} triangles, built in "
+          f"{build_s:.2f} s) at {WIDTH}x{HEIGHT}, capacity {capacity}: "
+          f"max_count {fit}, tile chunk {raster.tile_chunk(32, 4, capacity)} of "
+          f"{-(-WIDTH // 32) * -(-HEIGHT // 32)} tiles; median {med:.3f} ms "
+          f"[{lo:.3f}, {hi:.3f}] a call (CUDA events, 5 batches of 3, the table "
+          f"on the card); peak device memory over a call "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    low = max(1, fit // 2)
+    _, over = raster.make_fill_rasterizer(WIDTH, HEIGHT, capacity=low)(*args)
+    print(f"fill raster: config 2 at capacity {low}: max_count {int(over)} "
+          f"reports the overflow {int(over) > low}", flush=True)
+    if not int(over) > low:
+        fail("fill raster: a capacity below max_count did not report the overflow")
+    got, got_max = raster.make_fill_rasterizer(WIDTH, HEIGHT, capacity=fit)(*args)
+    start = time.perf_counter()
+    want, want_max = raster.make_fill_rasterizer(
+        WIDTH, HEIGHT, capacity=fit, device="cpu")(*args)
+    cpu_s = time.perf_counter() - start
+    equal = bool(torch.equal(got.cpu(), want)) and int(got_max) == int(want_max)
+    same_default = bool(torch.equal(got, winding))
+    print(f"fill raster: config 2 at capacity {fit}: card vs CPU winding equal "
+          f"to the bit {equal} (CPU {cpu_s:.1f} s on "
+          f"{torch.get_num_threads()} threads); card at capacity {fit} vs "
+          f"{capacity}: equal {same_default}; covered samples "
+          f"{int((want != 0).sum())}", flush=True)
+    if not equal or (fit <= capacity and not same_default) or not (want != 0).any():
+        fail("fill raster: config 2's winding on the card differs from the CPU's")
+
+
+def sharded_phase(coverage, showcase, Configuration, Renderer, card):
+    """Phase 22: the showcase with text at 3840x2160 over a Mesh of
+    SHARD_BANDS row bands, cuda:{i % n} for the n cards visible (one
+    card: the same card four times).  render_sharded of the showcase (92
+    commands) and of its clip/alpha variant, and render_sharded_2d on a
+    2x2 mesh, against the single-device render: mean |Δ| <
+    SHARD_MEAN_ABS; ShardedFrameProgram on SHARD_FRAMES orbit frames
+    against render_sharded of the same transforms (atol
+    SHARD_PROGRAM_ATOL), its uint8_output twin against it in RGBA8, the
+    time a frame (host clock, synchronised); each band's kernel time
+    (CUDA events) and the bound of the slowest band, whose kernel is held
+    against plain.  Returns the slowest band's (spec, runtime, launches,
+    max_abs_err, kernel ms, plain ms, bound)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from contrast_renderer_tpu_torch.parallel import (
+        Mesh, ShardedFrameProgram, render_sharded, render_sharded_2d,
+    )
+    from contrast_renderer_tpu_torch.parallel import mesh as mesh_module
+
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i % n_cards}" for i in range(SHARD_BANDS)]
+    mesh = Mesh(devices, ("y",))
+    grid = Mesh(np.array(devices).reshape(2, 2), ("y", "x"))
+    print(f"sharded: {n_cards} CUDA device(s) visible; band mesh {devices}, "
+          f"2x2 mesh {grid.devices.tolist()}", flush=True)
+    shape = showcase.build_shape(with_text=True)
+    variants = {
+        "showcase": (Configuration(),
+                     showcase.showcase_commands(shape, SHOWCASE_W, SHOWCASE_H)),
+        "showcase clip/alpha": (
+            Configuration(alpha_layer_count=1, blending="front_to_back"),
+            showcase.showcase_commands_clip_alpha(shape, SHOWCASE_W, SHOWCASE_H),
+        ),
+    }
+    launches = None
+    for label, (config, cmds) in variants.items():
+        single = Renderer(config, SHOWCASE_W, SHOWCASE_H).render(cmds, to_host=False)
+        runs = [("render_sharded, 4 bands", render_sharded, mesh)]
+        if label == "showcase":
+            runs.append(("render_sharded_2d, 2x2", render_sharded_2d, grid))
+        for name, fn, where in runs:
+            coverage.raster_launches = 0
+            start = time.perf_counter()
+            sharded = fn(Renderer(config, SHOWCASE_W, SHOWCASE_H), cmds, where)
+            seconds = time.perf_counter() - start
+            count = coverage.raster_launches
+            if launches is None:
+                launches = count
+            got = torch.from_numpy(sharded).to(single.device)
+            mean = float((got - single).abs().mean())
+            differ = float((Renderer._quantize(got) != Renderer._quantize(single))
+                           .any(-1).double().mean())
+            print(f"sharded {label}, {name}: {count} coverage_raster launches, "
+                  f"{seconds:.2f} s with packing; vs the single-device render: "
+                  f"mean |d| {mean:.3g}, RGBA8 pixels that differ {differ:.3g}",
+                  flush=True)
+            if count < len(where.devices.reshape(-1)) or not mean < SHARD_MEAN_ABS:
+                fail(f"sharded {label}, {name}: {count} launches, mean |d| {mean}")
+
+    # ShardedFrameProgram on orbit frames, against render_sharded.
+    config, cmds = variants["showcase"]
+    start = time.perf_counter()
+    program = ShardedFrameProgram(Renderer(config, SHOWCASE_W, SHOWCASE_H), cmds, mesh)
+    packed = ShardedFrameProgram(Renderer(config, SHOWCASE_W, SHOWCASE_H), cmds,
+                                 mesh, uint8_output=True)
+    torch.cuda.synchronize()
+    print(f"sharded program: two programs (float, packed RGBA8) built in "
+          f"{time.perf_counter() - start:.2f} s; band capacities "
+          f"{program._limits}", flush=True)
+    stacks = [showcase.orbit_transforms(i, SHOWCASE_W, SHOWCASE_H)
+              for i in range(SHARD_FRAMES)]
+    # One pass over the motion first: a frame that outgrows the settled
+    # capacities renders under-populated until its deferred counters are
+    # read (at most OVERFLOW_MAX_LAG frames), as FrameProgram's do.
+    limits = (program._limits, packed._limits)
+    for t in stacks:
+        program(t)
+        packed(t)
+    torch.cuda.synchronize()
+    print(f"sharded program: band capacities over a first pass of the "
+          f"{SHARD_FRAMES} frames {limits[0]} -> {program._limits} (float), "
+          f"{limits[1]} -> {packed._limits} (packed)", flush=True)
+    worst, rgba_differ = 0.0, 0
+    for t in stacks:
+        got = program(t)
+        want = render_sharded(Renderer(config, SHOWCASE_W, SHOWCASE_H),
+                              [replace(c, transform=row) for c, row in zip(cmds, t)],
+                              mesh)
+        worst = max(worst, float((got.cpu() - torch.from_numpy(want)).abs().max()))
+        rgba_differ += int((packed(t) != Renderer._quantize(got)).any(-1).sum())
+    print(f"sharded program: {SHARD_FRAMES} orbit frames vs render_sharded of the "
+          f"same transforms: max |d| {worst:.3g}; packed RGBA8 program vs the "
+          f"float program quantized: {rgba_differ} pixels differ", flush=True)
+    if not worst <= SHARD_PROGRAM_ATOL or rgba_differ:
+        fail("sharded program: frames differ from render_sharded or in RGBA8")
+    times = []
+    for t in stacks * 2:
+        start = time.perf_counter()
+        program(t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    print(f"sharded program ({card}): {len(times)} orbit frames at "
+          f"{SHOWCASE_W}x{SHOWCASE_H} over {SHARD_BANDS} bands: median "
+          f"{statistics.median(times):.2f} ms a frame [{min(times):.2f}, "
+          f"{max(times):.2f}] (host clock, synchronised each frame)", flush=True)
+
+    # Each band's kernel on the program's own binning of frame 0.
+    pipeline, bands = program._pipeline, program._grid
+    band_ms, band_runtime = [], []
+    for b, device in enumerate(bands.devices):
+        adjusted = torch.as_tensor(bands.adjust(program._default_transform, b),
+                                   device=device)
+        runtime = pipeline.runtime(device, adjusted)
+        args = raster_args(coverage, pipeline.spec, runtime)
+        with torch.cuda.device(device):
+            band_ms.append(cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3))
+        band_runtime.append(runtime)
+    slowest = max(range(len(band_ms)), key=lambda b: band_ms[b][0])
+    spec, runtime = pipeline.spec, band_runtime[slowest]
+    err = kernel_vs_plain(coverage, spec, runtime, f"sharded band {slowest}")
+    args = raster_args(coverage, spec, runtime)
+    p_ms = cuda_ms(lambda: coverage.rasterize_plain(*args), 1, 1, 0)[0]
+    work = {}
+    bound = kernel_bound(coverage, spec, runtime, work)
+    print(f"timing sharded bands ({card}): coverage_raster per band "
+          + ", ".join(f"{b}: {m[0]:.3f} ms [{m[1]:.3f}, {m[2]:.3f}]"
+                      for b, m in enumerate(band_ms))
+          + f"; sum {sum(m[0] for m in band_ms):.3f} ms; slowest band {slowest}: "
+          f"rasterize_plain {p_ms:.3f} ms, kernel_bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); "
+          f"band spec tile {spec.tile_h}x{spec.tile_w} strips {spec.tile_strips}, "
+          f"{spec.n_tiles} tiles, {spec.n_commands} commands walked", flush=True)
+    return spec, runtime, launches, err, band_ms[slowest][0], p_ms, bound
+
+
+def viewer_phase(card):
+    """Phase 23: the viewer example's ShowcaseSession at 1920x1080 on the
+    card, served on 127.0.0.1 (a free port); the page and VIEWER_FRAMES
+    frames fetched over HTTP, each W·H·4 bytes and not blank."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from contrast_renderer_tpu_torch.examples import viewer_server
+
+    start = time.perf_counter()
+    session = viewer_server.ShowcaseSession(WIDTH, HEIGHT)
+    ready_s = time.perf_counter() - start
+    server = viewer_server.make_server(session, port=0)
+    host, port = server.server_address[:2]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://{host}:{port}"
+        page = urllib.request.urlopen(base + "/", timeout=60).read().decode()
+        if "<canvas" not in page:
+            fail("viewer: the page has no canvas")
+        seconds = []
+        for i in range(VIEWER_FRAMES):
+            begin = time.perf_counter()
+            raw = urllib.request.urlopen(
+                f"{base}/frame?yaw={0.4 * i}&pitch=0.1&dist=5&t={0.5 * i}",
+                timeout=120).read()
+            seconds.append(time.perf_counter() - begin)
+            if len(raw) != WIDTH * HEIGHT * 4:
+                fail(f"viewer: frame {i} is {len(raw)} bytes")
+            frame = np.frombuffer(raw, np.uint8).reshape(HEIGHT, WIDTH, 4)
+            if not (frame[..., :3] < 250).any():
+                fail(f"viewer: frame {i} is blank")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print(f"viewer: session ready in {ready_s:.2f} s (plan_for_motion over 16 yaw "
+          f"samples); served on {host}:{port}; page and {VIEWER_FRAMES} frames of "
+          f"{WIDTH}x{HEIGHT}x4 bytes fetched, round trips "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in seconds)} ms ({card})",
+          flush=True)
+    if host != "127.0.0.1":
+        fail(f"viewer: bound {host}")
+
+
+def examples_phase(Renderer, card_image):
+    """Phase 24: render_showcase for 4 frames at 1920x1080 and gradients
+    at 3840x2160, on the card, into a temporary directory; the gradient
+    PNG decoded against phase 12's gradient card composited over white
+    and quantized."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from contrast_renderer_tpu_torch.examples import gradients, render_showcase
+    from contrast_renderer_tpu_torch.utils.png import read_png
+
+    with tempfile.TemporaryDirectory() as out:
+        frames_dir = os.path.join(out, "frames")
+        start = time.perf_counter()
+        render_showcase.main(["--size", f"{WIDTH}x{HEIGHT}", "--frames", "4",
+                              "--out", frames_dir])
+        showcase_s = time.perf_counter() - start
+        written = sorted(os.listdir(frames_dir))
+        for name in written:
+            image = read_png(os.path.join(frames_dir, name))
+            if image.shape != (HEIGHT, WIDTH, 4) or not (image[..., 3] > 0).any():
+                fail(f"examples: render_showcase wrote a blank or misshapen {name}")
+        if len(written) != 4:
+            fail(f"examples: render_showcase wrote {written}")
+        card_png = os.path.join(out, "gradients.png")
+        start = time.perf_counter()
+        gradients.main(["--size", f"{SHOWCASE_W}x{SHOWCASE_H}", "--out", card_png])
+        gradients_s = time.perf_counter() - start
+        got = read_png(card_png)
+    white = torch.ones(4, device=card_image.device)
+    want = Renderer._composite_quantize(card_image, white).cpu().numpy()
+    differ = int((got != want).any(-1).sum())
+    print(f"examples: render_showcase wrote {len(written)} PNGs at "
+          f"{WIDTH}x{HEIGHT} in {showcase_s:.2f} s; gradients at "
+          f"{SHOWCASE_W}x{SHOWCASE_H} in {gradients_s:.2f} s (with its PNG); its "
+          f"PNG vs the gradient-card phase's image over white, RGBA8: {differ} "
+          f"pixels differ", flush=True)
+    if got.shape != want.shape or differ:
+        fail("examples: the gradients PNG differs from the gradient card phase")
 
 
 if __name__ == "__main__":

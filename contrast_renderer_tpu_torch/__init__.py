@@ -14,8 +14,11 @@ paints, clips, alpha groups and depth, instanced and multi-shape draws
 with auto-instancing, text as shapes and draw commands, the deferred
 capacity check and the ``carry`` probe, through ``Renderer.render``; and
 the moving camera through ``Renderer.compile_frame`` (``FrameProgram``,
-with its fusion planners, ``plan_for_motion`` and ``render_sequence``).
-See ROADMAP.md for what follows.
+with its fusion planners, ``plan_for_motion`` and ``render_sequence``);
+the frame loop (``app``), PNG output and frame timing (``utils.png``,
+``utils.profiling``), the standalone fill rasterizer (``ops.raster``),
+row-band and tile sharding over several devices (``parallel``) and the
+examples (``examples``).
 """
 
 __version__ = "0.1.0"
@@ -43,6 +46,8 @@ _TEXT_NAMES = {
     "text_commands_fused",
 }
 
+_APP_NAMES = {"Application", "FrameLoop", "PngSink", "CollectSink"}
+
 
 def __getattr__(name):
     # Renderer names load torch on first use, not at package import.
@@ -54,4 +59,8 @@ def __getattr__(name):
         from . import text
 
         return getattr(text, name)
+    if name in _APP_NAMES:
+        from . import app
+
+        return getattr(app, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

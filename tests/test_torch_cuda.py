@@ -5,8 +5,10 @@ layers in registers, in shared memory and in the global scratch of
 resident blocks; the clip vote on content partly outside its clips;
 gated against ungated clip and alpha frames; depth under several
 compare functions; linear, radial and multi-stop gradients; a user
-paint compiled into the kernel; the cap golden; and the whole path on
-the card against the path on the CPU.
+paint compiled into the kernel; the cap golden; the whole path on the
+card against the path on the CPU; and the standalone fill rasterizer,
+band sharding and the frame loop on the card against the CPU, the
+single render and ``compile_frame``.
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -702,3 +704,70 @@ def test_frame_program_deferred_growth_on_card(card):
     want = Renderer(Configuration(), SIZE, SIZE, device=card).render(
         commands, to_host=False)
     assert torch.equal(program(), want)
+
+
+def test_fill_rasterizer_on_card_matches_cpu(card):
+    """ops/raster.py: config-2-like Bézier fills at 256² through
+    make_fill_rasterizer on the card and on the CPU: the same winding to
+    the bit and the same max_count, at a capacity that overflows too."""
+    from contrast_renderer_tpu_torch.fill import FillBuilder
+    from contrast_renderer_tpu_torch.ops import raster
+
+    builder = FillBuilder()
+    for p in scenes.bezier_fill_paths(120, SIZE, SIZE, seed=3, margin=10.0,
+                                      radius=(4.0, 24.0)):
+        builder.add_path([], p)
+    table = builder.build()
+    args = (table.xy, table.aux, table.kind, table.meta, scenes.ortho(SIZE, SIZE))
+    for capacity in (256, 4):
+        got, got_max = raster.make_fill_rasterizer(
+            SIZE, SIZE, capacity=capacity, device=card)(*args)
+        want, want_max = raster.make_fill_rasterizer(
+            SIZE, SIZE, capacity=capacity, device="cpu")(*args)
+        assert got.device.type == "cuda" and got_max.device.type == "cuda"
+        assert torch.equal(got.cpu(), want) and int(got_max) == int(want_max)
+    assert int(want_max) > 4 and (want != 0).any()
+
+
+def _band_mesh(bands=4):
+    from contrast_renderer_tpu_torch.parallel import Mesh
+
+    n = torch.cuda.device_count()
+    return Mesh([f"cuda:{i % n}" for i in range(bands)], ("y",))
+
+
+def test_render_sharded_on_card_matches_single_render(card):
+    """Four row bands of the showcase with text at 256² (on the cards
+    there are, in turn) against the single-device render: mean |Δ| <
+    1e-4, and one coverage_raster launch per band."""
+    from contrast_renderer_tpu_torch.parallel import render_sharded
+
+    shape = showcase.build_shape(with_text=True)
+    commands = showcase.showcase_commands(shape, SIZE, SIZE)
+    before = coverage.raster_launches
+    sharded = render_sharded(Renderer(Configuration(), SIZE, SIZE, device=card),
+                             commands, _band_mesh())
+    assert coverage.raster_launches - before >= 4
+    single = Renderer(Configuration(), SIZE, SIZE, device=card).render(commands)
+    assert float(np.mean(np.abs(sharded - single))) < 1e-4
+
+
+def test_frame_loop_on_card_matches_compile_frame(card):
+    """The orbit example's app through FrameLoop on the card presents the
+    frames a separately built FrameProgram renders, as RGBA8."""
+    from contrast_renderer_tpu_torch.app import FrameLoop
+    from contrast_renderer_tpu_torch.examples.orbit_camera import ShowcaseOrbitApp
+
+    app = ShowcaseOrbitApp(with_text=True)
+    loop = FrameLoop(app, SIZE, SIZE)
+    assert loop.renderer.device.type == "cuda"
+    reference = Renderer(Configuration(), SIZE, SIZE, device=card)
+    program = reference.compile_frame(
+        showcase.showcase_commands(app._shape, SIZE, SIZE))
+    loop.send_button(True)
+    for index in range(3):
+        loop.send_pointer(20.0 * index, 5.0 * index)
+        presented = loop.step()
+        want = Renderer._quantize(program(app.transforms(reference)))
+        assert np.array_equal(presented, want.cpu().numpy()), index
+        assert (presented[..., 3] > 0).any()

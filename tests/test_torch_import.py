@@ -73,6 +73,13 @@ from contrast_renderer_tpu_torch import cff, scenes, text, ttf
 for form in scenes.CONFIG4_FORMS:
     assert scenes.config4_text(form, text="ab\\nba")
 assert port.text_commands_fused is text.text_commands_fused
+import contrast_renderer_tpu_torch.app
+import contrast_renderer_tpu_torch.examples.viewer_server
+import contrast_renderer_tpu_torch.parallel
+from contrast_renderer_tpu_torch.examples import gradients, orbit_camera, render_showcase
+from contrast_renderer_tpu_torch.ops import raster
+from contrast_renderer_tpu_torch.utils import png, profiling
+assert port.FrameLoop is contrast_renderer_tpu_torch.app.FrameLoop
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 reference = sorted(
@@ -102,6 +109,12 @@ def test_package_sources_never_import_jax():
     )
     sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
+    for module in ("app.py", "utils/png.py", "utils/profiling.py",
+                   "ops/raster.py", "parallel/__init__.py", "parallel/mesh.py",
+                   "examples/__init__.py", "examples/render_showcase.py",
+                   "examples/orbit_camera.py", "examples/gradients.py",
+                   "examples/viewer_server.py"):
+        assert PACKAGE / module in sources, module
     for path in sources:
         assert not pattern.search(path.read_text()), path
 
