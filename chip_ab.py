@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Interleaved A/B of the coverage kernel between two checkouts of this
+"""Interleaved A/B of the coverage kernel between checkouts of this
 repository, on one CUDA device.
 
-    python3 chip_ab.py ROOT_A ROOT_B
+    python3 chip_ab.py ROOT_A ROOT_B [ROOT_C ...]
 
-Six fresh processes in the order A, B, B, A, A, B each import
-``contrast_renderer_tpu_torch`` from their root (its kernels built from
-that root's sources into its own ``build/``), bin chip_smoke.py's eight
-4× MSAA frames on the card, and time each: the kernel (``coverage_raster``,
-median of 5 batches of 10 launches, with the batches' least and
-greatest; CUDA events, chip_smoke.py's ``cuda_ms``) and the frame with
-cached binning (``Renderer.render``, median of 10 frames).  Each process
-also hashes each frame's packed RGBA8 kernel output, so that the two
-roots' images are compared bit for bit.  A process that built the kernels prints ptxas' registers
-and spills.  The last lines are one row per frame (each root's kernel
-medians, least and greatest over its processes, whether the images are
-equal) and one JSON object with all of it.  Exits non-zero if a process
-fails, no CUDA device is visible, or the roots' images differ.
+Fresh processes, each root three times in the order A, B, B, A, A, B
+(with more roots, the roots in order, reversed, then in order again),
+each import ``contrast_renderer_tpu_torch`` from their root (its kernels
+built from that root's sources into its own ``build/``), bin
+chip_smoke.py's eight 4× MSAA frames on the card, and time each: the
+kernel (``coverage_raster``, median of 5 batches of 10 launches, with
+the batches' least and greatest; CUDA events, chip_smoke.py's
+``cuda_ms``) and the frame with cached binning (``Renderer.render``,
+median of 10 frames), and, for the 4K showcase, the device operations of
+one cached frame under torch.profiler (whether a de-tiling copy follows
+the kernel). Each process also hashes each frame's packed RGBA8 kernel
+output as an (H, W) frame (a root whose kernel writes tiles has them
+de-tiled here), so that the roots' images are compared bit for bit. A
+process that built the kernels prints ptxas' registers and spills. The
+last lines are one row per frame (each root's kernel medians, least and
+greatest over its processes, whether the images are equal) and one JSON
+object with all of it. Exits non-zero if a process fails, no CUDA device
+is visible, or the roots' images differ.
 
 The frames use only what both roots offer: ``Renderer`` with an
 explicit device, ``Renderer._prepare``, ``coverage.coverage_raster``,
@@ -37,7 +42,14 @@ import sys
 from dataclasses import replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ORDER = "ABBAAB"
+LETTERS = "ABCDEFGH"
+
+
+def order(n):
+    """The processes' order over n roots: ABBAAB for two; the roots in
+    order, reversed, then in order again for more."""
+    roots = LETTERS[:n]
+    return "ABBAAB" if n == 2 else roots + roots[::-1] + roots
 
 
 def fail(message):
@@ -94,6 +106,43 @@ def frames(api, scenes, showcase, smoke):
     return out
 
 
+def packed_frame(spec, out):
+    """The packed RGBA8 frame (H, W) of a kernel output: as it is, or
+    de-tiled from the (n_tiles, th, tw) tiles of a root whose kernel
+    writes tiles (lane l of a tile's row r is screen pixel ((l // lw)·th
+    + r, l % lw) of its footprint)."""
+    if out.dim() == 2:
+        return out
+    nty, ntx = spec.nty, spec.ntx
+    th, strips, lw = spec.tile_h, spec.tile_strips, spec.screen_tile_w
+    image = out.reshape(nty, ntx, th, strips, lw).permute(0, 3, 2, 1, 4)
+    image = image.reshape(nty * spec.screen_tile_h, ntx * lw)
+    return image[:spec.height, :spec.width].contiguous()
+
+
+def cached_ops(renderer, commands):
+    """The device operations, in order, of one frame of ``renderer``
+    with binning cached, under torch.profiler after a marker operation
+    (a one-element fill, listed first): [(name, µs)].  The worker's only
+    profiler session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    renderer.render(commands, to_host=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        renderer.render(commands, to_host=False)
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
+    return [(e.name[:60], e.time_range.end - e.time_range.start) for e in events]
+
+
 def worker(root):
     """Time the frames with the port of ``root``; prints one line
     ``AB {json}``."""
@@ -124,7 +173,10 @@ def worker(root):
         args = smoke.raster_args(coverage, spec, runtime)
         k_ms, k_lo, k_hi = smoke.cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
         f_ms = smoke.cuda_ms(lambda: renderer.render(commands, to_host=False), 10, 1, 3)[0]
-        packed = coverage.coverage_raster(replace(spec, out_uint8=True), *args[1:])
+        packed_spec = replace(spec, out_uint8=True)
+        packed = packed_frame(
+            packed_spec, coverage.coverage_raster(packed_spec, *args[1:])
+        )
         results[label] = {
             "kernel_ms": k_ms, "kernel_lo": k_lo, "kernel_hi": k_hi, "frame_ms": f_ms,
             "commands": spec.n_commands,
@@ -132,6 +184,12 @@ def worker(root):
         }
         print(f"  {label}: {spec.n_commands} commands walked, kernel {k_ms:.4f} ms "
               f"[{k_lo:.4f}, {k_hi:.4f}], frame {f_ms:.4f} ms", flush=True)
+        if label == "showcase":
+            ops = cached_ops(renderer, commands)
+            results[label]["cached_ops"] = ops
+            print(f"  {label}: a cached frame's device operations, the marker "
+                  f"first: {'; '.join(f'{n} {us:.1f} us' for n, us in ops)}",
+                  flush=True)
     print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
 
 
@@ -140,9 +198,10 @@ def main():
     if argv[:1] == ["--worker"]:
         worker(argv[1])
         return
-    if len(argv) != 2:
-        fail("usage: chip_ab.py ROOT_A ROOT_B")
-    roots = dict(zip("AB", argv))
+    if not 2 <= len(argv) <= len(LETTERS):
+        fail("usage: chip_ab.py ROOT_A ROOT_B [ROOT_C ...]")
+    roots = dict(zip(LETTERS, argv))
+    sequence = order(len(argv))
     import torch
 
     if not torch.cuda.is_available():
@@ -152,8 +211,8 @@ def main():
         capture_output=True, text=True, timeout=60,
     )
     print(smi.stdout.strip(), flush=True)
-    runs = {"A": [], "B": []}
-    for letter in ORDER:
+    runs = {letter: [] for letter in roots}
+    for letter in sequence:
         print(f"{letter}: {roots[letter]}", flush=True)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", roots[letter]],
@@ -168,10 +227,10 @@ def main():
             print(proc.stderr[-4000:], file=sys.stderr)
             fail(f"the {letter} process exited {proc.returncode}")
     summary = {}
-    labels = list(dict.fromkeys(k for r in runs["A"] + runs["B"] for k in r))
+    labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))
     for label in labels:
         row = {}
-        for letter in "AB":
+        for letter in roots:
             done = [r[label] for r in runs[letter] if label in r]
             row[letter] = {
                 "commands": sorted({d.get("commands") for d in done}, key=str),
@@ -181,10 +240,10 @@ def main():
                 "frame_ms": [d["frame_ms"] for d in done],
                 "rgba8": sorted({d["rgba8"] for d in done}),
             } if done else None
-        both = [r for r in (row["A"], row["B"]) if r]
+        present = [row[letter] for letter in roots if row[letter]]
         row["equal"] = (
-            len({h for r in both for h in r["rgba8"]}) == 1 if len(both) == 2
-            else None
+            len({h for r in present for h in r["rgba8"]}) == 1
+            if len(present) >= 2 else None
         )
         summary[label] = row
         cells = "; ".join(
@@ -193,12 +252,12 @@ def main():
             f"[{row[letter]['kernel_lo']:.4f}, {row[letter]['kernel_hi']:.4f}] ms, "
             f"frame {', '.join(f'{v:.3f}' for v in row[letter]['frame_ms'])} ms"
             if row[letter] else f"{letter} does not render it"
-            for letter in "AB"
+            for letter in roots
         )
         print(f"{label}: {cells}; images equal {row['equal']}", flush=True)
-    print(json.dumps({"ab": summary, "roots": roots, "order": ORDER}), flush=True)
+    print(json.dumps({"ab": summary, "roots": roots, "order": sequence}), flush=True)
     if any(row["equal"] is False for row in summary.values()):
-        fail("the two roots' images differ")
+        fail("the roots' images differ")
 
 
 if __name__ == "__main__":

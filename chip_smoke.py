@@ -13,13 +13,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build the coverage raster kernel (csrc/coverage_raster.cu) with nvcc,
    one library per feature set the frames below need (4× MSAA: the base
    build, depth, gradients, gradients and the checker user paint; 16×
-   MSAA: the base build), all at once; with ``--ptxas-report`` also the depth and gradient builds
+   MSAA: the base build; phase 25's profiling builds of the four 4×
+   MSAA feature sets and its subtractive build), all at once; with
+   ``--ptxas-report`` also the depth and gradient builds
    at 1, 2, 8 and 16 samples, which no frame uses; print each library's
    build seconds and ptxas' registers and spills per instantiation;
 3. on the BASELINE config-2 frame (1,000 integral quadratic and cubic
    Bézier fills, 1920×1080, 4× MSAA), binned by the port on the card,
    hold the kernel against its plain torch version on the same tensors,
-   float and packed-RGBA8 output;
+   float and packed-RGBA8 output (the kernel's (H, W) frame against the
+   plain version's tiles de-tiled by ``coverage.detile``);
 4. render that frame through ``Renderer.render`` on the card, and check
    that it went through the kernel, has the right shape, finite values,
    alpha in [0, 1] and covered pixels;
@@ -48,7 +51,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    golden (tests/golden/cap_styles_96x72.npy), bit for bit;
 10. time the kernel, its plain version, the cached-binning frame (CUDA
    events, and the host clock around the call with no synchronise) and
-   the binning of each frame of phases 7-8;
+   the binning of each frame of phases 7-8; then one cached showcase
+   frame at 3840×2160, float output, under torch.profiler: its device
+   operations in order, which must be the coverage kernel with nothing
+   after it (the kernel writes the frame's own (H, W, 4) layout; no
+   de-tiling copy follows), and the frame's time;
 11. the showcase with text at 3840×2160 under the reference showcase's
    own depth state (LessEqual, depth write): kernel against plain, then
    ``Renderer.render``; the pixels that differ from the frame without
@@ -128,7 +135,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    frames over HTTP;
 24. the examples ``render_showcase`` (4 frames at 1920×1080) and
    ``gradients`` (3840×2160), their PNGs read back; the gradient card's
-   PNG against phase 12's image over white.
+   PNG against phase 12's image over white;
+25. the kernel body by body on config 2, the showcase, the showcase +
+   depth, the gradient card and the mixed-paints frame: the profiling
+   build's warp-cycles per body (``coverage.PROFILE_BODIES``) and each
+   body's share, the kernel's time in the build that renders and in the
+   profiling build, and the subtractive build of ``BREAKDOWN_OMIT``.
 
 Kernel times are the median of 5 batches of launches, printed with the
 batches' least and greatest.  Beside each frame's bound it prints what
@@ -136,7 +148,9 @@ the kernel's stencil walk skipped on that frame (``rasterize_plain``'s
 ``work``): the (warp, entry) pairs that the box test culled, and the
 stroke sample evaluations that the warp vote skipped.
 
-Kernel against plain is equality to the bit, float and packed RGBA8.
+Kernel against plain is equality to the bit, float and packed RGBA8,
+frame against de-tiled tiles.  The line before the two JSON lines gives
+the run's seconds.
 The line before the last is ``{"kernels": [...]}``, one entry per ported
 body of the kernel with the frame that exercised it, its launches on the
 main path, its time, its plain version's, and its bound: the least time
@@ -187,6 +201,10 @@ SHARD_BANDS, SHARD_FRAMES = 4, 8
 SHARD_MEAN_ABS, SHARD_PROGRAM_ATOL = 1e-4, 1e-6
 #: Viewer frames fetched over HTTP at 1920x1080.
 VIEWER_FRAMES = 3
+#: The subtractive build of the breakdown phase: {frame: bodies} of
+#: coverage.PROFILE_BODIES skipped, timing only; frames of the base
+#: build (KernelFeatures(4)).
+BREAKDOWN_OMIT = {"showcase": ("fill",)}
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -319,9 +337,9 @@ def raster_args(coverage, spec, runtime):
 
 
 def kernel_vs_plain(coverage, spec, runtime, label):
-    """Hold the kernel against rasterize_plain on the same tensors, float
-    and packed RGBA8: equal to the bit.  Returns the float max abs error
-    (0.0)."""
+    """Hold the kernel's frame against rasterize_plain's tiles de-tiled
+    (``coverage.detile``) on the same tensors, float and packed RGBA8:
+    equal to the bit.  Returns the float max abs error (0.0)."""
     from dataclasses import replace
 
     import torch
@@ -331,7 +349,7 @@ def kernel_vs_plain(coverage, spec, runtime, label):
     for u8 in (False, True):
         mode = (replace(spec, out_uint8=u8),) + args[1:]
         got = coverage.coverage_raster(*mode)
-        want = coverage.rasterize_plain(*mode)
+        want = coverage.detile(mode[0], coverage.rasterize_plain(*mode))
         torch.cuda.synchronize()
         if u8:
             gb = got.view(torch.uint8).reshape(-1, 4).int()
@@ -350,9 +368,53 @@ def kernel_vs_plain(coverage, spec, runtime, label):
                   f"{bool(torch.equal(got, want))}", flush=True)
             if not torch.equal(got, want):
                 fail(f"{label}: float output off by {max_abs_err}")
-            if not bool((want[:, 3] > 0).any()):
+            if not bool((want[..., 3] > 0).any()):
                 fail(f"{label}: the plain version covered nothing")
     return max_abs_err
+
+
+def breakdown_phase(coverage, frames, card, omit):
+    """The kernel body by body on each frame of ``frames`` ({label:
+    (spec, runtime)}): the profiling build's warp-cycles per body
+    (``coverage.PROFILE_BODIES``) of one launch and each body's share of
+    their sum; the kernel's time in the build that renders and in the
+    profiling build; and, for each body of ``omit``, the time of the
+    subtractive build that skips it (timing only, the image not kept).
+    Returns {label: {"shares": {...}, "cycles": {...}, "ms": ...,
+    "profile_ms": ..., "omit_ms": {...}}}.  ``omit``: {label: bodies}."""
+    import torch
+
+    bodies = coverage.PROFILE_BODIES
+    out = {}
+    for label, (spec, runtime) in frames.items():
+        args = raster_args(coverage, spec, runtime)
+        prof = torch.zeros(len(bodies), dtype=torch.int64, device="cuda")
+        coverage.coverage_raster(*args, profile=prof)
+        cycles = dict(zip(bodies, prof.tolist()))
+        total = sum(cycles.values())
+        if total <= 0:
+            fail(f"breakdown {label}: the profiling build counted no cycles")
+        shares = {b: c / total for b, c in cycles.items()}
+        ms = cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
+        profile_ms = cuda_ms(
+            lambda: coverage.coverage_raster(*args, profile=prof), 5, 10, 3
+        )
+        omit_ms = {
+            body: cuda_ms(lambda: coverage.coverage_raster(*args, omit=body), 5, 10, 3)
+            for body in omit.get(label, ())
+        }
+        out[label] = {"shares": shares, "cycles": cycles, "ms": ms,
+                      "profile_ms": profile_ms, "omit_ms": omit_ms}
+        split = ", ".join(f"{b} {shares[b]:.3f}" for b in bodies)
+        omitted = "; ".join(
+            f"without {b} {v[0]:.3f} ms [{v[1]:.3f}, {v[2]:.3f}]"
+            for b, v in omit_ms.items()
+        )
+        print(f"breakdown {label} ({card}): warp-cycle shares {split} "
+              f"({total:.4g} warp-cycles); kernel {ms[0]:.3f} ms "
+              f"[{ms[1]:.3f}, {ms[2]:.3f}], profiling build {profile_ms[0]:.3f} ms"
+              f"{'; ' + omitted if omitted else ''}", flush=True)
+    return out
 
 
 def blend_ops(coverage, blending):
@@ -505,7 +567,7 @@ def bound_from_work(coverage, spec, runtime, work):
         + active * 4 * (2 * (coverage.N_CLASSES * C + 1) + C
                         + 2 * len(draws.c_cmd) + len(draws.unit_cmd) + 1)
         + tables
-        + spec.n_tiles * spec.tile_h * spec.tile_w * (4 if spec.out_uint8 else 16)
+        + spec.width * spec.height * (4 if spec.out_uint8 else 16)
     )
     byte_s, op_s = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s else "operations"), nbytes, ops
@@ -562,6 +624,7 @@ def binning_ms(renderer, commands, reps):
 
 
 def main():
+    run_start = time.perf_counter()
     import torch
 
     # ---- 1. device ------------------------------------------------------
@@ -603,6 +666,10 @@ def main():
         KF(4, True, 2, (scenes.CHECKER_CUDA,)),  # mixed paints
         KF(16),                                  # 16 alpha layers, 16x MSAA
     ]
+    # Phase 25's profiling builds, and its subtractive build.
+    features += [f._replace(variant="profile") for f in features[:4]]
+    features += [KF(4, variant=f"omit_{body}")
+                 for bodies in BREAKDOWN_OMIT.values() for body in bodies]
     if "--ptxas-report" in sys.argv[1:]:
         # For ptxas' report only: the depth and gradient builds at the
         # other sample counts, where their registers and spills differ.
@@ -783,6 +850,9 @@ def main():
     timed = {"config 3": (renderer3, commands3, spec3, runtime3, err3, launches3)}
     timed.update({k: v[:6] for k, v in shown.items()})
     times = time_frames(coverage, timed, card)
+    # The first torch.profiler session of the run (phase 19's and 20's
+    # come later): one cached showcase frame's device operations.
+    cached_frame_trace(coverage, *shown["showcase"][:2], card)
 
     # ---- 11. the showcase under the reference's depth state ----------------
     paint_frames = {}
@@ -883,6 +953,12 @@ def main():
     # ---- 24. the examples -------------------------------------------------------------
     examples_phase(Renderer, card_image)
 
+    # ---- 25. the kernel body by body ----------------------------------------------
+    yardsticks = {"config 2": (spec, runtime)}
+    yardsticks.update({k: shown[k][2:4] for k in ("showcase",)})
+    yardsticks.update({k: v[2:4] for k, v in paint_frames.items()})
+    breakdown_phase(coverage, yardsticks, card, BREAKDOWN_OMIT)
+
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     if any(m == "contrast_renderer_tpu" or m.startswith("contrast_renderer_tpu.")
@@ -904,7 +980,9 @@ def main():
               f"pairs; box test culled {work.get('culled', 0)} of "
               f"{work.get('entry_warps', 0)} (warp, entry) pairs; warp vote "
               f"skipped {work.get('vote_skipped', 0)} of "
-              f"{work.get('stroke_samples', 0)} stroke sample evaluations",
+              f"{work.get('stroke_samples', 0)} stroke sample evaluations; cover "
+              f"vote skipped {work.get('cover_skipped', 0)} of "
+              f"{work.get('cover_warps', 0)} (warp, colour unit) pairs",
               flush=True)
     for label, (spec_v, runtime_v, launches_v, err_v, k_ms, p_ms, bound) in (
             text_frames.items()):
@@ -928,6 +1006,8 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
 
+    print(f"run: {time.perf_counter() - run_start:.1f} s to here, builds "
+          f"included", flush=True)
     config2 = ("config 2", "config 2 (1,000 Bézier fills, 1920x1080)")
     clip_alpha = ("showcase clip/alpha", "showcase clip/alpha variant, 3840x2160")
     print(json.dumps({"kernels": [
@@ -971,6 +1051,45 @@ def main():
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def cached_frame_trace(coverage, renderer, commands, card):
+    """One frame of the showcase at 4K, float output, binning cached,
+    under torch.profiler after one small torch operation (a marker: the
+    trace then holds the card's operations of the window): the device
+    operations in order, of which the coverage kernel must be the last
+    (it writes the frame's own layout: no de-tiling copy follows); and
+    the frame's time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    renderer.render(commands, to_host=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        image = renderer.render(commands, to_host=False)
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
+    listed = "; ".join(
+        f"{e.name[:48]} {e.time_range.end - e.time_range.start:.1f} us"
+        for e in events
+    )
+    frame_ms = cuda_ms(lambda: renderer.render(commands, to_host=False), 10, 1, 3)
+    print(f"cached showcase frame, 3840x2160 float ({card}): {tuple(image.shape)} "
+          f"{image.dtype}; device operations in order, the marker first: "
+          f"{listed or 'none traced'}; frame (cached binning) {frame_ms[0]:.3f} "
+          f"ms [{frame_ms[1]:.3f}, {frame_ms[2]:.3f}]", flush=True)
+    kernel = [i for i, e in enumerate(events) if "coverage_raster" in e.name]
+    if kernel != [len(events) - 1]:
+        fail("cached showcase frame: the trace does not end in the one coverage "
+             "kernel launch")
+    if tuple(image.shape) != (SHOWCASE_H, SHOWCASE_W, 4) or not image.is_contiguous():
+        fail(f"cached showcase frame: {tuple(image.shape)}, not the (H, W, 4) frame")
 
 
 def gating_phase(coverage, renderer_module, shown):
@@ -1148,7 +1267,7 @@ def config4_phase(coverage, scenes, Configuration, Renderer, card):
         begin = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         begin.record()
-        want = coverage.rasterize_plain(*args, work=work)
+        want = coverage.detile(spec, coverage.rasterize_plain(*args, work=work))
         end.record()
         torch.cuda.synchronize()
         p_ms = begin.elapsed_time(end)
@@ -1157,10 +1276,10 @@ def config4_phase(coverage, scenes, Configuration, Renderer, card):
               f"bit-identical {bool(torch.equal(got, want))}", flush=True)
         if not torch.equal(got, want):
             fail(f"{label}: float output off by {err}")
-        if form == "fused":
+        if form != "per_glyph":  # its plain version takes seconds
             packed = (replace(spec, out_uint8=True),) + args[1:]
-            if not torch.equal(coverage.coverage_raster(*packed),
-                               coverage.rasterize_plain(*packed)):
+            if not torch.equal(coverage.coverage_raster(*packed), coverage.detile(
+                    packed[0], coverage.rasterize_plain(*packed))):
                 fail(f"{label}: packed RGBA8 output disagrees with the plain version")
             print(f"{label}: kernel vs plain, packed RGBA8: equal", flush=True)
         bound = bound_from_work(coverage, spec, runtime, work)

@@ -4,7 +4,8 @@
 // every body of it:
 //   - the per-tile walk: the empty-tile path (acount == 0 writes zeros), the
 //     walk over the tile's active units (`aclist`), and the MSAA resolve to
-//     float or to packed RGBA8 (one int32 per pixel);
+//     float or to packed RGBA8 (one int32 per pixel), written at the
+//     pixel's place in the frame;
 //   - the stroke stencil: six classes (lines, joints; each solid,
 //     single-interval dash, general dash), local then per-tile global,
 //     before the fills: perspective-correct texcoords, the mitre / bevel /
@@ -19,9 +20,10 @@
 //   - alpha groups: save, scale, save+scale and restore of frame alpha
 //     through L per-sample layer slots;
 //   - the colour cover: the tile's cover class, the hull lines set in
-//     `hbits`, the winding rule, the generic wgpu blend algebra (integer
-//     factor and operation codes, blend constant from cmd_f columns 20:24),
-//     and the winding reset of covered samples;
+//     `hbits`, the winding rule, the wgpu blend algebra (the named states'
+//     formulas, or integer factor and operation codes with the blend
+//     constant from cmd_f columns 20:24), and the winding reset of covered
+//     samples;
 //   - depth: per sample the draw's NDC-z plane, one of the eight wgpu
 //     compare functions against the pixel's S depth values (cleared to 1.0
 //     per tile), joined into the cover mask, and the write of passing
@@ -127,6 +129,32 @@
 //     result is `inside & keep` per sample, so no bit changes.  A lane
 //     with no inside sample still runs its warp's predicates: skipping
 //     them would only mask it, since the warp issues them for the others.
+//   - The frame's own layout.  The kernel writes each pixel at (by, bx) of
+//     the frame, a float4 of (H, W, 4) float32 or an int32 of packed RGBA8,
+//     and skips the padding of the last tile row and column; a warp row's
+//     8 pixels are one 128-byte run of float4.  Tiles of (n_tiles, 4, th,
+//     tw), as the reference's float output is laid out, needed a second
+//     pass to de-tile them: at 4K a 266 MB copy after every frame, 0.13 ms
+//     on the H100.
+//   - The cover vote.  Paint, blend, winding reset and depth write all take
+//     the cover mask (hull, winding rule, clip, depth), so after the mask
+//     each lane ORs it over its samples and the warp skips them where the
+//     __reduce_or_sync is 0: 74% of the 4K showcase's (warp, colour unit)
+//     pairs, 87% of config 2's, 14% of the gradient card's
+//     (rasterize_plain(work=...)'s "cover_skipped").
+//   - The blend kinds.  The blend state is uniform over the grid.  The
+//     named states (back to front, front to back, additive) run their
+//     formulas, s + d * (1 - sa), s * (1 - da) + d and s + d, selected by one
+//     switch per cover unit outside the sample loop; any other state runs
+//     the generic blend_channel, which switches on the factor and operation
+//     codes per channel and sample.  s * 1 is s, so each formula rounds as
+//     the codes do.  One instantiation per kind would have multiplied the
+//     build's 6 instantiations by 4.
+//   - Gradient constants.  A gradient cover's per-draw terms (the stop
+//     differences, the floored segment lengths, the axis and its floored
+//     squared length) are computed once per unit, one value per lane, into
+//     the warp's 32 floats of shared memory (gradient_constants), not at
+//     every sample; the per-sample divides and square root stay IEEE.
 //   - Control flow depends only on the tile, the unit and the warp-wide
 //     reductions, never on the pixel alone, so no lane diverges from its
 //     warp, and the staging loops and their barriers stay uniform over the
@@ -166,7 +194,13 @@
 // alpha layer and 1.90 -> 1.38 ms with two; the other frames no slower.
 // A block-wide vote (__syncthreads_or) before each stencil unit instead
 // of the warp vote spilled 440-570 B in the stroke builds and ran that
-// frame at 1.42 ms.
+// frame at 1.42 ms.  The profiling build then put 11-37% of the warp-cycles
+// of the 4K showcase, showcase + depth and gradient-card frames in the
+// blend; against this kernel with tiles de-tiled after it, the cover vote
+// and the generic blend only, in one run (chip_ab.py): the showcase 0.88
+// -> 0.65 ms, the gradient card 0.64 -> 0.36, config 2 0.19 -> 0.11,
+// config 3 0.79 -> 0.69, the clip/alpha showcase 1.34 -> 1.15, most of it
+// from the blend kinds; every image equal to the bit.
 //
 // Rounding: built with --fmad=false, so every multiply and add rounds on
 // its own, in the reference's order of operations; divides and square
@@ -185,8 +219,34 @@
 #ifndef RASTER_PAINT
 #define RASTER_PAINT 0
 #endif
+// The profiling build (RASTER_PROFILE=1): lane 0 of each warp reads
+// clock64() at the boundaries of the bodies below and adds the cycles
+// between them to the body's counter (shared per block, then
+// RasterArgs::prof); its cover runs the paint and the blend as two sample
+// loops, so that the boundary between them is warp-converged.  The
+// subtractive build (RASTER_OMIT=body) leaves one body out, for timing
+// alone.  Neither is loaded by a render (ops/coverage.py::coverage_raster's
+// `profile` and `omit`).
+#ifndef RASTER_PROFILE
+#define RASTER_PROFILE 0
+#endif
+#ifndef RASTER_OMIT
+#define RASTER_OMIT -1
+#endif
 
 namespace {
+
+// Bodies of the profiling build, in ops/coverage.py::PROFILE_BODIES order:
+// tile setup and the per-unit table loads; the stroke stencil; the fill
+// stencil with the bulk winding; the cover's hull test; the cover's depth
+// and mask; its paint; its blend, winding reset and depth write; clip and
+// alpha ops; the resolve and write; empty tiles.
+constexpr int BODY_SETUP = 0, BODY_STROKE = 1, BODY_FILL = 2, BODY_HULL = 3,
+              BODY_DEPTH = 4, BODY_PAINT = 5, BODY_BLEND = 6,
+              BODY_CLIP_ALPHA = 7, BODY_RESOLVE = 8, BODY_EMPTY = 9,
+              N_BODIES = 10;
+constexpr bool PROFILE = RASTER_PROFILE != 0;
+constexpr int OMIT = RASTER_OMIT;
 
 constexpr int BLOCK = 256;           // pixels (threads) per block
 constexpr int CHUNK = 64;            // entry rows staged per pass
@@ -246,11 +306,15 @@ constexpr int F_ZERO = 0, F_ONE = 1, F_SRC_ALPHA = 2, F_ONE_MINUS_SRC_ALPHA = 3,
               F_SRC_ALPHA_SATURATED = 6, F_CONSTANT = 7,
               F_ONE_MINUS_CONSTANT = 8;
 constexpr int B_ADD = 0, B_SUBTRACT = 1, B_MIN = 3, B_MAX = 4;
+// Blend kinds (ops/coverage.py::blend_kind): the named states of
+// _NAMED_BLEND, and any other state.
+constexpr int BLEND_GENERIC = 0, BLEND_BACK_TO_FRONT = 1,
+              BLEND_FRONT_TO_BACK = 2, BLEND_ADDITIVE = 3;
 // Depth compare function codes (ops/coverage.py DEPTH_COMPARE_CODES).
 constexpr int CMP_NEVER = 0, CMP_LESS = 1, CMP_EQUAL = 2, CMP_LESS_EQUAL = 3,
               CMP_GREATER = 4, CMP_NOT_EQUAL = 5, CMP_GREATER_EQUAL = 6;
 constexpr int MAX_STOPS = 4;
-constexpr int PAINT_RADIAL = 2;
+constexpr int PAINT_LINEAR = 1, PAINT_RADIAL = 2;
 
 }  // namespace
 
@@ -279,11 +343,17 @@ struct RasterArgs {
   // Layer mode 0 with alpha layers past shared memory: a scratch of
   // layer_blocks slices of (L, S, 256) floats, one per block; else null.
   float* layers;
-  void* out;             // f32 (n_tiles, 4, th, tw) or i32 (n_tiles, th, tw)
+  // The profiling build's warp-cycles per body (N_BODIES); else null.
+  unsigned long long* prof;
+  // The frame: f32 (height, width, 4), 16-byte aligned, or packed RGBA8
+  // as i32 (height, width).
+  void* out;
+  int width, height;
   int n_tiles, ntx, th, tw, strips, lw, lh;
   int n_commands, n_draws, n_units, hull_rows, draw_cols, kp, kgp, n_groups;
   int samples, winding_mask, out_u8;
   int color_src, color_op, color_dst, alpha_src, alpha_op, alpha_dst;
+  int blend_kind;  // a BLEND_* kind; the codes above serve BLEND_GENERIC
   // has_clip: the frame holds clip or unclip ops; has_alpha: alpha-group
   // ops.  layer_mode: -1, no clip or alpha ops; 1, one alpha layer in
   // registers; 0, layers in shared memory, or in `layers`.  has_strokes:
@@ -296,6 +366,26 @@ struct RasterArgs {
 };
 
 namespace {
+
+// The profiling build's clock: lap(body) charges the cycles since the
+// previous lap to `body`.  Every lap sits where the warp is converged
+// (control flow is warp-uniform there), so lane 0's clock is the warp's.
+// Empty outside the profiling build.
+struct Laps {
+  unsigned long long* acc;  // the block's shared counters
+  long long t;
+  __device__ __forceinline__ void start() {
+    if constexpr (PROFILE) t = clock64();
+  }
+  __device__ __forceinline__ void lap(int body) {
+    if constexpr (PROFILE) {
+      const long long now = clock64();
+      if ((threadIdx.x & 31) == 0)
+        atomicAdd(acc + body, (unsigned long long)(now - t));
+      t = now;
+    }
+  }
+};
 
 __device__ __forceinline__ float blend_factor(int f, float ca, float da,
                                               int chan, const float* k) {
@@ -328,6 +418,40 @@ __device__ __forceinline__ float blend_channel(int sf, int op, int df, float s,
   if (op == B_SUBTRACT) return st - dt;
   return dt - st;  // reverse subtract
 }
+
+// One channel of the blend, out = op(s * src_factor, d * dst_factor), as a
+// function object of (channel, s, d, source alpha, destination alpha,
+// blend constant).  The named states are their formulas in the plain
+// version's order of operations (s * 1 is s): no code is selected per
+// sample.  Any other state reads the frame's factor and operation codes.
+struct BlendBackToFront {  // (one, add, one_minus_src_alpha)
+  __device__ __forceinline__ float operator()(int, float s, float d, float sa,
+                                              float, const float*) const {
+    return s + d * (1.0f - sa);
+  }
+};
+struct BlendFrontToBack {  // (one_minus_dst_alpha, add, one)
+  __device__ __forceinline__ float operator()(int, float s, float d, float,
+                                              float da, const float*) const {
+    return s * (1.0f - da) + d;
+  }
+};
+struct BlendAdditive {  // (one, add, one)
+  __device__ __forceinline__ float operator()(int, float s, float d, float,
+                                              float, const float*) const {
+    return s + d;
+  }
+};
+struct BlendGeneric {
+  int color_src, color_op, color_dst, alpha_src, alpha_op, alpha_dst;
+  __device__ __forceinline__ float operator()(int chan, float s, float d,
+                                              float sa, float da,
+                                              const float* k) const {
+    const bool alpha = chan == 3;
+    return blend_channel(alpha ? alpha_src : color_src, alpha ? alpha_op : color_op,
+                         alpha ? alpha_dst : color_dst, s, d, sa, da, chan, k);
+  }
+};
 
 // max and min that return NaN when either operand is NaN (jnp.maximum,
 // torch.maximum), unlike fmaxf and fminf.
@@ -368,30 +492,62 @@ __device__ __forceinline__ unsigned depth_pass(int cmp, const float (&z)[S],
   return bits;
 }
 
+// A gradient draw's constants, computed once per cover unit into its
+// warp's 32-float slot of shared memory, lane i the value at index i: the
+// first stop's colour; for each ramp segment i, its four channels' stop
+// differences and its offset; each segment's length floored at 1e-6 (a
+// hard stop); the anchor, the axis (end minus start, or rim minus centre)
+// and its squared length floored at 1e-12.  The same operations on the
+// same values as per sample, so the paint rounds as before.
+constexpr int GC_BASE = 0, GC_DIFF = 4, GC_OFF = 16, GC_LEN = 19,
+              GC_ANCHOR = 22, GC_AXIS = 24, GC_DEN = 26;
+__device__ __forceinline__ void gradient_constants(const float* cf,
+                                                   const float* pxy, int lane,
+                                                   float* g) {
+  float v = 0.0f;
+  if (lane < GC_DIFF) {
+    v = cf[lane];
+  } else if (lane < GC_OFF) {
+    const int i = (lane - GC_DIFF) >> 2, ch = (lane - GC_DIFF) & 3;
+    v = cf[4 * (i + 1) + ch] - cf[4 * i + ch];
+  } else if (lane < GC_LEN) {
+    v = cf[lane];  // offsets, cmd_f columns 16:19
+  } else if (lane < GC_ANCHOR) {
+    const int i = lane - GC_LEN;
+    v = nan_max(cf[17 + i] - cf[16 + i], (float)1e-6);
+  } else if (lane < GC_AXIS) {
+    v = pxy[lane - GC_ANCHOR];
+  } else if (lane < GC_DEN) {
+    v = pxy[lane - GC_AXIS + 2] - pxy[lane - GC_AXIS];
+  } else if (lane == GC_DEN) {
+    const float pdx = pxy[2] - pxy[0], pdy = pxy[3] - pxy[1];
+    v = nan_max(pdx * pdx + pdy * pdy, (float)1e-12);
+  }
+  g[lane] = v;
+}
+
 // Gradient paint (reference _gradient_cover), straight RGBA at (px, py): t
 // along the draw's projected paint points (linear: start to end; radial:
 // centre to rim) clipped to [0, 1], then the piecewise-linear ramp of the
-// MAX_STOPS stops of its cmd_f row, each segment's length floored at 1e-6
-// (a hard stop).  Op for op as the reference, IEEE divide and sqrt.
-__device__ __forceinline__ void gradient_paint(const float* cf, const float* pxy,
-                                               bool radial, float px, float py,
+// MAX_STOPS stops of its cmd_f row.  Op for op as the reference, IEEE
+// divide and sqrt; `g` holds the draw's gradient_constants.
+__device__ __forceinline__ void gradient_paint(const float* g, bool radial,
+                                               float px, float py,
                                                float (&rgba)[4]) {
-  const float pax = pxy[0], pay = pxy[1];
-  const float pdx = pxy[2] - pax, pdy = pxy[3] - pay;
-  const float pden = nan_max(pdx * pdx + pdy * pdy, (float)1e-12);
-  const float rel_x = px - pax, rel_y = py - pay;
+  const float rel_x = px - g[GC_ANCHOR], rel_y = py - g[GC_ANCHOR + 1];
+  const float pden = g[GC_DEN];
   const float t = clip01(radial ? sqrtf((rel_x * rel_x + rel_y * rel_y) / pden)
-                                : (rel_x * pdx + rel_y * pdy) / pden);
+                                : (rel_x * g[GC_AXIS] + rel_y * g[GC_AXIS + 1]) / pden);
   float fs[MAX_STOPS - 1];
 #pragma unroll
   for (int i = 0; i < MAX_STOPS - 1; ++i)
-    fs[i] = clip01((t - cf[16 + i]) / nan_max(cf[17 + i] - cf[16 + i], (float)1e-6));
+    fs[i] = clip01((t - g[GC_OFF + i]) / g[GC_LEN + i]);
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    float v = cf[ch];
+    float v = g[GC_BASE + ch];
 #pragma unroll
     for (int i = 0; i < MAX_STOPS - 1; ++i)
-      v = v + (cf[4 * (i + 1) + ch] - cf[4 * i + ch]) * fs[i];
+      v = v + g[GC_DIFF + 4 * i + ch] * fs[i];
     rgba[ch] = v;
   }
 }
@@ -799,12 +955,111 @@ __device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
 // and alpha op of a command at that depth.  The OR over the warp
 // (__reduce_or_sync) lies in a uniform register, so a branch on it never
 // diverges.  All 32 lanes must call it together.
+// The premultiplied source colour of a cover draw's paint at one sample
+// (px, py): `solid` for paint code 0; else the gradient (1 linear, 2
+// radial; `g` its gradient_constants) or user paint (3 + i; `pxy` its
+// paint points) of the draw, premultiplied.
+template <int PAINT>
+__device__ __forceinline__ void paint_src(int pk, const float* g,
+                                          const float* pxy,
+                                          const float (&solid)[4], float px,
+                                          float py, float (&src)[4]) {
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) src[ch] = solid[ch];
+  if constexpr (PAINT > 0) {
+    if (pk != 0) {
+      // Straight RGBA of the paint at the sample, premultiplied.
+      float rgba[4];
+#if RASTER_PAINT == 2
+      if (pk >= 3) {
+        const float4 u = user_paint(pk - 3, px, py, pxy[0], pxy[1], pxy[2], pxy[3]);
+        rgba[0] = u.x;
+        rgba[1] = u.y;
+        rgba[2] = u.z;
+        rgba[3] = u.w;
+      } else
+#endif
+        gradient_paint(g, pk == PAINT_RADIAL, px, py, rgba);
+      src[0] = rgba[0] * rgba[3];
+      src[1] = rgba[1] * rgba[3];
+      src[2] = rgba[2] * rgba[3];
+      src[3] = rgba[3];
+    }
+  }
+}
+
+// Blend `src` into sample s of the pixel's colour; k is the blend
+// constant (cmd_f columns 20:24).
+template <int S, class Blend>
+__device__ __forceinline__ void blend_sample(const Blend& blend,
+                                             const float (&src)[4],
+                                             float (&color)[4][S], int s,
+                                             const float* k) {
+  const float da = color[3][s];
+#pragma unroll
+  for (int chan = 0; chan < 4; ++chan)
+    color[chan][s] = blend(chan, src[chan], color[chan][s], src[3], da, k);
+}
+
+// The subtractive build skips body `body`: a condition true at run time
+// there but unknown to the compiler (n_tiles > 0 is checked at launch),
+// so the skipped body's code, and the state it reads, stay compiled.
+__device__ __forceinline__ bool omitted(int body, const RasterArgs& a) {
+  return OMIT == body && a.n_tiles > 0;
+}
+
 template <int S>
 __device__ __forceinline__ bool warp_at_depth(const int (&clip)[S], int depth) {
   unsigned at = 0u;
 #pragma unroll
   for (int s = 0; s < S; ++s) at |= (unsigned)(clip[s] == depth);
   return __reduce_or_sync(FULL, at) != 0u;
+}
+
+// The colour cover's sample loop, for the samples set in `cover`: the
+// paint (premultiplied; `g` a gradient's constants), the blend, the
+// winding reset and, with depth write, the depth write.  The profiling build runs the paint and the
+// blend as two loops, with a lap after each.
+template <int S, bool DEPTH, int PAINT, class Blend>
+__device__ __forceinline__ void cover_samples(
+    const RasterArgs& a, const Blend& blend, unsigned cover, int pk,
+    const float* cf, const float* g, const float* pxy, const float (&solid)[4], float bx,
+    float by, float (&color)[4][S], int (&wind)[S], float (&zbuf)[DEPTH ? S : 1],
+    const float (&zv)[DEPTH ? S : 1], Laps& laps) {
+  if (omitted(BODY_PAINT, a)) pk = 0;
+  if constexpr (PROFILE) {
+    float src[S][4];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (((cover >> s) & 1u) == 0u) continue;
+      paint_src<PAINT>(pk, g, pxy, solid, bx + a.sample_x[s], by + a.sample_y[s],
+                       src[s]);
+    }
+    laps.lap(BODY_PAINT);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (((cover >> s) & 1u) == 0u) continue;
+      blend_sample<S>(blend, src[s], color, s, cf + 20);
+      wind[s] = 0;
+      if constexpr (DEPTH) {
+        if (a.depth_write) zbuf[s] = zv[s];
+      }
+    }
+    laps.lap(BODY_BLEND);
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (((cover >> s) & 1u) == 0u) continue;
+      float src[4];
+      paint_src<PAINT>(pk, g, pxy, solid, bx + a.sample_x[s], by + a.sample_y[s],
+                       src);
+      if (!omitted(BODY_BLEND, a)) blend_sample<S>(blend, src, color, s, cf + 20);
+      wind[s] = 0;
+      if constexpr (DEPTH) {
+        if (a.depth_write) zbuf[s] = zv[s];
+      }
+    }
+  }
 }
 
 // The work of one block on one item: tile t, and its slab (4 rows x 64
@@ -822,44 +1077,52 @@ template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
 __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab,
                                             float* slots, float* sf, int* si,
                                             float4* sbox, const float* sdx,
-                                            const float* sdy) {
+                                            const float* sdy,
+                                            unsigned long long* sprof,
+                                            float* sgrad) {
   constexpr bool CA = NL >= 0;
-  const int n_px = a.th * a.tw;
+  Laps laps{sprof, 0};
+  laps.start();
   // The slab's warp w is the 4 rows x 8 lanes from lane 8w
-  // (ops/coverage.py::warp_pixels); pix is lane-major.
+  // (ops/coverage.py::warp_pixels).
   const int q = threadIdx.x & 31, blocks_x = a.tw / 64;
   const int r = (slab / blocks_x) * 4 + (q >> 3);
   const int l = (slab % blocks_x) * 64 + (threadIdx.x >> 5) * 8 + (q & 7);
-  const int pix = r * a.tw + l;
+  // Strip layout: lane l of row r is screen pixel
+  // (x0 + l % lw, y0 + (l / lw) * th + r).
+  int ix, iy;
+  if (a.strips == 1) {
+    ix = l;
+    iy = r;
+  } else {
+    ix = l % a.lw;
+    iy = (l / a.lw) * a.th + r;
+  }
+  ix += (t % a.ntx) * a.lw;
+  iy += (t / a.ntx) * a.lh;
+  // The pixel's index in the frame's (height, width) pixels; -1 on the
+  // padding past the frame's last column or row, which is walked but not
+  // written.  A warp's row is 8 neighbouring pixels of one frame row: one
+  // 128-byte run of float4, or 32 bytes of packed RGBA8.
+  const long long at =
+      ix < a.width && iy < a.height ? (long long)iy * a.width + ix : -1;
   const int n_active = a.acount[t];
   const bool out_u8 = a.out_u8 != 0;
 
   if (n_active == 0) {  // empty tile: transparent black
-    // Which thread clears which pixel does not matter: each warp clears
-    // 32 consecutive pixels, one 128-byte run per plane.
-    const int run = slab * BLOCK + threadIdx.x;
-    if (out_u8) {
-      static_cast<int*>(a.out)[(size_t)t * n_px + run] = 0;
-    } else {
-#pragma unroll
-      for (int chan = 0; chan < 4; ++chan)
-        static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + run] = 0.0f;
+    if (omitted(BODY_EMPTY, a)) return;
+    if (at >= 0) {
+      if (out_u8)
+        static_cast<uint32_t*>(a.out)[at] = 0u;
+      else
+        static_cast<float4*>(a.out)[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
+    laps.lap(BODY_EMPTY);
     return;
   }
 
-  // Strip layout: lane l of row r is screen pixel
-  // (x0 + l % lw, y0 + (l / lw) * th + r).
-  float col, row;
-  if (a.strips == 1) {
-    col = (float)l;
-    row = (float)r;
-  } else {
-    col = (float)(l % a.lw);
-    row = (float)((l / a.lw) * a.th + r);
-  }
-  const float bx = (float)(t % a.ntx) * (float)a.lw + col;
-  const float by = (float)(t / a.ntx) * (float)a.lh + row;
+  const float bx = (float)ix;
+  const float by = (float)iy;
   const float pxc = bx + 0.5f;
   const float pyc = by + 0.5f;
 
@@ -905,7 +1168,10 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     const int depth = a.cmd_i[c * 4 + 1];
     // Without clip ops the clip counters are identically zero: commands
     // at a nonzero clip depth are no-ops.
-    if (!a.has_clip && depth != 0) continue;
+    if (!a.has_clip && depth != 0) {
+      laps.lap(BODY_SETUP);
+      continue;
+    }
     // The clip vote: every op but clip and unclip masks each sample with
     // clip[s] == depth, so a warp none of whose samples passes that test
     // has nothing to do for the unit.  Warp-uniform (see warp_at_depth).
@@ -913,6 +1179,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     if constexpr (CA) {
       if (op != OP_CLIP && op != OP_UNCLIP) live = warp_at_depth<S>(clip, depth);
     }
+    laps.lap(BODY_SETUP);
 
     if (op == OP_STENCIL) {
       const int b = N_CLASSES * c;
@@ -922,6 +1189,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       // the ranges, staging its share of each chunk and meeting every
       // barrier, but skips the entries.
       if constexpr (STROKES) {
+        if (!omitted(BODY_STROKE, a)) {
 #define STROKE_CLASS(CODE, JOINT, DASH)                                        \
   stroke_range<S, CA, JOINT, DASH>(tri_f, tri_i, off[b + (CODE)],              \
                                    off[b + (CODE) + 1], pxc, pyc, a, wind,     \
@@ -936,7 +1204,10 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       STROKE_CLASS(CLS_JOINT_SOLID + 1, true, 1)
       STROKE_CLASS(CLS_JOINT_SOLID + 2, true, 2)
 #undef STROKE_CLASS
+        }
       }
+      laps.lap(BODY_STROKE);
+      if (omitted(BODY_FILL, a)) continue;
 #define FILL_CLASS(CODE, NCH)                                                  \
   fill_range<S, CA, NCH>(tri_f, tri_i, off[b + (CODE)], off[b + (CODE) + 1],   \
                          pxc, pyc, a, wind, clip, depth, live, sf, si, sbox);  \
@@ -947,25 +1218,28 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       FILL_CLASS(CLS_FILL_QUAD, 3)
       FILL_CLASS(CLS_FILL_CUBIC, 4)
 #undef FILL_CLASS
-      if (!live) continue;
-      const int bulk = a.bulk[(size_t)t * a.n_commands + c];
+      if (live) {
+        const int bulk = a.bulk[(size_t)t * a.n_commands + c];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        bool ok = true;
-        if constexpr (CA) ok = clip[s] == depth;
-        wind[s] += ok ? bulk : 0;
+        for (int s = 0; s < S; ++s) {
+          bool ok = true;
+          if constexpr (CA) ok = clip[s] == depth;
+          wind[s] += ok ? bulk : 0;
+        }
       }
+      laps.lap(BODY_FILL);
       continue;
     }
     if (!live) continue;
 
     const int cl = a.cls[(size_t)t * a.n_draws + d];
+    laps.lap(BODY_SETUP);
     if (cl == 0) continue;
     if (!CA && op != OP_COLOR) continue;
     bool in_hull[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) in_hull[s] = true;
-    if (cl == 1) {  // boundary tile: only the hull lines crossing it
+    if (cl == 1 && !omitted(BODY_HULL, a)) {  // boundary tile: only the hull lines crossing it
       const unsigned bits = (unsigned)a.hbits[(size_t)t * a.n_draws + d];
       const float* lines = a.hull + (size_t)d * a.hull_rows * 4;
       for (int h = 0; h < a.hull_rows; ++h) {
@@ -981,6 +1255,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     }
     const float* cf = a.cmd_f + (size_t)d * a.draw_cols;
     const float ca = cf[3];
+    laps.lap(BODY_HULL);
 
     if (op == OP_COLOR) {
       // A solid colour (paint code 0) is premultiplied once per draw,
@@ -998,58 +1273,56 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
 #pragma unroll
         for (int s = 0; s < S; ++s)
           zv[s] = za * (bx + a.sample_x[s]) + zb * (by + a.sample_y[s]) + zc;
-        zpass = depth_pass<S>(a.depth_compare, zv, zbuf);
+        if (!omitted(BODY_DEPTH, a)) zpass = depth_pass<S>(a.depth_compare, zv, zbuf);
       }
-      // Paint code: 0 solid, 1 linear, 2 radial, 3 + i user paint i.
-      const int pk = PAINT > 0 ? a.cmd_i[c * 4 + 3] : 0;
-      const float* pxy = a.paint_xy + (size_t)d * 4;
+      unsigned cover = 0u;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         bool mask = in_hull[s] && (wind[s] & a.winding_mask) != 0;
         if constexpr (CA) mask = mask && clip[s] == depth;
         if constexpr (DEPTH) mask = mask && ((zpass >> s) & 1u) != 0;
-        if (!mask) continue;
-        float src[4] = {solid[0], solid[1], solid[2], solid[3]};
-        if constexpr (PAINT > 0) {
-          if (pk != 0) {
-            // Straight RGBA of the paint at the sample, premultiplied.
-            const float px = bx + a.sample_x[s], py = by + a.sample_y[s];
-            float rgba[4];
-#if RASTER_PAINT == 2
-            if (pk >= 3) {
-              const float4 u =
-                  user_paint(pk - 3, px, py, pxy[0], pxy[1], pxy[2], pxy[3]);
-              rgba[0] = u.x;
-              rgba[1] = u.y;
-              rgba[2] = u.z;
-              rgba[3] = u.w;
-            } else
-#endif
-              gradient_paint(cf, pxy, pk == PAINT_RADIAL, px, py, rgba);
-            src[0] = rgba[0] * rgba[3];
-            src[1] = rgba[1] * rgba[3];
-            src[2] = rgba[2] * rgba[3];
-            src[3] = rgba[3];
-          }
-        }
-        const float da = color[3][s];
-#pragma unroll
-        for (int chan = 0; chan < 4; ++chan) {
-          const bool alpha = chan == 3;
-          color[chan][s] = blend_channel(
-              alpha ? a.alpha_src : a.color_src, alpha ? a.alpha_op : a.color_op,
-              alpha ? a.alpha_dst : a.color_dst, src[chan], color[chan][s], src[3],
-              da, chan, cf + 20);
-        }
-        wind[s] = 0;
-        if constexpr (DEPTH) {
-          if (a.depth_write) zbuf[s] = zv[s];
+        cover |= (unsigned)mask << s;
+      }
+      laps.lap(BODY_DEPTH);
+      // The cover vote: the paint, the blend, the winding reset and the
+      // depth write all take this mask, so a warp in which no lane has a
+      // sample that passes would change nothing and skips them.  The OR
+      // lies in a uniform register (see warp_meets).
+      if (__reduce_or_sync(FULL, cover) == 0u) continue;
+      // Paint code: 0 solid, 1 linear, 2 radial, 3 + i user paint i.
+      const int pk = PAINT > 0 ? a.cmd_i[c * 4 + 3] : 0;
+      const float* pxy = a.paint_xy + (size_t)d * 4;
+      const float* g = nullptr;
+      if constexpr (PAINT > 0) {
+        if (pk == PAINT_LINEAR || pk == PAINT_RADIAL) {
+          // The warp computes the draw's gradient constants once, a value
+          // per lane, into its slot (the warp is converged here).
+          float* slot = sgrad + (threadIdx.x & ~31);
+          __syncwarp();  // the previous unit's reads are done
+          gradient_constants(cf, pxy, threadIdx.x & 31, slot);
+          __syncwarp();
+          g = slot;
         }
       }
+      // The blend state is uniform over the grid: one switch per unit,
+      // outside the sample loop.
+#define COVER(BLEND)                                                           \
+  cover_samples<S, DEPTH, PAINT>(a, BLEND, cover, pk, cf, g, pxy, solid, bx, by, \
+                                 color, wind, zbuf, zv, laps)
+      switch (a.blend_kind) {
+        case BLEND_BACK_TO_FRONT: COVER(BlendBackToFront{}); break;
+        case BLEND_FRONT_TO_BACK: COVER(BlendFrontToBack{}); break;
+        case BLEND_ADDITIVE: COVER(BlendAdditive{}); break;
+        default:
+          COVER((BlendGeneric{a.color_src, a.color_op, a.color_dst, a.alpha_src,
+                              a.alpha_op, a.alpha_dst}));
+      }
+#undef COVER
       continue;
     }
 
     if constexpr (CA) {
+      if (omitted(BODY_CLIP_ALPHA, a)) continue;
       if (op == OP_CLIP || op == OP_UNCLIP) {
         // Clip promotes winding != 0 into the clip counter
         // (renderer.rs:692-710); unclip demotes deeper samples
@@ -1063,6 +1336,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
           clip[s] = mask ? depth : clip[s];
           wind[s] = mask ? 0 : wind[s];
         }
+        laps.lap(BODY_CLIP_ALPHA);
         continue;
       }
       if (op < OP_SAVE_ALPHA || op > OP_SAVE_SCALE) continue;
@@ -1073,7 +1347,10 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       unsigned hit = 0u;
 #pragma unroll
       for (int s = 0; s < S; ++s) hit |= (unsigned)(in_hull[s] && clip[s] == depth);
-      if (__reduce_or_sync(FULL, hit) == 0u) continue;
+      if (__reduce_or_sync(FULL, hit) == 0u) {
+        laps.lap(BODY_CLIP_ALPHA);
+        continue;
+      }
       // Alpha-group ops on layer li (renderer.rs:756-861): save copies
       // frame alpha into the layer, scale sets (1 - g) + g * alpha,
       // restore subtracts (1 - saved) * (1 - g); save+scale is save then
@@ -1109,29 +1386,37 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
           color[3][s] = mask ? a0 - (1.0f - saved) * (1.0f - ca) : a0;
         }
       }
+      laps.lap(BODY_CLIP_ALPHA);
     }
   }
 
-  // Resolve: the sample mean, summed in sample order.
+  if (omitted(BODY_RESOLVE, a)) return;
+  // Resolve: the sample mean, summed in sample order, written at the
+  // pixel's place in the frame.
   const float inv_s = 1.0f / (float)S;
-  uint32_t packed = 0;
+  float mean[4];
 #pragma unroll
   for (int chan = 0; chan < 4; ++chan) {
     float v = 0.0f;
 #pragma unroll
     for (int s = 0; s < S; ++s) v = v + color[chan][s];
-    v = v * inv_s;
+    mean[chan] = v * inv_s;
+  }
+  if (at >= 0) {
     if (out_u8) {
       // floor(clip(v) * 255 + 0.5), packed little-endian RGBA8 in uint32
       // (A << 24 would overflow an int32).
-      const uint32_t q8 =
-          (uint32_t)floorf(fminf(fmaxf(v, 0.0f), 1.0f) * 255.0f + 0.5f);
-      packed |= q8 << (8 * chan);
+      uint32_t packed = 0;
+#pragma unroll
+      for (int chan = 0; chan < 4; ++chan)
+        packed |= (uint32_t)floorf(fminf(fmaxf(mean[chan], 0.0f), 1.0f) * 255.0f + 0.5f)
+                  << (8 * chan);
+      static_cast<uint32_t*>(a.out)[at] = packed;
     } else {
-      static_cast<float*>(a.out)[((size_t)t * 4 + chan) * n_px + pix] = v;
+      static_cast<float4*>(a.out)[at] = make_float4(mean[0], mean[1], mean[2], mean[3]);
     }
   }
-  if (out_u8) static_cast<uint32_t*>(a.out)[(size_t)t * n_px + pix] = packed;
+  laps.lap(BODY_RESOLVE);
 }
 
 // The kernel's body.  NL, STROKES, DEPTH and PAINT as for raster_item.
@@ -1157,6 +1442,14 @@ __device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
       sdy[s] = a.sample_y[s] - 0.5f;
     }
   }
+  // Each warp's gradient constants (gradient_constants).
+  __shared__ float sgrad[PAINT > 0 ? BLOCK : 1];
+  // The profiling build's per-block body counters.
+  __shared__ unsigned long long sprof[PROFILE ? N_BODIES : 1];
+  if constexpr (PROFILE) {
+    if (threadIdx.x < N_BODIES) sprof[threadIdx.x] = 0ull;
+    __syncthreads();
+  }
   if constexpr (NL == 0) {
     extern __shared__ float layer_smem[];
     float* slots = a.layers != nullptr
@@ -1168,10 +1461,15 @@ __device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
     for (int item = blockIdx.x; item < n_items; item += gridDim.x)
       raster_item<S, NL, STROKES, DEPTH, PAINT>(a, item % a.n_tiles,
                                                 item / a.n_tiles, slots, sf, si,
-                                                sbox, sdx, sdy);
+                                                sbox, sdx, sdy, sprof, sgrad);
   } else {
     raster_item<S, NL, STROKES, DEPTH, PAINT>(a, blockIdx.x, blockIdx.y,
-                                              nullptr, sf, si, sbox, sdx, sdy);
+                                              nullptr, sf, si, sbox, sdx, sdy,
+                                              sprof, sgrad);
+  }
+  if constexpr (PROFILE) {
+    __syncthreads();
+    if (threadIdx.x < N_BODIES) atomicAdd(a.prof + threadIdx.x, sprof[threadIdx.x]);
   }
 }
 
@@ -1257,12 +1555,12 @@ cudaError_t launch_layers(const RasterArgs& a, cudaStream_t stream) {
         // Layers past shared memory need the wrapper's global scratch.
         if (need != 0) return cudaErrorInvalidValue;
         smem = layer_smem_bytes(a);
-        if (smem > 48 * 1024) {
-          const cudaError_t set = cudaFuncSetAttribute(
-              coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>,
-              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-          if (set != cudaSuccess) return set;
-        }
+        // Past 48 KiB of static and dynamic shared memory together, a
+        // launch needs the opt-in; set it for every launch with layers.
+        const cudaError_t set = cudaFuncSetAttribute(
+            coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (set != cudaSuccess) return set;
       }
       coverage_raster_kernel<S, 0, STROKES, DEPTH, PAINT>
           <<<blocks, BLOCK, smem, stream>>>(a);
@@ -1294,10 +1592,12 @@ extern "C" int coverage_raster_launch(const RasterArgs* args, void* stream) {
   const RasterArgs& a = *args;
   // a.layers is null or a scratch of a.layer_blocks slices (see
   // coverage_raster_layer_blocks).
-  if (a.n_tiles <= 0 || a.th % 4 != 0 || a.tw % 64 != 0 ||
+  if (a.n_tiles <= 0 || a.th % 4 != 0 || a.tw % 64 != 0 || a.width <= 0 ||
+      a.height <= 0 || a.width > a.ntx * a.lw ||
+      a.height > (a.n_tiles / a.ntx) * a.lh ||
       a.th * a.tw / BLOCK > 65535 || a.n_groups < 1 || a.n_layers < 1 ||
       (a.layer_mode > 0 && a.n_layers > a.layer_mode) ||
-      a.samples != RASTER_SAMPLES)
+      a.samples != RASTER_SAMPLES || (PROFILE && a.prof == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a.has_strokes ? launch_layers<RASTER_SAMPLES, true>(a, s)

@@ -11,10 +11,12 @@ match so that a reader finds each piece in both packages.
    class (skip / boundary / full) and a bitmask of the hull lines that
    cross the tile.  The same arithmetic as the reference, op by op, so
    the binning outputs agree with it.
-2. ``make_rasterize``: packs the arguments of ``coverage_raster`` and
-   de-tiles its output.  ``coverage_raster`` launches the CUDA kernel
-   (``csrc/coverage_raster.cu``) on CUDA tensors and runs
-   ``rasterize_plain``, its plain torch version, on CPU tensors.
+2. ``make_rasterize``: packs the arguments of ``coverage_raster``,
+   which returns the frame.  It launches the CUDA kernel
+   (``csrc/coverage_raster.cu``), which writes each pixel at its place
+   in the frame, on CUDA tensors, and runs ``rasterize_plain``, its
+   plain torch version, whose tiles ``detile`` turns into the frame, on
+   CPU tensors.
 
 Every body of the reference kernel is ported: the fill stencil, the
 stroke stencil (lines and joints; solid, single-interval and general
@@ -343,6 +345,18 @@ def _blend_codes(blending):
             BLEND_FACTOR_CODES[dst],
         )
     )
+
+
+def blend_kind(blending) -> int:
+    """The kernel's blend kind: 1, 2 or 3 where both components are
+    those of "back_to_front", "front_to_back" or "additive" (the kernel
+    evaluates that formula), else 0 (the kernel reads the codes of
+    ``_blend_codes``)."""
+    color, alpha = _canonical_blend(blending)
+    for kind, comp in enumerate(_NAMED_BLEND.values(), 1):
+        if color == alpha == comp:
+            return kind
+    return 0
 
 
 def _blend_channel(comp, s, d, ca, da, chan=0, const=None):
@@ -1215,15 +1229,15 @@ class _RasterArgs(ctypes.Structure):
             "cmd_i", "cmd_f", "hull", "unit_cmd", "unit_draw", "acount",
             "aclist", "off", "g_off", "bulk", "cls", "hbits", "tri_f",
             "tri_i", "g_tri_f", "g_tri_i", "desc_f", "desc_i", "paint_xy",
-            "zplane", "layers", "out",
+            "zplane", "layers", "prof", "out",
         )
     ] + [
         (name, ctypes.c_int) for name in (
-            "n_tiles", "ntx", "th", "tw", "strips", "lw", "lh",
+            "width", "height", "n_tiles", "ntx", "th", "tw", "strips", "lw", "lh",
             "n_commands", "n_draws", "n_units", "hull_rows", "draw_cols",
             "kp", "kgp", "n_groups", "samples", "winding_mask", "out_u8",
             "color_src", "color_op", "color_dst",
-            "alpha_src", "alpha_op", "alpha_dst",
+            "alpha_src", "alpha_op", "alpha_dst", "blend_kind",
             "has_clip", "has_alpha", "layer_mode", "n_layers",
             "layer_blocks", "has_strokes",
             "depth_compare", "depth_write",
@@ -1234,21 +1248,37 @@ class _RasterArgs(ctypes.Structure):
     ]
 
 
+#: The bodies that the kernel's profiling build times, in the order of
+#: its counters (coverage_raster.cu, BODY_*): tile setup and the per-unit
+#: table loads; the stroke stencil; the fill stencil; the cover's hull
+#: test; its depth and mask; its paint; its blend and winding reset;
+#: clip and alpha ops; the resolve and write; empty tiles.
+PROFILE_BODIES = (
+    "setup", "stroke", "fill", "hull", "depth", "paint", "blend",
+    "clip_alpha", "resolve", "empty",
+)
+
+
 class KernelFeatures(NamedTuple):
     """What one build of the raster kernel holds: the kernels of one
     sample count, with or without the depth body, with the paint bodies
     of ``paint_mode`` and, in mode 2, the device functions of these user
     paint sources (paint code 3 + i runs source i).  Each library holds
-    six instantiations: three layer modes, with and without strokes."""
+    six instantiations: three layer modes, with and without strokes.
+    ``variant``: "" for the build that renders; "profile" for the
+    profiling build (per-body clocks); "omit_<body>" for the subtractive
+    build that skips one of PROFILE_BODIES (timing only)."""
 
     samples: int
     depth: bool = False
     paint_mode: int = 0
     user_sources: tuple = ()
+    variant: str = ""
 
     @property
     def name(self):
-        return f"coverage_raster_s{self.samples}_d{int(self.depth)}_p{self.paint_mode}"
+        name = f"coverage_raster_s{self.samples}_d{int(self.depth)}_p{self.paint_mode}"
+        return f"{name}_{self.variant}" if self.variant else name
 
 
 def kernel_features(spec: FrameSpec) -> KernelFeatures:
@@ -1301,6 +1331,13 @@ def build_kernel(features: KernelFeatures):
             f"RASTER_DEPTH={int(features.depth)}",
             f"RASTER_PAINT={features.paint_mode}",
         )
+        if features.variant == "profile":
+            defines += ("RASTER_PROFILE=1",)
+        elif features.variant.startswith("omit_"):
+            body = features.variant[len("omit_"):]
+            defines += (f"RASTER_OMIT={PROFILE_BODIES.index(body)}",)
+        elif features.variant:
+            raise ValueError(f"unknown kernel variant {features.variant!r}")
         if features.paint_mode == 2:
             unit = cuda_build.generated_source(
                 "user_paints", _user_paint_unit(features.user_sources)
@@ -1391,13 +1428,40 @@ def _check_inputs(expected, tensors, device):
         raise ValueError("desc_f/desc_i need at least one descriptor group")
 
 
-def _raster_output(spec: FrameSpec, device):
+def _frame_output(spec: FrameSpec, device, out=None):
+    """The kernel's output: the frame, float32 (H, W, 4) or packed RGBA8
+    as int32 (H, W); ``out``, where given, checked to be such a tensor
+    on ``device``, contiguous and aligned to a pixel (16 or 4 bytes)."""
     if spec.out_uint8:
-        shape, dtype = (spec.n_tiles, spec.tile_h, spec.tile_w), torch.int32
+        shape, dtype = (spec.height, spec.width), torch.int32
     else:
-        shape = (spec.n_tiles, 4, spec.tile_h, spec.tile_w)
-        dtype = torch.float32
-    return torch.empty(shape, dtype=dtype, device=device)
+        shape, dtype = (spec.height, spec.width, 4), torch.float32
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != shape or out.dtype != dtype or out.device != device
+            or not out.is_contiguous()
+            or out.data_ptr() % (4 if spec.out_uint8 else 16)):
+        raise ValueError(
+            f"out must be a contiguous, pixel-aligned {shape} {dtype} tensor "
+            f"on {device}"
+        )
+    return out
+
+
+def detile(spec: FrameSpec, tiles):
+    """The frame of a tile-layout output (``rasterize_plain``'s): float
+    (n_tiles, 4, th, tw) to (H, W, 4), packed int32 (n_tiles, th, tw) to
+    (H, W).  Lane l of a tile's row r is screen pixel ((l // lw)·th + r,
+    l % lw) of its footprint; the padding past the frame is cut off."""
+    nty, ntx, th = spec.nty, spec.ntx, spec.tile_h
+    strips, lw, lh = spec.tile_strips, spec.screen_tile_w, spec.screen_tile_h
+    if spec.out_uint8:
+        image = tiles.reshape(nty, ntx, th, strips, lw)
+        image = image.permute(0, 3, 2, 1, 4).reshape(nty * lh, ntx * lw)
+    else:
+        image = tiles.reshape(nty, ntx, 4, th, strips, lw)
+        image = image.permute(0, 4, 3, 1, 5, 2).reshape(nty * lh, ntx * lw, 4)
+    return image[:spec.height, :spec.width].contiguous()
 
 
 def layer_mode(spec: FrameSpec) -> int:
@@ -1451,16 +1515,22 @@ def layer_scratch_blocks(spec: FrameSpec, device) -> int:
 
 
 def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
-                    desc_f, desc_i):
-    """Rasterize one prepared frame into tiles: float (n_tiles, 4, th,
-    tw), or packed RGBA8 as int32 (n_tiles, th, tw) when
-    ``spec.out_uint8``, both in the tile's physical lane layout.
-    ``desc_f``/``desc_i`` are the stroke descriptor rows, (G, DESC_F)
-    f32 and (G, DESC_I) i32.
+                    desc_f, desc_i, *, out=None, profile=None, omit=None):
+    """Rasterize one prepared frame: float (H, W, 4), or packed RGBA8 as
+    int32 (H, W) when ``spec.out_uint8``; into ``out`` where given (such
+    a tensor, contiguous and aligned to a pixel).  ``desc_f``/``desc_i``
+    are the stroke descriptor rows, (G, DESC_F) f32 and (G, DESC_I) i32.
 
     CUDA tensors launch the kernel of csrc/coverage_raster.cu on the
-    current stream (the build of ``kernel_features(spec)``); CPU tensors
-    run ``rasterize_plain``."""
+    current stream (the build of ``kernel_features(spec)``), which
+    writes each pixel at its place in the frame; CPU tensors run
+    ``rasterize_plain`` and ``detile`` its tiles.
+
+    For measurement on the card only: ``profile``, an int64 tensor of
+    len(PROFILE_BODIES) on the device, launches the profiling build,
+    which adds each body's warp-cycles to it; ``omit``, one of
+    PROFILE_BODIES, launches the subtractive build that skips that body
+    (its output is not the frame)."""
     global raster_launches
     draws, expected = _raster_plan(spec)
     tensors = dict(
@@ -1469,19 +1539,36 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     )
     device = prepared.tri_f.device
     _check_inputs(expected, tensors, device)
+    variant = ""
+    if profile is not None or omit is not None:
+        if device.type != "cuda" or (profile is not None and omit is not None):
+            raise ValueError("profile or omit: one of them, on a CUDA device")
+        if profile is not None and (
+            profile.device != device or profile.dtype != torch.int64
+            or tuple(profile.shape) != (len(PROFILE_BODIES),)
+        ):
+            raise ValueError(
+                f"profile must be int64 ({len(PROFILE_BODIES)},) on {device}"
+            )
+        if omit is not None and omit not in PROFILE_BODIES:
+            raise ValueError(f"omit: {omit!r} is not one of {PROFILE_BODIES}")
+        variant = "profile" if profile is not None else f"omit_{omit}"
     if device.type == "cpu":
-        return rasterize_plain(
+        image = detile(spec, rasterize_plain(
             spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw, desc_f, desc_i
-        )
+        ))
+        if out is None:
+            return image
+        return _frame_output(spec, device, out).copy_(image)
     if device.type != "cuda":
         raise ValueError(f"coverage_raster takes CPU or CUDA tensors, not {device}")
-    lib = build_kernel(kernel_features(spec))
+    lib = build_kernel(kernel_features(spec)._replace(variant=variant))
     if spec.tile_h % BLOCK_ROWS or spec.tile_w % BLOCK_LANES:
         raise ValueError(
             f"tile {spec.tile_h}x{spec.tile_w} is not a multiple of the "
             f"kernel's {BLOCK_ROWS}x{BLOCK_LANES}-pixel block"
         )
-    out = _raster_output(spec, device)
+    out = _frame_output(spec, device, out)
     has_clip, has_alpha = clip_alpha_ops(spec)
     mode = layer_mode(spec)
     n_layers = max(1, spec.n_layers)
@@ -1495,15 +1582,16 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
             "paint_xy", "zplane",
         )),
         None,
+        None if profile is None else profile.data_ptr(),
         out.data_ptr(),
-        spec.n_tiles, spec.ntx, spec.tile_h, spec.tile_w, spec.tile_strips,
-        spec.screen_tile_w, spec.screen_tile_h,
+        spec.width, spec.height, spec.n_tiles, spec.ntx, spec.tile_h,
+        spec.tile_w, spec.tile_strips, spec.screen_tile_w, spec.screen_tile_h,
         spec.n_commands, len(draws.c_cmd), len(draws.unit_cmd),
         spec.h_max + 2, cmd_f.shape[1],
         expected["tri_f"][0][1], expected["g_tri_f"][0][1],
         desc_f.shape[0],
         spec.samples, (1 << spec.winding_bits) - 1, int(spec.out_uint8),
-        *codes,
+        *codes, blend_kind(spec.blending),
         int(has_clip), int(has_alpha), mode, n_layers, 0,
         int(spec.has_strokes),
         DEPTH_COMPARE_CODES[spec.depth_compare], int(spec.depth_write),
@@ -1887,7 +1975,12 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     the stroke sample evaluations (32·S per stroke pair that is walked,
     neither culled nor clip-skipped); ``"vote_skipped"``, those the warp
     vote skips (32 for each sample that no pixel of the warp has inside
-    the entry)."""
+    the entry); ``"cover_warps"``, the (warp, colour unit) pairs that
+    reach the cover vote (the unit's hull meets the tile, the clip vote
+    kept the warp); ``"cover_skipped"``, those the cover vote skips, where
+    no sample of the warp passes the cover mask (hull, winding, clip,
+    depth).  With ``work`` the skips are modelled: a skipped warp takes
+    no update of the unit, which leaves the image as it is."""
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
     S = spec.samples
@@ -2089,6 +2182,19 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                 zp = prepared.zplane[d]
                 zval = zp[0] * px[sel] + zp[1] * py[sel] + zp[2]
                 mask = mask & _depth_pass(spec.depth_compare, zval, zbuf[sel])
+            if work is not None:
+                # The kernel's cover vote, among the warps of the tiles
+                # this draw's hull meets that the clip vote kept: a warp
+                # with no sample in the mask skips paint, blend, winding
+                # reset and depth write.  Modelled: such a warp takes no
+                # update at all.
+                reached = live & (prepared.cls[sel, 0, d] != 0)[:, None]
+                voted = mask.any(1)[:, warps].any(-1)       # (T, P / 32)
+                count("cover_warps", reached.sum())
+                count("cover_skipped", (reached & ~voted).sum())
+                kept = torch.zeros((len(sel), P), dtype=torch.bool, device=dev)
+                kept[:, warps.reshape(-1)] = voted.repeat_interleave(32, 1)
+                mask = mask & kept[:, None, :]
             row = cmd_f[d]
             pk = cmd_i_h[c][3]
             if work is not None:
@@ -2176,33 +2282,32 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
 
 
 def make_rasterize(spec: FrameSpec):
+    """``rasterize(prepared, cmd_i, cmd_f, desc_f, desc_i, out=None)``:
+    the frame, float (H, W, 4) or, with ``spec.out_uint8``, uint8 (H, W,
+    4); ``out`` where given (a contiguous tensor of that shape and type,
+    aligned to a pixel), which the kernel then writes in place."""
     draws = _raster_plan(spec)[0]
     W, H = spec.width, spec.height
-    th = spec.tile_h
-    strips = spec.tile_strips
-    lw, lh = spec.screen_tile_w, spec.screen_tile_h
-    ntx, nty = spec.ntx, spec.nty
     units = {}
 
-    def rasterize(prepared: PreparedFrame, cmd_i, cmd_f, desc_f, desc_i):
+    def rasterize(prepared: PreparedFrame, cmd_i, cmd_f, desc_f, desc_i,
+                  out=None):
         dev = prepared.tri_f.device
         if dev not in units:
             units[dev] = (
                 torch.as_tensor(draws.unit_cmd, device=dev),
                 torch.as_tensor(draws.unit_draw, device=dev),
             )
-        tiles = coverage_raster(
-            spec, prepared, cmd_i, cmd_f, *units[dev], desc_f, desc_i
+        if out is not None and spec.out_uint8:
+            if out.dtype != torch.uint8 or tuple(out.shape) != (H, W, 4):
+                raise ValueError(f"out must be uint8 {(H, W, 4)}")
+            out = out.view(torch.int32).reshape(H, W)
+        image = coverage_raster(
+            spec, prepared, cmd_i, cmd_f, *units[dev], desc_f, desc_i, out=out
         )
         if spec.out_uint8:
-            # De-strip: lane l of row r is screen pixel ((l // lw)·th + r,
-            # l % lw) of the tile's footprint; then bytes per pixel.
-            image = tiles.reshape(nty, ntx, th, strips, lw)
-            image = image.permute(0, 3, 2, 1, 4).reshape(nty * lh, ntx * lw)
-            image = image[:H, :W].contiguous().view(torch.uint8)
-            return image.reshape(H, W, 4)
-        image = tiles.reshape(nty, ntx, 4, th, strips, lw)
-        image = image.permute(0, 4, 3, 1, 5, 2).reshape(nty * lh, ntx * lw, 4)
-        return image[:H, :W]
+            # Packed little-endian RGBA8: the bytes of each pixel.
+            return image.view(torch.uint8).reshape(H, W, 4)
+        return image
 
     return rasterize

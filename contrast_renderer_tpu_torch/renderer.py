@@ -2772,22 +2772,25 @@ class FrameProgram:
             variant.paint_model
         )
         stack = torch.as_tensor(transforms, device=self._renderer.device)
-        frames = worst = None
+        r = self._renderer
+        quantize = as_uint8 and not self._uint8
+        frames = torch.empty(
+            (len(stack), r.height, r.width, 4),
+            dtype=torch.uint8 if as_uint8 or self._uint8 else torch.float32,
+            device=r.device,
+        )
+        worst = None
         for b in range(len(stack)):
             prepared = variant.prepare(
                 *self._scene.arrays, stack[b], desc_static, paints
             )
-            image = variant.rasterize(
-                prepared, variant.cmd_i, variant.cmd_f, desc_f, desc_i
-            )
-            if as_uint8 and image.dtype != torch.uint8:
-                image = Renderer._quantize(image)
-            if frames is None:
-                frames = torch.empty(
-                    (len(stack),) + tuple(image.shape), dtype=image.dtype,
-                    device=image.device,
-                )
-            frames[b] = image
+            runtime = (prepared, variant.cmd_i, variant.cmd_f, desc_f, desc_i)
+            if quantize:
+                frames[b] = Renderer._quantize(variant.rasterize(*runtime))
+            else:
+                # The kernel writes the frame in place (the last
+                # argument, out).
+                variant.rasterize(*runtime, frames[b])
             worst = (
                 prepared.overflow if worst is None
                 else torch.maximum(worst, prepared.overflow)

@@ -18,6 +18,7 @@ from contrast_renderer_tpu.path import Path
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from test_torch_instance import one_thread  # noqa: F401
 
 SIZE = 128
 
@@ -228,8 +229,8 @@ def test_rasterize_plain_matches_reference_kernel(strips, out_u8, samples,
 
 
 def test_plain_rasterizer_is_the_cpu_path():
-    """On CPU tensors coverage_raster runs rasterize_plain and launches
-    nothing."""
+    """On CPU tensors coverage_raster runs rasterize_plain, de-tiles its
+    output into the frame, and launches nothing."""
     f = frame(1)
     prepared = interop.prepared_from_numpy(jitted_reference_prepare(1))
     spec = interop.spec_from_reference(f["spec"])
@@ -240,7 +241,9 @@ def test_plain_rasterizer_is_the_cpu_path():
         torch.as_tensor(f["desc_f"]), torch.as_tensor(f["desc_i"]),
     )
     before = port_cov.raster_launches
-    tiles = port_cov.coverage_raster(*args)
+    image = port_cov.coverage_raster(*args)
     assert port_cov.raster_launches == before
-    assert torch.equal(tiles, port_cov.rasterize_plain(*args))
+    tiles = port_cov.rasterize_plain(*args)
     assert tiles.shape == (spec.n_tiles, 4, spec.tile_h, spec.tile_w)
+    assert torch.equal(image, port_cov.detile(spec, tiles))
+    assert image.shape == (spec.height, spec.width, 4)

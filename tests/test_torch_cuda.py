@@ -1,14 +1,17 @@
-"""The CUDA raster kernel on the card: held against its plain torch
-version across sample counts, strip layouts, output modes and blend
-states; each of the six stroke classes; clip and alpha frames with alpha
-layers in registers, in shared memory and in the global scratch of
-resident blocks; the clip vote on content partly outside its clips;
-gated against ungated clip and alpha frames; depth under several
-compare functions; linear, radial and multi-stop gradients; a user
+"""The CUDA raster kernel on the card: its frame held against its plain
+torch version's de-tiled tiles across sample counts, strip layouts,
+output modes, blend states and frame sizes that are not multiples of
+the tile (and written into a caller's tensor); each of the six stroke
+classes; clip and alpha frames with alpha layers in registers, in
+shared memory and in the global scratch of resident blocks; the clip
+vote on content partly outside its clips; gated against ungated clip
+and alpha frames; depth under each compare function, with and without
+write; linear, radial, multi-stop and degenerate gradients; a user
 paint compiled into the kernel; the cap golden; the whole path on the
-card against the path on the CPU; and the standalone fill rasterizer,
-band sharding and the frame loop on the card against the CPU, the
-single render and ``compile_frame``.
+card against the path on the CPU; ``render_sequence`` writing its
+frames in place; and the standalone fill rasterizer, band sharding and
+the frame loop on the card against the CPU, the single render and
+``compile_frame``.
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -116,8 +119,9 @@ def test_kernel_matches_plain(card, samples, strips, blending):
 
 
 def assert_kernel_matches_plain(spec, prepared, cmd_i, cmd_f, desc_f, desc_i):
-    """The kernel and rasterize_plain on the same tensors, float and
-    packed RGBA8: equal to the bit, and the frame is not empty."""
+    """The kernel's frame and rasterize_plain's tiles de-tiled
+    (coverage.detile) on the same tensors, float and packed RGBA8: equal
+    to the bit, and the frame is not empty."""
     draws = coverage.draw_tables(spec)
     units = (
         torch.as_tensor(draws.unit_cmd, device=prepared.tri_f.device),
@@ -128,11 +132,52 @@ def assert_kernel_matches_plain(spec, prepared, cmd_i, cmd_f, desc_f, desc_i):
                 desc_f, desc_i)
         before = coverage.raster_launches
         got = coverage.coverage_raster(*args)
-        want = coverage.rasterize_plain(*args)
+        want = coverage.detile(args[0], coverage.rasterize_plain(*args))
         torch.cuda.synchronize()
         assert coverage.raster_launches == before + 1
         assert torch.equal(got, want), u8
         assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("samples", [1, 4, 16])
+@pytest.mark.parametrize("strips", [1, 2])
+def test_frame_layout_matches_plain(card, samples, strips):
+    """A frame whose width and height are not multiples of the tile's
+    footprint: the kernel writes each pixel at its place in the (H, W)
+    frame and skips the padding, float and packed RGBA8, bit for bit
+    against the de-tiled plain version; into a caller's ``out`` as into
+    its own tensor, and nothing past the frame is touched."""
+    width, height = 300, 200
+    fills = Shape(scenes.bezier_fill_paths(
+        80, width, height, seed=5, margin=4.0, radius=(4.0, 30.0)
+    ))
+    t = scenes.ortho(width, height)
+    renderer = Renderer(
+        Configuration(msaa_sample_count=samples), width, height,
+        tile_strips=strips, device=card,
+    )
+    spec, _, runtime = renderer._prepare([
+        DrawCommand(RenderOperation.STENCIL, fills, t),
+        DrawCommand(RenderOperation.COLOR, fills, t, color=(0.3, 0.6, 0.9, 0.8)),
+    ])
+    assert spec.ntx * spec.screen_tile_w > width
+    assert spec.nty * spec.screen_tile_h > height
+    assert_kernel_matches_plain(spec, *runtime)
+    draws = coverage.draw_tables(spec)
+    prepared, cmd_i, cmd_f, desc_f, desc_i = runtime
+    units = (torch.as_tensor(draws.unit_cmd, device=card),
+             torch.as_tensor(draws.unit_draw, device=card))
+    for u8 in (False, True):
+        sp = replace(spec, out_uint8=u8)
+        args = (sp, prepared, cmd_i, cmd_f, *units, desc_f, desc_i)
+        want = coverage.coverage_raster(*args)
+        # A guard row past the frame stays as it was.
+        buf = torch.full((height + 1,) + tuple(want.shape[1:]), 7,
+                         dtype=want.dtype, device=card)
+        got = coverage.coverage_raster(*args, out=buf[:height])
+        torch.cuda.synchronize()
+        assert got.data_ptr() == buf.data_ptr()
+        assert torch.equal(got, want) and bool((buf[height] == 7).all())
 
 
 def only_class(prepared, command, code):
@@ -449,6 +494,31 @@ def depth_commands(size=SIZE):
     return commands
 
 
+@pytest.mark.parametrize("write", [True, False], ids=["write", "no_write"])
+@pytest.mark.parametrize("compare", sorted(coverage.DEPTH_COMPARE_CODES))
+def test_depth_compare_matches_plain(card, compare, write):
+    """Each of the eight compare functions, with depth write on and off,
+    at 4x MSAA, bit for bit."""
+    renderer = Renderer(
+        Configuration(depth_compare=compare, depth_write_enabled=write),
+        SIZE, SIZE, device=card,
+    )
+    spec, _, runtime = renderer._prepare(depth_commands())
+    assert coverage.kernel_features(spec).depth == (compare != "always" or write)
+    if compare in ("never", "greater"):
+        # Nothing passes (no fragment lies beyond the buffer's clear value,
+        # the far plane): the frame is empty, in both versions.
+        draws = coverage.draw_tables(spec)
+        units = (torch.as_tensor(draws.unit_cmd, device=card),
+                 torch.as_tensor(draws.unit_draw, device=card))
+        args = (spec, *runtime[:3], *units, *runtime[3:])
+        got = coverage.coverage_raster(*args)
+        assert torch.equal(got, coverage.detile(spec, coverage.rasterize_plain(*args)))
+        assert not bool((got != 0).any())
+        return
+    assert_kernel_matches_plain(spec, *runtime)
+
+
 @pytest.mark.parametrize("samples", [1, 4, 16])
 @pytest.mark.parametrize(
     "compare, write",
@@ -482,6 +552,13 @@ GRADIENTS = {
     "radial": RadialGradient(center=(128.0, 128.0), edge=(228.0, 128.0),
                              color0=(1.0, 0.85, 0.3, 0.9),
                              color1=(1.0, 0.85, 0.3, 0.0)),
+    # Start on end: the axis's squared length is floored at 1e-12.
+    "linear-degenerate": LinearGradient(start=(128.0, 128.0), end=(128.0, 128.0),
+                                        color0=(1.0, 0.0, 0.0, 1.0),
+                                        color1=(0.0, 0.0, 1.0, 1.0)),
+    "radial-degenerate": RadialGradient(center=(100.0, 90.0), edge=(100.0, 90.0),
+                                        color0=(0.0, 1.0, 0.0, 0.6),
+                                        color1=(1.0, 0.0, 1.0, 0.9)),
 }
 
 
@@ -677,6 +754,29 @@ def test_orbit_render_sequence_matches_calls_on_card(orbit):
         assert torch.equal(got, program(t))
 
 
+@pytest.mark.parametrize("uint8_output", [False, True], ids=["float", "packed"])
+def test_render_sequence_writes_frames_in_place_on_card(card, uint8_output):
+    """render_sequence at 200x72 (not a multiple of the tile), float and
+    quantized frames of a float program, packed frames of a packed one:
+    each frame the kernel writes in place equals the per-frame call."""
+    width, height = 200, 72
+    shape = showcase.build_shape(with_text=True)
+    program = Renderer(Configuration(), width, height, device=card).compile_frame(
+        showcase.showcase_commands(shape, width, height), uint8_output=uint8_output
+    )
+    segment = np.stack([showcase.orbit_transforms(i, width, height)
+                        for i in range(3)])
+    calls = [program(t) for t in segment]
+    for as_uint8 in (False, True):
+        before = coverage.raster_launches
+        frames = program.render_sequence(segment, as_uint8=as_uint8)
+        assert coverage.raster_launches == before + len(segment)
+        quantize = as_uint8 and not uint8_output
+        for got, want in zip(frames, calls):
+            assert torch.equal(got, Renderer._quantize(want) if quantize else want)
+        assert bool((frames[..., 3] != 0).any())
+
+
 def test_frame_program_deferred_growth_on_card(card):
     """A program whose capacity is shrunk below what its frame bins: the
     counters come back through pinned memory behind a CUDA event, the
@@ -750,6 +850,23 @@ def test_render_sharded_on_card_matches_single_render(card):
     assert coverage.raster_launches - before >= 4
     single = Renderer(Configuration(), SIZE, SIZE, device=card).render(commands)
     assert float(np.mean(np.abs(sharded - single))) < 1e-4
+
+
+def test_render_sharded_bands_on_card_match_cpu(card):
+    """Four row bands of the showcase at 256², each written by the kernel
+    as its band's frame and gathered, against the same bands rendered on
+    the CPU: packed RGBA8 identical."""
+    from contrast_renderer_tpu_torch.parallel import Mesh, render_sharded
+
+    shape = showcase.build_shape(with_text=True)
+    commands = showcase.showcase_commands(shape, SIZE, SIZE)
+    got, want = (
+        Renderer._quantize(torch.from_numpy(render_sharded(
+            Renderer(Configuration(), SIZE, SIZE, device=dev), commands, mesh
+        )))
+        for dev, mesh in ((card, _band_mesh()), ("cpu", Mesh(["cpu"] * 4, ("y",))))
+    )
+    assert torch.equal(got, want) and bool(want[..., 3].any())
 
 
 def test_frame_loop_on_card_matches_compile_frame(card):

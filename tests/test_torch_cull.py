@@ -30,6 +30,7 @@ from contrast_renderer_tpu_torch.renderer import (
     Renderer,
     Shape,
 )
+from test_torch_instance import one_thread  # noqa: F401
 
 
 def config3_window(size=128, x0=800.0, y0=450.0):

@@ -22,6 +22,7 @@ from contrast_renderer_tpu_torch import path as port_path
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.models import showcase
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from test_torch_instance import one_thread  # noqa: F401
 
 SIZE = 64
 COMPARES = ("never", "less", "equal", "less_equal", "greater", "not_equal",

@@ -22,6 +22,7 @@ from contrast_renderer_tpu_torch import path as port_path
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.models import showcase
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from test_torch_instance import one_thread  # noqa: F401
 
 SIZE = 64
 RED, BLUE = (1.0, 0.0, 0.0, 1.0), (0.0, 0.0, 1.0, 0.5)

@@ -10,6 +10,7 @@ from contrast_renderer_tpu import renderer as ref
 from contrast_renderer_tpu.models import showcase as ref_showcase
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.models import showcase
+from test_torch_instance import one_thread  # noqa: F401
 from test_torch_showcase import CLIP_ALPHA, SIZE, assert_images_agree
 
 

@@ -25,6 +25,7 @@ from contrast_renderer_tpu.ops import coverage as ref_cov
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from test_torch_instance import one_thread  # noqa: F401
 
 SIZE = 128
 GOLDEN = FsPath(__file__).parent / "golden" / "cap_styles_96x72.npy"

@@ -8,6 +8,7 @@ import pytest
 
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch import scenes
+from test_torch_instance import one_thread  # noqa: F401
 from test_torch_stroke import check_stroke_raster
 
 
