@@ -31,6 +31,24 @@ has ``config4_text`` also renders config 4's fused form; a frame that
 only one root renders is timed but not compared.  Each frame prints the
 commands its root walks (after auto-instancing, where the root has it).
 Imports nothing of JAX.
+
+    python3 chip_ab.py --orbit ROOT_A ROOT_B [ROOT_C ...]
+
+The moving camera instead, in processes of the same order: the showcase
+orbit of chip_smoke.py's phase 19 (the showcase with text,
+``showcase.orbit_transforms``, the dash phase 0.032 a frame, packed
+RGBA8) through ``Renderer.compile_frame`` and ``plan_for_motion`` at
+3840x2160 and 1920x1080: three windows of 99 frames chained through
+``carry`` (host clock, one fetch at the end of each), the host split of
+``FrameProgram.stats`` a frame, the capture ms where the root captures
+its frame steps, 33 frames under torch.profiler (the device's busy share
+and operations a frame), the peak device memory over the windows, and
+the packed frames 0, 30 and 98 hashed for the comparison; then the orbit
+example's app through ``app.FrameLoop`` at 3840x2160, 24 frames under
+chip_smoke.py phase 20's drag and wheel (the median of the last 20, of
+all, the drag's 10 frames in all, the frames that captured a graph).  The last lines are one row per size and one
+JSON object.  Exits non-zero if a process fails or the roots' orbit
+frames differ.
 """
 
 import hashlib
@@ -193,13 +211,194 @@ def worker(root):
     print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
 
 
+#: The orbit's frames, timed windows, profiled frames, hashed frames,
+#: and the FrameLoop's frames (the first ones build and capture).
+ORBIT_FRAMES, ORBIT_WINDOWS, ORBIT_PROFILED = 99, 3, 33
+ORBIT_HASHED = (0, 30, 98)
+LOOP_FRAMES, LOOP_SETTLE = 24, 4
+
+
+def orbit_size(api, showcase, smoke, width, height):
+    """One size of the orbit through compile_frame: the numbers of the
+    --orbit mode's docstring."""
+    import statistics
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = showcase.build_shape(with_text=True)
+    stacks = [showcase.orbit_transforms(i, width, height)
+              for i in range(ORBIT_FRAMES)]
+
+    def at(i):
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP))
+        return stacks[i]
+
+    renderer = api.Renderer(api.Configuration(), width, height,
+                            strict_capacity=False, device="cuda")
+    program = renderer.compile_frame(
+        showcase.showcase_commands(shape, width, height), uint8_output=True)
+    start = time.perf_counter()
+    fused = program.plan_for_motion(stacks)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - start
+    captures = [
+        v.step.capture_ms for _, v in program._fused_variants.values()
+        if getattr(v, "step", None) is not None and v.step.capture_ms is not None
+    ]
+    acc = torch.zeros((), device="cuda")
+    for i in range(3):
+        _, acc = program(at(i), carry=acc)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fps, split = [], {"plan_ms": 0.0, "bin_ms": 0.0, "raster_ms": 0.0}
+    for _ in range(ORBIT_WINDOWS):
+        start = time.perf_counter()
+        for i in range(ORBIT_FRAMES):
+            _, acc = program(at(i), carry=acc)
+            for key in split:
+                split[key] += program.stats[key]
+            if "capture_ms" in program.stats:
+                captures.append(program.stats["capture_ms"])
+        float(acc)
+        fps.append(ORBIT_FRAMES / (time.perf_counter() - start))
+    peak = torch.cuda.max_memory_allocated() - base
+    frames = ORBIT_FRAMES * ORBIT_WINDOWS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(ORBIT_PROFILED):
+            _, acc = program(at(i), carry=acc)
+        float(acc)
+        profiled = time.perf_counter() - start
+    busy = smoke.device_busy(prof)
+    hashes = []
+    for i in ORBIT_HASHED:
+        image = program(at(i))
+        hashes.append(hashlib.sha256(image.cpu().numpy().tobytes()).hexdigest()[:16])
+    out = {
+        "fused": fused, "plan_for_motion_s": plan_s, "frames_per_s": fps,
+        "median_frames_per_s": statistics.median(fps),
+        **{key: value / frames for key, value in split.items()},
+        "capture_ms": captures, "peak_mib": peak / 2**20,
+        "reserved_mib": torch.cuda.memory_reserved() / 2**20,
+        "builds": program.builds, "rgba8": hashes,
+    }
+    if busy is not None:
+        b_us, r_us, o_us, count = busy
+        out.update(
+            busy_share=b_us / (profiled * 1e6),
+            busy_ms=b_us / ORBIT_PROFILED / 1e3,
+            raster_ms_device=r_us / ORBIT_PROFILED / 1e3,
+            other_ms_device=o_us / ORBIT_PROFILED / 1e3,
+            device_ops=count / ORBIT_PROFILED,
+        )
+    return out
+
+
+def orbit_worker(root):
+    """The --orbit mode's numbers with the port of ``root``; prints one
+    line ``AB {json}``."""
+    import statistics
+
+    root = os.path.abspath(root)
+    smoke = chip_smoke()
+    sys.path.insert(0, root)
+    from contrast_renderer_tpu_torch import renderer as api
+    from contrast_renderer_tpu_torch.app import FrameLoop
+    from contrast_renderer_tpu_torch.examples.orbit_camera import ShowcaseOrbitApp
+    from contrast_renderer_tpu_torch.models import showcase
+    from contrast_renderer_tpu_torch.ops import coverage
+
+    if not coverage.__file__.startswith(root + os.sep):
+        fail(f"imported {coverage.__file__}, not the port of {root}")
+    coverage.build_kernels([coverage.KernelFeatures(4)])
+    results = {}
+    for w, h in ((smoke.SHOWCASE_W, smoke.SHOWCASE_H), (smoke.WIDTH, smoke.HEIGHT)):
+        label = f"orbit {w}x{h}"
+        results[label] = r = orbit_size(api, showcase, smoke, w, h)
+        print(f"  {label}: {r['median_frames_per_s']:.2f} frames/s "
+              f"({', '.join(f'{v:.2f}' for v in r['frames_per_s'])}); host a "
+              f"frame: plan {r['plan_ms']:.3f} ms, bin {r['bin_ms']:.3f} ms, "
+              f"raster {r['raster_ms']:.3f} ms; device busy "
+              f"{r.get('busy_share', float('nan')):.3f} of the profiled window, "
+              f"{r.get('busy_ms', float('nan')):.3f} ms a frame in "
+              f"{r.get('device_ops', float('nan')):.1f} operations "
+              f"(coverage_raster {r.get('raster_ms_device', float('nan')):.3f} ms); "
+              f"capture ms {[round(c, 1) for c in r['capture_ms']]}; peak "
+              f"{r['peak_mib']:.1f} MiB over the windows, reserved "
+              f"{r['reserved_mib']:.1f} MiB; builds {r['builds']}", flush=True)
+    app = ShowcaseOrbitApp(with_text=True)
+    loop = FrameLoop(app, smoke.SHOWCASE_W, smoke.SHOWCASE_H)
+    seconds, captures = [], 0
+    for index in range(LOOP_FRAMES):
+        # chip_smoke.py phase 20's script: a drag, then a wheel event.
+        if index == 0:
+            loop.send_button(True)
+            loop.send_pointer(0.0, 0.0)
+        elif index <= 8:
+            loop.send_pointer(40.0 * index, 6.0 * index)
+        elif index == 9:
+            loop.send_button(False)
+        elif index == 10:
+            loop.send_wheel(-2.0)
+        loop.step()
+        seconds.append(loop.timer.last_s)
+        captures += "capture_ms" in app._program.stats
+    loop_ms = statistics.median(seconds[LOOP_SETTLE:]) * 1e3
+    results["frame loop"] = {
+        "median_ms": loop_ms, "all_median_ms": statistics.median(seconds) * 1e3,
+        "drag_ms": sum(seconds[:10]) * 1e3, "first_ms": seconds[0] * 1e3,
+        "captures": captures,
+    }
+    print(f"  frame loop {smoke.SHOWCASE_W}x{smoke.SHOWCASE_H}: median "
+          f"{loop_ms:.2f} ms a frame of the last {LOOP_FRAMES - LOOP_SETTLE}, "
+          f"{results['frame loop']['all_median_ms']:.2f} of all {LOOP_FRAMES}; "
+          f"the drag's 10 frames {results['frame loop']['drag_ms']:.1f} ms in "
+          f"all; first {seconds[0] * 1e3:.1f} ms; {captures} frames captured "
+          f"a graph", flush=True)
+    print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
+
+
+def orbit_summary(roots, runs):
+    """Rows of the --orbit mode; returns whether the roots' frames are
+    equal."""
+    equal = True
+    for label in (f"orbit {w}x{h}" for w, h in ((3840, 2160), (1920, 1080))):
+        hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
+        equal &= len(hashes) == 1
+        cells = []
+        for letter in roots:
+            done = [r[label] for r in runs[letter]]
+            cells.append(
+                f"{letter} {', '.join(f'{d['median_frames_per_s']:.2f}' for d in done)} "
+                f"frames/s, bin {', '.join(f'{d['bin_ms']:.2f}' for d in done)} ms, "
+                f"busy {', '.join(f'{d.get('busy_share', float('nan')):.3f}' for d in done)}"
+            )
+        print(f"{label}: {'; '.join(cells)}; frames equal {len(hashes) == 1}",
+              flush=True)
+    print("frame loop: " + "; ".join(
+        f"{letter} {', '.join(f'{r['frame loop']['median_ms']:.2f}' for r in runs[letter])} ms "
+        f"(drag {', '.join(f'{r['frame loop']['drag_ms']:.0f}' for r in runs[letter])} ms)"
+        for letter in roots), flush=True)
+    return equal
+
+
 def main():
     argv = sys.argv[1:]
     if argv[:1] == ["--worker"]:
         worker(argv[1])
         return
+    if argv[:1] == ["--orbit-worker"]:
+        orbit_worker(argv[1])
+        return
+    orbit = argv[:1] == ["--orbit"]
+    if orbit:
+        argv = argv[1:]
     if not 2 <= len(argv) <= len(LETTERS):
-        fail("usage: chip_ab.py ROOT_A ROOT_B [ROOT_C ...]")
+        fail("usage: chip_ab.py [--orbit] ROOT_A ROOT_B [ROOT_C ...]")
     roots = dict(zip(LETTERS, argv))
     sequence = order(len(argv))
     import torch
@@ -215,7 +414,8 @@ def main():
     for letter in sequence:
         print(f"{letter}: {roots[letter]}", flush=True)
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", roots[letter]],
+            [sys.executable, os.path.abspath(__file__),
+             "--orbit-worker" if orbit else "--worker", roots[letter]],
             capture_output=True, text=True, timeout=900,
         )
         for line in proc.stdout.splitlines():
@@ -226,6 +426,13 @@ def main():
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             fail(f"the {letter} process exited {proc.returncode}")
+    if orbit:
+        equal = orbit_summary(roots, runs)
+        print(json.dumps({"orbit": runs, "roots": roots, "order": sequence}),
+              flush=True)
+        if not equal:
+            fail("the roots' orbit frames differ")
+        return
     summary = {}
     labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))
     for label in labels:

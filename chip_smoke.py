@@ -97,12 +97,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    through ``Renderer.compile_frame(uint8_output=True)``: the settled
    capacities, ``plan_for_motion`` over the 99 frames timed (the fused
    plan, its commands, the scouted capacities), the time to build one
-   variant, each frame's near-plane crossings (from the sequential
-   walk's binning); three windows of 99 frames chained through ``carry``
-   with one fetch each: frames/s, the coverage kernel launched once a
-   frame, the host time a frame for planning, binning dispatch and
-   raster dispatch, peak device memory and rebuilds; the calls of one
-   frame that wait for the device; under torch.profiler, the device's
+   variant, each variant's capture (the fused plan's by
+   ``plan_for_motion``, the sequential walk's forced) with its host ms,
+   launches and the graph pool's memory, each frame's near-plane
+   crossings (from the sequential walk's binning); one window of the 99
+   frames on the eager path (the variant's prepare and rasterize outside
+   its graph), kept; three windows of 99 frames replaying the graphs,
+   chained through ``carry`` with one fetch each: frames/s next to the
+   eager window's, the coverage kernel launched once a frame, no frame
+   captured, the host time a frame for planning, copies in and replay,
+   copy out and carry, every frame equal to the eager frame to the bit;
+   the peak device memory of graph and eager frames and rebuilds; the
+   calls of one frame that wait for the device; under torch.profiler, the device's
    busy share, the kernel's and binning's device time and the device
    operations a frame; the frame with the most
    crossings, a fused frame and a frame that fell back (where one does)
@@ -116,7 +122,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    frames; the last frame at each size against the app's
    ``compile_frame`` program called outside the loop, RGBA8, to the bit;
    each PNG read back against the frame presented; ``FrameTimer``'s fps
-   and average at each size; one more frame under
+   and average at each size; the frames that captured a variant's graph,
+   with their host ms, and the other frames' median; one more frame under
    ``utils.profiling.device_trace``, whose trace must hold the kernel;
 21. the standalone fill rasterizer (``ops.raster.make_fill_rasterizer``,
    plain torch on the card): BASELINE config 1 (the circle at 256²)
@@ -1468,6 +1475,20 @@ def device_busy(prof, raster_name="coverage_raster"):
     return busy, raster, other, len(spans)
 
 
+def graph_pool_mib(pool):
+    """The device memory that the segments of the CUDA graph memory pool
+    ``pool`` hold, as text ("not measured" where the allocator's snapshot
+    does not name the pools of its segments)."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    held = sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+    return f"{held / 2**20:.1f} MiB"
+
+
 def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height):
     """Phase 19: the showcase with text under the orbit of
     run_configs.config5_orbit (0.05 rad a frame about the y axis, the
@@ -1518,6 +1539,28 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
         builds.append((time.perf_counter() - start) * 1e3)
     print(f"{label}: building one variant (in the calling thread) median "
           f"{statistics.median(builds):.2f} ms of 5", flush=True)
+    # Each variant's frame step: plan_for_motion captured the plan's; the
+    # sequential walk's warms up (rendering frame 0) and captures here.
+    captures = {
+        "fused plan" if v is not program._seq else "sequential walk": v.step
+        for v in program._variants() if v.step is not None
+    }
+    reserved = torch.cuda.memory_reserved()
+    program._stage_descriptors()
+    seq_step = program._frame_step(program._seq, program._opt_rows(at(0)))
+    seq_step.capture()
+    torch.cuda.synchronize()
+    captures.setdefault("sequential walk", seq_step)
+    print(f"{label} ({card}): capture (host ms, the graph's instantiation "
+          f"included; each variant warmed up before) "
+          + ", ".join(f"{k} {step.capture_ms:.1f} ms ({step.launches} launch)"
+                      for k, step in captures.items())
+          + f"; reserved device memory {reserved / 2**20:.1f} -> "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB over the sequential "
+          f"walk's capture; the program's graph pool "
+          f"{graph_pool_mib(program._pool)}", flush=True)
+    if any(step.launches != 1 for step in captures.values()):
+        fail(f"{label}: a captured step does not launch the kernel once")
 
     # Near-plane crossings of every frame, from the sequential walk.
     walk = Renderer(Configuration(), width, height, auto_instance=False,
@@ -1540,47 +1583,91 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     if crossings[crossing] == 0:
         fail(f"{label}: no orbit frame crosses the near plane")
 
-    # The timed window, three times: n frames chained through carry, one
-    # fetch at the end of each.
     acc = torch.zeros((), device=renderer.device)
     for i in range(3):
         _, acc = program(at(i), carry=acc)
     torch.cuda.synchronize()
+
+    # The eager path of the same frames: the variant's own prepare and
+    # rasterize outside its graph, on inputs uploaded for the frame (the
+    # program's frame path before the graphs).  One window, timed as
+    # below; its frames are kept, and every timed frame of the graph is
+    # held against them to the bit.
+    def eager_frame(i, acc):
+        variant, runtime = program._bin(program._opt_rows(at(i)))
+        image = variant.rasterize(*runtime)
+        return image, renderer._carry(acc, image)
+
+    eager = []
+    start = time.perf_counter()
+    for i in range(n):
+        image, acc = eager_frame(i, acc)
+        eager.append(image)
+    float(acc)
+    eager_wall = time.perf_counter() - start
+    # The allocator holds a window's frames from here on, so that the
+    # graph's windows, which keep theirs, allocate nothing new.
+    cached = [torch.empty_like(eager[0]) for _ in range(n)]
+    del cached
     built = program.builds
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     walls = []
     for window in range(ORBIT_WINDOWS):
         host = {"plan_ms": 0.0, "bin_ms": 0.0, "raster_ms": 0.0}
-        fused_at = []
+        fused_at, held, captured = [], [], 0
         coverage.raster_launches = 0
         start = time.perf_counter()
         for i in range(n):
-            _, acc = program(at(i), carry=acc)
+            image, acc = program(at(i), carry=acc)
+            held.append(image)
             for key in host:
                 host[key] += program.stats[key]
             fused_at.append(program.stats["fused"])
+            captured += "capture_ms" in program.stats
         total = float(acc)
         walls.append(time.perf_counter() - start)
         launches = coverage.raster_launches
+        differ = [i for i in range(n) if not torch.equal(held[i], eager[i])]
+        del held
         print(f"{label} ({card}), window {window + 1}: {n} frames in "
               f"{walls[-1] * 1e3:.1f} ms, {n / walls[-1]:.2f} frames/s; "
               f"{launches} coverage_raster launches; {sum(fused_at)} frames "
-              f"fused; host per frame: planning {host['plan_ms'] / n:.3f} ms, "
-              f"binning dispatch {host['bin_ms'] / n:.3f} ms, raster dispatch "
-              f"and carry {host['raster_ms'] / n:.3f} ms; alpha sum {total:.6g}",
-              flush=True)
+              f"fused; {captured} captured; host per frame: planning "
+              f"{host['plan_ms'] / n:.3f} ms, copies in and replay (bin_ms) "
+              f"{host['bin_ms'] / n:.3f} ms, copy out and carry (raster_ms) "
+              f"{host['raster_ms'] / n:.3f} ms; alpha sum {total:.6g}; frames "
+              f"equal to the eager path's {n - len(differ)} of {n}", flush=True)
         if launches != n:
             fail(f"{label}: {launches} coverage_raster launches for {n} frames")
         if not np.isfinite(total) or total <= 0:
             fail(f"{label}: the frames' alpha sum is {total}")
+        if differ:
+            fail(f"{label}: frames {differ[:8]} of the graph differ from the "
+                 f"eager path's")
     wall = statistics.median(walls)
-    peak = torch.cuda.max_memory_allocated() - base
     rebuilds = program.builds - built
+    del eager
+
+    def peak_mib(frame):
+        """Peak device memory of 8 frames above what was allocated before
+        them, in MiB."""
+        nonlocal acc
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(8):
+            _, acc = frame(i, acc)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    graph_peak = peak_mib(lambda i, acc: program(at(i), carry=acc))
+    eager_peak = peak_mib(eager_frame)
     print(f"{label} ({card}): median of {ORBIT_WINDOWS} windows "
-          f"{n / wall:.2f} frames/s ({wall * 1e3 / n:.3f} ms a frame); peak "
-          f"device memory over the windows {peak / 2**20:.1f} MiB; rebuilds "
-          f"{rebuilds}", flush=True)
+          f"{n / wall:.2f} frames/s ({wall * 1e3 / n:.3f} ms a frame) replaying "
+          f"the graphs, against {n / eager_wall:.2f} frames/s ({eager_wall * 1e3 / n:.3f} "
+          f"ms a frame) on the eager path in this process; peak device memory "
+          f"of a frame above the allocated: graph {graph_peak:.1f} MiB (the graph "
+          f"pool {graph_pool_mib(program._pool)} besides), eager {eager_peak:.1f} "
+          f"MiB; rebuilds {rebuilds}", flush=True)
 
     # Calls that wait for the device in one frame (each upload from
     # pageable host memory is one).
@@ -1724,7 +1811,7 @@ def frame_loop_phase(coverage, Renderer, card):
               f"{time.perf_counter() - start:.2f} s", flush=True)
         if loop.renderer.device.type != "cuda":
             fail(f"{label}: the loop's renderer is on {loop.renderer.device}")
-        seconds = {}
+        seconds, captured = {}, {}
         coverage.raster_launches = 0
         for index in range(LOOP_FRAMES):
             if index == 0:
@@ -1739,6 +1826,8 @@ def frame_loop_phase(coverage, Renderer, card):
             image = loop.step()
             size = (loop.renderer.width, loop.renderer.height)
             seconds.setdefault(size, []).append(loop.timer.last_s)
+            captured.setdefault(size, []).append(
+                app._program.stats.get("capture_ms"))
             if index in (LOOP_RESIZE_AFTER, LOOP_FRAMES - 1):
                 # The app's program outside the loop, same camera and
                 # dash phase (set on the shape by the frame's render).
@@ -1765,6 +1854,15 @@ def frame_loop_phase(coverage, Renderer, card):
                   for (w, h), v in seconds.items())
               + f"; {launches} coverage_raster launches; builds of the "
               f"{WIDTH}x{HEIGHT} program {app._program.builds}", flush=True)
+        for (w, h), v in seconds.items():
+            caps = captured[(w, h)]
+            other = [t for t, c in zip(v, caps) if c is None]
+            print(f"{label} ({card}) {w}x{h}: {sum(c is not None for c in caps)} "
+                  f"of {len(v)} frames captured a variant's graph (host ms "
+                  f"{', '.join(f'{c:.1f}' for c in caps if c is not None)}); the "
+                  f"others' median "
+                  f"{statistics.median(other) * 1e3 if other else float('nan'):.2f} "
+                  f"ms a frame", flush=True)
         if launches < LOOP_FRAMES:
             fail(f"{label}: {launches} coverage_raster launches for "
                  f"{LOOP_FRAMES} frames")

@@ -667,6 +667,41 @@ def make_prepare(spec: FrameSpec):
     PAD = spec.entry_pad
     mx, my = spec.slots_x, spec.slots_y
     M = mx * my
+    constants = {}
+
+    def device_constants(dev):
+        """The spec's index tables, gate masks and scalars as tensors on
+        ``dev``, made by the first call for that device and kept, so
+        that a later call uploads nothing from the host (and a CUDA graph
+        can capture it)."""
+        c = constants.get(dev)
+        if c is None:
+            def idx(a):
+                return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+            c = constants[dev] = dict(
+                s_cmd=torch.as_tensor(draws.s_cmd, device=dev),
+                sshape=idx(s_shape_np),
+                s_row=idx(draws.s_row),
+                rot=idx([1, 2, 0]),
+                fan0=idx([0, 1, 2]),
+                fan1=idx([0, 2, 3]),
+                perm=idx([2, 0, 1]),
+                c_shape=idx(c_shape_np),
+                c_row=idx(draws.c_row),
+                unit_cmd=idx(draws.unit_cmd),
+                unit_draw=idx(np.maximum(draws.unit_draw, 0)),
+                is_cover_u=torch.as_tensor(draws.unit_draw >= 0, device=dev),
+                gates=[
+                    (torch.as_tensor(content_m, device=dev),
+                     torch.as_tensor(~mach_m, device=dev),
+                     idx(rows_a), idx(rows_b))
+                    for content_m, mach_m, rows_a, rows_b in gates
+                ],
+                w_eps=torch.tensor(1e-6, dtype=torch.float32, device=dev),
+                eps=torch.tensor(1e-5, dtype=torch.float32, device=dev),
+            )
+        return c
 
     def prepare(xy, aux, kind, meta, gbase, hull, transforms, desc_static,
                 paint_model=None):
@@ -674,24 +709,24 @@ def make_prepare(spec: FrameSpec):
         gbase (Ns,) hull (Ns,Hm,2) transforms (R,4,4) desc_static
         (n_groups, 2), all tensors on one device; paint_model (Rc,2,2)
         the model-space paint points of each cover draw, or None when
-        every paint is solid."""
+        every paint is solid.
+
+        After the first call for a device it neither uploads a host
+        value nor reads one back: every size is fixed by the spec."""
         dev = xy.device
         f32 = torch.float32
         i32 = torch.int32
         i64 = torch.int64
-
-        def idx(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        k = device_constants(dev)
 
         def arange(n, dtype=i32):
             return torch.arange(n, dtype=dtype, device=dev)
 
         # ---- per-stencil-draw triangle setup --------------------------
-        s_cmd = torch.as_tensor(draws.s_cmd, device=dev)
-        sshape = idx(s_shape_np)
+        sshape = k["sshape"]
         sxy = xy[sshape]                          # (Rs, T, 3, 2)
         saux = aux[sshape]
-        stf = transforms[idx(draws.s_row)]        # (Rs, 4, 4)
+        stf = transforms[k["s_row"]]              # (Rs, 4, 4)
         clip = _transform_points(
             sxy[..., 0], sxy[..., 1], stf[:, None, None]
         )                                         # (Rs, T, 3, 4)
@@ -702,14 +737,14 @@ def make_prepare(spec: FrameSpec):
         aux_flat = saux.reshape(N0, 3, 4)
         kind_flat = kind[sshape].reshape(N0)
         meta_flat = meta[sshape].reshape(N0, 2)
-        gbase_flat = torch.repeat_interleave(gbase[sshape], T)
-        cmd_flat = torch.repeat_interleave(s_cmd, T)
+        gbase_flat = gbase[sshape][:, None].expand(Rs, T).reshape(N0)
+        cmd_flat = k["s_cmd"][:, None].expand(Rs, T).reshape(N0)
 
         # ---- near-plane clipping of crossing triangles -----------------
         # Sutherland-Hodgman against w > eps into a pool of E slots, each
         # giving up to two sub-triangles (the reference's hardware clip).
         E = spec.clip_pool
-        w_eps = torch.tensor(1e-6, dtype=f32, device=dev)
+        w_eps = k["w_eps"]
         w_all = clip_flat[..., 3]
         win = w_all > w_eps
         n_in = win.sum(-1)
@@ -727,7 +762,7 @@ def make_prepare(spec: FrameSpec):
         slot_ok = arange(E) < torch.clamp(cross_total, max=E)
 
         attr = torch.cat([clip_flat[cidx], aux_flat[cidx]], -1)  # (E,3,8)
-        rot = idx([1, 2, 0])
+        rot = k["rot"]
         wa = attr[..., 3]
         a_in = wa > w_eps
         nxt = attr[:, rot, :]
@@ -751,8 +786,8 @@ def make_prepare(spec: FrameSpec):
         poly = torch.where(in_use[..., None], poly, poly[:, 0:1])
         # Fan: (p0, p1, p2) and (p0, p2, p3); a 3-vertex polygon's second
         # triangle is degenerate and culled downstream.
-        tri0 = poly[:, idx([0, 1, 2])]
-        tri1 = poly[:, idx([0, 2, 3])]
+        tri0 = poly[:, k["fan0"]]
+        tri1 = poly[:, k["fan1"]]
         pool_attr = torch.cat([tri0, tri1], 0)          # (2E, 3, 8)
         pool_valid = slot_ok.repeat(2)
         pool_clip = torch.where(
@@ -809,7 +844,7 @@ def make_prepare(spec: FrameSpec):
         inv_area = torch.where(area != 0.0, 1.0 / torch.abs(area), 0.0)
 
         aux_w = aux_all * inv_w[..., None]
-        perm = idx([2, 0, 1])
+        perm = k["perm"]
         aw = aux_w[:, perm, :]                           # aw[k] pairs edge k
         iw = inv_w[:, perm]
 
@@ -930,11 +965,12 @@ def make_prepare(spec: FrameSpec):
         entry = valid & ~solid_acc
 
         # Trivial accepts of solid triangles fold into one winding delta
-        # per (tile, command).
-        bulk.index_put_(
-            (tile_of[solid_acc], cmd64[:, None].expand(-1, M)[solid_acc]),
-            contrib_flat[:, None].expand(-1, M)[solid_acc],
-            accumulate=True,
+        # per (tile, command): exact integer adds, the other slots adding
+        # 0 at (tile 0, command 0) so that no mask sets a size.
+        bulk.view(-1).index_add_(
+            0,
+            torch.where(solid_acc, tile_of * C + cmd64[:, None], 0).reshape(-1),
+            torch.where(solid_acc, contrib_flat[:, None], 0).reshape(-1),
         )
 
         # Stable sort of local entries by (tile, cmd, class).
@@ -944,9 +980,11 @@ def make_prepare(spec: FrameSpec):
         order = torch.sort(key, stable=True).indices
         srow = order // M                                # payload: row index
 
-        counts2 = torch.bincount(key[key < big], minlength=big).reshape(
-            n_tiles, N_CLASSES * C
-        )
+        # Entry counts per (tile, cmd, class); the keys of non-entries
+        # (big) count in one extra slot, cut off.
+        counts2 = torch.zeros(big + 1, dtype=i64, device=dev).index_add_(
+            0, key, torch.ones_like(key)
+        )[:big].reshape(n_tiles, N_CLASSES * C)
         off = torch.cat(
             [torch.zeros((n_tiles, 1), dtype=i64, device=dev),
              torch.cumsum(counts2, 1)],
@@ -1037,8 +1075,8 @@ def make_prepare(spec: FrameSpec):
         g_off = torch.clamp(g_off, max=Kg)
 
         # ---- cover draws: near-plane clip + hull lines + class ---------
-        hp = hull[idx(c_shape_np)]                       # (Rc, Hm, 2)
-        ctf = transforms[idx(draws.c_row)]               # (Rc, 4, 4)
+        hp = hull[k["c_shape"]]                          # (Rc, Hm, 2)
+        ctf = transforms[k["c_row"]]                     # (Rc, 4, 4)
         Cc = Rc
         # Paint points projected as the hulls are, so paints ride the
         # camera; zeros without paints, as in the reference.
@@ -1053,7 +1091,7 @@ def make_prepare(spec: FrameSpec):
         hclip = _transform_points(hp[..., 0], hp[..., 1], ctf[:, None])
         # Sutherland–Hodgman clip of the convex hull against w > eps.
         H2 = Hm + 2
-        eps = torch.tensor(1e-5, dtype=f32, device=dev)
+        eps = k["eps"]
         b_vert = torch.roll(hclip, -1, 1)
         wa = hclip[..., 3]
         wb = b_vert[..., 3]
@@ -1138,10 +1176,9 @@ def make_prepare(spec: FrameSpec):
         g_end = g_off[:, N_CLASSES:N_CLASSES * C + 1:N_CLASSES]
         stencil_active = (end > start) | (g_end > g_start) | (bulk != 0)
         cover_active = cls > 0
-        act_s = stencil_active[:, idx(draws.unit_cmd)]
-        act_c = cover_active[:, idx(np.maximum(draws.unit_draw, 0))]
-        is_cover_u = torch.as_tensor(draws.unit_draw >= 0, device=dev)
-        active = torch.where(is_cover_u[None, :], act_c, act_s)
+        act_s = stencil_active[:, k["unit_cmd"]]
+        act_c = cover_active[:, k["unit_draw"]]
+        active = torch.where(k["is_cover_u"][None, :], act_c, act_s)
         # ---- clip/alpha bracket gating --------------------------------
         # Drop a balanced bracket's machinery units from the tiles that
         # NO content unit of the whole frame touches: frame alpha is
@@ -1151,12 +1188,10 @@ def make_prepare(spec: FrameSpec):
         # transform rows) is the one runtime condition, checked here on
         # the device, with no host sync: unequal rows keep the span's
         # machinery everywhere.
-        for content_m, mach_m, rows_a, rows_b in gates:
-            content = torch.as_tensor(content_m, device=dev)
-            other = torch.as_tensor(~mach_m, device=dev)
+        for content, other, rows_a, rows_b in k["gates"]:
             keep = other[None, :] | (active & content).any(1)[:, None]
             if len(rows_a):
-                opener, closer = transforms[idx(rows_a)], transforms[idx(rows_b)]
+                opener, closer = transforms[rows_a], transforms[rows_b]
                 keep = keep | ~(opener == closer).all()
             active = active & keep
         # Compact active unit indices per tile (inactive slots key to U
@@ -1197,8 +1232,13 @@ def make_prepare(spec: FrameSpec):
 # ---------------------------------------------------------------------------
 
 #: Launches of the CUDA kernel since the count was last reset: the
-#: wrapper adds one where it launches and nowhere else.
+#: wrapper adds one where it launches and nowhere else.  A launch made
+#: while the stream is captured into a CUDA graph runs only when the
+#: graph replays: it counts in ``raster_captures`` instead, and whoever
+#: replays the graph adds its captured launches here on every replay
+#: (renderer._FrameStep).
 raster_launches = 0
+raster_captures = 0
 
 #: The kernel's thread layout: a block of 256 threads is BLOCK_ROWS x
 #: BLOCK_LANES pixels of a tile, and its warp w the BLOCK_ROWS x 8 lanes
@@ -1531,7 +1571,7 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     which adds each body's warp-cycles to it; ``omit``, one of
     PROFILE_BODIES, launches the subtractive build that skips that body
     (its output is not the frame)."""
-    global raster_launches
+    global raster_launches, raster_captures
     draws, expected = _raster_plan(spec)
     tensors = dict(
         prepared._asdict(), cmd_i=cmd_i, cmd_f=cmd_f,
@@ -1613,9 +1653,13 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.coverage_raster_launch(ctypes.byref(args), stream)
+        captured = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"coverage_raster launch failed: CUDA error {err}")
-    raster_launches += 1
+    if captured:
+        raster_captures += 1
+    else:
+        raster_launches += 1
     return out
 
 

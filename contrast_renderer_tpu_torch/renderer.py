@@ -31,6 +31,7 @@ transforms (or once for a whole camera path, ``plan_for_motion``).
 from __future__ import annotations
 
 import enum
+import gc
 import hashlib
 import logging
 import math
@@ -2189,13 +2190,194 @@ _CAP_STATS = (
 
 class _ProgramVariant:
     """One command-walk variant of a FrameProgram, the sequential walk or
-    a fused one: its FrameSpec, its binning and raster executors, and its
-    command tables on the renderer's device."""
+    a fused one: its FrameSpec, its binning and raster executors, its
+    command tables and paint points on the renderer's device, and its
+    captured frame step (``_FrameStep``, made by the first frame that
+    needs it)."""
 
     __slots__ = (
-        "spec", "opt_commands", "prepare", "rasterize", "paint_model",
-        "packed_constant", "cmd_i", "cmd_f",
+        "spec", "opt_commands", "prepare", "rasterize", "paints",
+        "packed_constant", "cmd_i", "cmd_f", "step",
     )
+
+
+class _Staged:
+    """A device tensor at a fixed address (a CUDA graph's input), written
+    from host arrays through a ring of pinned staging buffers.  A write
+    copies with ``non_blocking=True`` and records an event after the
+    copy; the host fills a staging buffer again only once its event has
+    passed, so it never rewrites one whose copy has not run.  A write of
+    the values the tensor holds already is skipped.  On the CPU the
+    staging buffers are plain memory and the copy is synchronous."""
+
+    SLOTS = 2
+    DTYPES = {np.dtype(np.float32): torch.float32,
+              np.dtype(np.int32): torch.int32}
+
+    def __init__(self, array: np.ndarray, device):
+        dtype = self.DTYPES[array.dtype]
+        self.tensor = torch.empty(array.shape, dtype=dtype, device=device)
+        cuda = self.tensor.is_cuda
+        self._host = [
+            torch.empty(array.shape, dtype=dtype, pin_memory=cuda)
+            for _ in range(self.SLOTS)
+        ]
+        self._events = [
+            torch.cuda.Event() if cuda else None for _ in range(self.SLOTS)
+        ]
+        self._slot = 0
+        self._held = None
+        self.write(array)
+
+    def write(self, array: np.ndarray):
+        if array.shape != tuple(self.tensor.shape):
+            raise ValueError(
+                f"staged shape {tuple(self.tensor.shape)}, got {array.shape}"
+            )
+        if self._held is not None and np.array_equal(array, self._held):
+            return
+        slot = self._slot
+        self._slot = (slot + 1) % self.SLOTS
+        event = self._events[slot]
+        if event is not None:
+            event.synchronize()
+        host = self._host[slot]
+        host.numpy()[...] = array
+        self.tensor.copy_(host, non_blocking=True)
+        if event is not None:
+            event.record(torch.cuda.current_stream(self.tensor.device))
+        self._held = np.array(array, copy=True)
+
+
+class _FrameStep:
+    """One variant's frame, binning then raster, as one CUDA graph: the
+    port's counterpart of the reference's ``jax.jit(step)``
+    (contrast_renderer_tpu/renderer.py, ``FrameProgram._build_variant``).
+
+    Every device input stays at one address: the variant's transform
+    stack (``_Staged``, written each frame), the program's descriptors
+    (``_Staged``, written when their bytes change), and the variant's
+    command tables and paint points and the scene arrays, fixed per
+    build.  The outputs are static too: the frame, and the overflow
+    counters that the capture allocated.  A caller copies what it keeps
+    before the next call.
+
+    On a CUDA device the first call runs the step on the program's side
+    stream (the warm-up that capture needs: it loads the kernel library
+    and makes ``make_prepare``'s device constants) and returns that run's
+    frame.  The second call captures ``make_prepare`` and
+    ``coverage_raster`` into a graph in the program's memory pool, and
+    it and every later call replay the graph, adding its captured kernel
+    launches to ``coverage.raster_launches``; so a variant met once (a
+    grouping of one frame of a drag) never pays a capture.  A failed
+    capture or replay raises, naming the variant.  On the CPU every call
+    runs the step eagerly on the same buffers."""
+
+    def __init__(self, variant: _ProgramVariant, scene, descriptors,
+                 transforms: np.ndarray, pool, side):
+        spec = variant.spec
+        device = variant.cmd_i.device
+        # The variant's functions and tables, not the variant, which holds
+        # the step: without a reference cycle a step (and its graph) is
+        # freed when its program drops it, never by a collection.
+        self._prepare = variant.prepare
+        self._rasterize = variant.rasterize
+        self._tables = (variant.cmd_i, variant.cmd_f, variant.paints)
+        self.scene = scene
+        #: The program's staged descriptors: "static", "f", "i".
+        self.descriptors = descriptors
+        self.transforms = _Staged(transforms, device)
+        self.frame = torch.empty(
+            (spec.height, spec.width, 4),
+            dtype=torch.uint8 if spec.out_uint8 else torch.float32,
+            device=device,
+        )
+        self.overflow = None
+        self._warm = False
+        self.graph = None
+        #: Kernel launches that one replay makes.
+        self.launches = 0
+        #: Host ms of the capture (and the graph's instantiation).
+        self.capture_ms = None
+        self.name = (
+            f"the {len(variant.opt_commands)}-command variant of a "
+            f"{spec.width}x{spec.height} FrameProgram"
+        )
+        self._pool = pool
+        self._side = side
+
+    def _step(self):
+        d = self.descriptors
+        cmd_i, cmd_f, paints = self._tables
+        prepared = self._prepare(
+            *self.scene.arrays, self.transforms.tensor, d["static"].tensor,
+            paints,
+        )
+        self._rasterize(prepared, cmd_i, cmd_f, d["f"].tensor, d["i"].tensor,
+                        self.frame)
+        return prepared.overflow
+
+    def _warm_up(self):
+        """Run the step on the side stream; returns its overflow counters
+        (its frame is in ``self.frame``)."""
+        stream = torch.cuda.current_stream(self.frame.device)
+        self._side.wait_stream(stream)
+        with torch.cuda.stream(self._side):
+            overflow = self._step()
+        stream.wait_stream(self._side)
+        overflow.record_stream(stream)
+        self._warm = True
+        return overflow
+
+    def _capture(self):
+        """Capture the step into ``self.graph``; returns the host ms."""
+        start = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = coverage.raster_captures
+        # A collection during the capture could free another graph, which
+        # a capture forbids (and which ends it).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self._side):
+                graph.capture_begin(pool=self._pool)
+                try:
+                    self.overflow = self._step()
+                finally:
+                    graph.capture_end()
+        except RuntimeError as exc:
+            raise RuntimeError(f"capturing {self.name} failed") from exc
+        finally:
+            if collecting:
+                gc.enable()
+        self.launches = coverage.raster_captures - before
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - start) * 1e3
+        return self.capture_ms
+
+    def capture(self):
+        """Warm up (a frame of the staged inputs) and capture now, on a
+        CUDA device, unless captured already; nothing on the CPU."""
+        if self.frame.is_cuda and self.graph is None:
+            if not self._warm:
+                self._warm_up()
+            self._capture()
+
+    def __call__(self, transforms: np.ndarray):
+        """Write ``transforms`` and run the step: ``(frame, overflow,
+        capture ms or None)``, the first two the step's own buffers."""
+        self.transforms.write(transforms)
+        if not self.frame.is_cuda:
+            return self.frame, self._step(), None
+        if not self._warm:
+            return self.frame, self._warm_up(), None
+        capture_ms = None if self.graph is not None else self._capture()
+        try:
+            self.graph.replay()
+        except RuntimeError as exc:
+            raise RuntimeError(f"replaying {self.name} failed") from exc
+        coverage.raster_launches += self.launches
+        return self.frame, self.overflow, capture_ms
 
 
 class FrameProgram:
@@ -2206,8 +2388,15 @@ class FrameProgram:
     ``Renderer.render`` keys its binning cache on the transform bytes,
     which suits a still camera; a moving one bins every frame.  Here
     each call takes an (R, 4, 4) transform stack, bins it
-    (``make_prepare``) and runs the raster kernel once, eagerly, on the
-    renderer's device.
+    (``make_prepare``) and runs the raster kernel once.  On a CUDA
+    device each variant's binning and raster are one CUDA graph
+    (``_FrameStep``): the variant's first frame is the warm-up, its
+    second captures the graph (``plan_for_motion`` captures its plan's
+    ahead), and every frame from then on replays it; the variants
+    of a program share one graph memory pool and replay one after
+    another on the caller's stream.  On the CPU the same step runs
+    eagerly.  A rebuild (capacity growth, a geometry edit, a new scene
+    size) drops the graphs, and the next frames capture again.
 
     Runs of single-instance (STENCIL, COLOR) pairs are found once, by
     structure (``_structural_runs``); each call groups them by cover
@@ -2282,10 +2471,18 @@ class FrameProgram:
         #: Builds of the program, the first included (a capacity growth
         #: or a geometry edit rebuilds it).
         self.builds = 0
-        #: The last call's host times: choosing the variant
-        #: (``plan_ms``), dispatching the binning (``bin_ms``) and the
-        #: raster (``raster_ms``), in ms, and whether it was fused.
+        #: The last call's host times in ms: choosing the variant
+        #: (``plan_ms``); packing the descriptors, the copies in and the
+        #: graph's replay (``bin_ms``); the copy out, carry and overflow
+        #: upkeep (``raster_ms``); on a frame that captured its variant's
+        #: graph, the capture (``capture_ms``, within ``bin_ms``); and
+        #: whether the frame was fused.
         self.stats = {}
+        #: The side stream of warm-ups and captures (CUDA only).
+        self._side = (
+            torch.cuda.Stream(renderer.device)
+            if renderer.device.type == "cuda" else None
+        )
         self._build()
 
     def _build(self):
@@ -2295,6 +2492,7 @@ class FrameProgram:
         #: grouping signature -> (plan, variant), emptied so that new
         #: capacities apply to every fused variant.
         self._fused_variants = {}
+        self._drop_steps()
         self._plan = None
         self.builds += 1
         if self._runs:
@@ -2327,9 +2525,10 @@ class FrameProgram:
         return spec
 
     def _build_variant(self, opt_commands) -> _ProgramVariant:
-        """One command-walk variant.  It compiles nothing: its kernel
-        library is keyed on features that every variant of the program
-        shares, and is loaded by the first frame."""
+        """One command-walk variant.  Its kernel library is keyed on
+        features that every variant of the program shares, and is loaded
+        by the first frame; on a CUDA device the second frame captures
+        the variant's graph."""
         renderer = self._renderer
         spec = self._variant_spec(opt_commands)
         v = _ProgramVariant()
@@ -2337,7 +2536,7 @@ class FrameProgram:
         v.opt_commands = opt_commands
         v.prepare = coverage.make_prepare(spec)
         v.rasterize = coverage.make_rasterize(spec)
-        v.paint_model = Renderer._pack_paints(opt_commands)
+        v.paints = self._device_paints(opt_commands)
         # cmd_f carries the blend constant where the state reads it;
         # _ensure_constant re-packs it when it changes.
         v.packed_constant = renderer._blend_constant_arg()
@@ -2346,7 +2545,17 @@ class FrameProgram:
         )
         v.cmd_i = torch.as_tensor(cmd_i, device=renderer.device)
         v.cmd_f = torch.as_tensor(cmd_f, device=renderer.device)
+        v.step = None
         return v
+
+    def _device_paints(self, opt_commands):
+        """The paint points of the commands' cover draws on the renderer's
+        device, or None when every paint is solid."""
+        paint_model = Renderer._pack_paints(opt_commands)
+        return (
+            None if paint_model is None
+            else torch.as_tensor(paint_model, device=self._renderer.device)
+        )
 
     def _install(self, plan) -> _ProgramVariant:
         """Build ``plan``'s variant and cache it under its signature."""
@@ -2361,14 +2570,15 @@ class FrameProgram:
 
     def _ensure_constant(self, v):
         """Re-pack a variant's cmd_f when the renderer's blend constant
-        changed since its last pack (no rebuild: cmd_f is an input)."""
+        changed since its last pack (no rebuild: cmd_f is an input,
+        written in place where the variant's graph reads it)."""
         constant = self._renderer._blend_constant_arg()
         if constant != v.packed_constant:
             v.packed_constant = constant
             _, cmd_f = Renderer._pack_commands_runtime(
                 v.opt_commands, constant
             )
-            v.cmd_f = torch.as_tensor(cmd_f, device=self._renderer.device)
+            v.cmd_f.copy_(torch.from_numpy(cmd_f))
 
     def _refresh_cmd_f(self):
         for v in self._variants():
@@ -2551,8 +2761,10 @@ class FrameProgram:
         # and spread huge covers over many tiles, and each overflow found
         # mid-motion would cost under-populated frames and a rebuild.
         renderer = self._renderer
-        paint_model = Renderer._pack_paints(plan.commands)
-        desc_static, paints, _, _ = self._descriptors(paint_model)
+        paints = self._device_paints(plan.commands)
+        desc_static = torch.as_tensor(
+            self._descriptors()["static"], device=renderer.device
+        )
         grew_any = False
         for _round in range(6):
             prepare = coverage.make_prepare(self._variant_spec(plan.commands))
@@ -2588,13 +2800,18 @@ class FrameProgram:
             while len(self._fused_variants) >= self.MAX_FUSED_VARIANTS:
                 del self._fused_variants[next(iter(self._fused_variants))]
             self._install(plan)
-        self._plan = self._fused_variants[plan.signature][0]
+        self._plan, variant = self._fused_variants[plan.signature]
+        # Capture the plan's graph now, so that the motion's frames
+        # replay from the first.
+        self._stage_descriptors()
+        first = np.ascontiguousarray(stacks[0][plan.gather])
+        self._frame_step(variant, first).capture()
         return True
 
     def wait_fused_compiles(self, timeout=None) -> bool:
-        """True: variants build in the calling thread, so none is ever
-        in flight (the reference's background compiles are waited on
-        here)."""
+        """True: variants build and capture their graphs in the calling
+        thread, so none is ever in flight (the reference's background
+        compiles are waited on here)."""
         return True
 
     def _ceilings(self):
@@ -2635,15 +2852,17 @@ class FrameProgram:
         if grew:
             self._build()
         # A geometry edit re-enters through the scene cache; a changed
-        # padded size rebuilds the program.
+        # padded size rebuilds the program, new arrays of the same size
+        # drop the graphs, which read the old ones.
         _, scene = renderer._scene_arrays(self._shapes)
         if (scene.t_max, scene.h_max) != (
             self._scene.t_max, self._scene.h_max
         ):
             self._scene = scene
             self._build()
-        else:
+        elif scene is not self._scene:
             self._scene = scene
+            self._drop_steps()
 
     def _opt_rows(self, transforms):
         """One frame's public (R, 4, 4) stack, one row per command
@@ -2666,47 +2885,83 @@ class FrameProgram:
             transforms = transforms[self._keep_rows]
         return transforms
 
-    def _descriptors(self, paint_model):
-        """(desc_static, paint points, desc_f, desc_i) on the device,
-        packed anew every call so that dash phases animate; uploaded
-        only when their bytes change."""
-        renderer = self._renderer
+    def _descriptors(self):
+        """The program's stroke descriptors, packed anew every call so
+        that dash phases animate: numpy ``static`` (desc_static), ``f``
+        and ``i``."""
         desc_f, desc_i = Renderer._pack_descriptors(self._shapes)
-        desc_static = np.ascontiguousarray(desc_i[:, [9, 8]])
-        return (
-            renderer._dev_cached("fp_desc_static", desc_static),
-            None if paint_model is None
-            else renderer._dev_cached("fp_paints", paint_model),
-            renderer._dev_cached("fp_desc_f", desc_f),
-            renderer._dev_cached("fp_desc_i", desc_i),
+        return {
+            "static": np.ascontiguousarray(desc_i[:, [9, 8]]),
+            "f": desc_f,
+            "i": desc_i,
+        }
+
+    def _drop_steps(self):
+        """Forget every variant's frame step and the staged descriptors:
+        the next frame of each variant captures again, into a new
+        memory pool."""
+        for v in self._variants():
+            v.step = None
+        self._desc = None
+        self._pool = (
+            torch.cuda.graph_pool_handle()
+            if self._renderer.device.type == "cuda" else None
         )
 
-    def _bin(self, transforms):
-        """Choose the frame's variant and bin the frame: returns
-        ``(variant, runtime)``, where ``variant.rasterize(*runtime)``
-        renders it, and records both steps' host time in ``stats``."""
-        start = time.perf_counter()
-        variant = self._seq
+    def _stage_descriptors(self):
+        """Write this call's descriptors into the staged buffers that
+        every variant's step reads; a change of their shapes drops the
+        steps."""
+        arrays = self._descriptors()
+        if self._desc is not None and any(
+            tuple(self._desc[k].tensor.shape) != a.shape
+            for k, a in arrays.items()
+        ):
+            self._drop_steps()
+        if self._desc is None:
+            self._desc = {
+                k: _Staged(a, self._renderer.device)
+                for k, a in arrays.items()
+            }
+        else:
+            for k, a in arrays.items():
+                self._desc[k].write(a)
+
+    def _frame_step(self, variant, transforms) -> _FrameStep:
+        """The variant's step, made on first use with this frame's
+        transforms (after ``_stage_descriptors``)."""
+        if variant.step is None:
+            variant.step = _FrameStep(
+                variant, self._scene, self._desc, transforms, self._pool,
+                self._side,
+            )
+        return variant.step
+
+    def _choose(self, transforms):
+        """The frame's variant and its transforms in that variant's
+        layout: the fused grouping that holds, or the sequential walk."""
         if self._runs:
             fused = self._try_fused(transforms)
             if fused is not None:
-                variant, transforms = fused
-        planned = time.perf_counter()
-        desc_static, paints, desc_f, desc_i = self._descriptors(
-            variant.paint_model
-        )
+                return fused
+        return self._seq, transforms
+
+    def _bin(self, transforms):
+        """Choose the frame's variant and bin the frame eagerly with the
+        variant's own ``prepare``, outside its graph, on inputs of its
+        own: returns ``(variant, runtime)``, where
+        ``variant.rasterize(*runtime)`` renders it.  For checks and
+        measurement; frames replay the variant's step."""
+        variant, transforms = self._choose(transforms)
+        dev = self._renderer.device
+        d = {k: torch.as_tensor(a, device=dev)
+             for k, a in self._descriptors().items()}
         prepared = variant.prepare(
-            *self._scene.arrays,
-            torch.as_tensor(transforms, device=self._renderer.device),
-            desc_static, paints,
+            *self._scene.arrays, torch.as_tensor(transforms, device=dev),
+            d["static"], variant.paints,
         )
-        self.stats = {
-            "fused": variant is not self._seq,
-            "plan_ms": (planned - start) * 1e3,
-            "bin_ms": (time.perf_counter() - planned) * 1e3,
-        }
-        return variant, (prepared, variant.cmd_i, variant.cmd_f, desc_f,
-                         desc_i)
+        return variant, (prepared, variant.cmd_i, variant.cmd_f, d["f"],
+                         d["i"])
 
     def _defer(self, overflow):
         self._pending.append((*_copy_to_host_async(overflow), self._frame))
@@ -2725,13 +2980,27 @@ class FrameProgram:
         self._frame += 1
         self._sync()
         self._refresh_cmd_f()
-        variant, runtime = self._bin(transforms)
         start = time.perf_counter()
-        image = variant.rasterize(*runtime)
+        variant, transforms = self._choose(transforms)
+        planned = time.perf_counter()
+        self._stage_descriptors()
+        image, overflow, capture_ms = self._frame_step(
+            variant, transforms
+        )(transforms)
+        stepped = time.perf_counter()
+        # The step's frame is overwritten by its next replay.
+        image = image.clone()
         if carry is not None:
             carry = self._renderer._carry(carry, image)
-        self.stats["raster_ms"] = (time.perf_counter() - start) * 1e3
-        self._defer(runtime[0].overflow)
+        self._defer(overflow)
+        self.stats = {
+            "fused": variant is not self._seq,
+            "plan_ms": (planned - start) * 1e3,
+            "bin_ms": (stepped - planned) * 1e3,
+            "raster_ms": (time.perf_counter() - stepped) * 1e3,
+        }
+        if capture_ms is not None:
+            self.stats["capture_ms"] = capture_ms
         return image if carry is None else (image, carry)
 
     def render_sequence(self, transforms, as_uint8: bool = True):
@@ -2740,8 +3009,9 @@ class FrameProgram:
         by default (quantized per frame, or packed by the kernel with
         ``uint8_output``).  One descriptor set serves the segment.  The
         active fused plan is used only when every frame validates under
-        it; the segment's overflow counters are reduced by max and read
-        as one frame's."""
+        it; each frame replays its variant's step once, and the
+        segment's overflow counters are reduced by max and read as one
+        frame's."""
         transforms = np.ascontiguousarray(transforms, np.float32)
         if transforms.ndim != 4:
             transforms = transforms.reshape(len(transforms), -1, 4, 4)
@@ -2768,32 +3038,26 @@ class FrameProgram:
             if all(f is not None for f in fused_frames):
                 variant = self._fused_variants[self._plan.signature][1]
                 transforms = np.stack(fused_frames)
-        desc_static, paints, desc_f, desc_i = self._descriptors(
-            variant.paint_model
-        )
-        stack = torch.as_tensor(transforms, device=self._renderer.device)
+        transforms = np.ascontiguousarray(transforms)
+        self._stage_descriptors()
+        step = self._frame_step(variant, transforms[0])
         r = self._renderer
         quantize = as_uint8 and not self._uint8
         frames = torch.empty(
-            (len(stack), r.height, r.width, 4),
+            (len(transforms), r.height, r.width, 4),
             dtype=torch.uint8 if as_uint8 or self._uint8 else torch.float32,
             device=r.device,
         )
         worst = None
-        for b in range(len(stack)):
-            prepared = variant.prepare(
-                *self._scene.arrays, stack[b], desc_static, paints
-            )
-            runtime = (prepared, variant.cmd_i, variant.cmd_f, desc_f, desc_i)
+        for b in range(len(transforms)):
+            image, overflow, _ = step(transforms[b])
             if quantize:
-                frames[b] = Renderer._quantize(variant.rasterize(*runtime))
+                frames[b] = Renderer._quantize(image)
             else:
-                # The kernel writes the frame in place (the last
-                # argument, out).
-                variant.rasterize(*runtime, frames[b])
+                frames[b].copy_(image)
             worst = (
-                prepared.overflow if worst is None
-                else torch.maximum(worst, prepared.overflow)
+                overflow.clone() if worst is None
+                else torch.maximum(worst, overflow)
             )
         self._defer(worst)
         return frames

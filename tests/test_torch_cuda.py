@@ -9,7 +9,9 @@ and alpha frames; depth under each compare function, with and without
 write; linear, radial, multi-stop and degenerate gradients; a user
 paint compiled into the kernel; the cap golden; the whole path on the
 card against the path on the CPU; ``render_sequence`` writing its
-frames in place; and the standalone fill rasterizer, band sharding and
+frames in place; ``FrameProgram``'s captured frame step (its replays
+against the eager binning and raster, without a synchronise, across a
+capacity growth and with two alpha layers); and the standalone fill rasterizer, band sharding and
 the frame loop on the card against the CPU, the single render and
 ``compile_frame``.
 
@@ -804,6 +806,149 @@ def test_frame_program_deferred_growth_on_card(card):
     want = Renderer(Configuration(), SIZE, SIZE, device=card).render(
         commands, to_host=False)
     assert torch.equal(program(), want)
+
+
+#: The 256² orbit's frames of the graph tests: 0 to 35 in steps of 5,
+#: the later ones crossing the near plane.
+GRAPH_FRAMES = tuple(range(0, 40, 5))
+
+
+def orbit_program(card, **renderer_kw):
+    """The showcase with text at SIZE² through compile_frame (packed
+    RGBA8), planned over GRAPH_FRAMES; its shape and the frames' stacks."""
+    shape = showcase.build_shape(with_text=True)
+    program = Renderer(Configuration(), SIZE, SIZE, strict_capacity=False,
+                       device=card, **renderer_kw).compile_frame(
+        showcase.showcase_commands(shape, SIZE, SIZE), uint8_output=True
+    )
+    stacks = [showcase.orbit_transforms(i, SIZE, SIZE) for i in GRAPH_FRAMES]
+    assert program.plan_for_motion(stacks)
+    return shape, program, stacks
+
+
+def eager_frame(program, transforms):
+    """The frame through the variant's own prepare and rasterize, outside
+    its graph."""
+    variant, runtime = program._bin(program._opt_rows(transforms))
+    return variant.rasterize(*runtime)
+
+
+def test_frame_graph_matches_eager_on_card(card):
+    """Eight orbit frames at 256², the dash phase moving, replayed back to
+    back with no synchronise (each frame's transforms and descriptors go
+    through the staging ring while earlier frames may still run), equal
+    to the bit to the eager prepare + rasterize of each frame; every
+    frame a replay of the graph plan_for_motion captured, one kernel
+    launch each."""
+    shape, program, stacks = orbit_program(card)
+    step = program._fused_variants[program._plan.signature][1].step
+    assert step.graph is not None and step.capture_ms > 0 and step.launches == 1
+
+    def phase(i):
+        shape.set_dynamic_stroke_options(0, showcase.dashed_options(0.1 * i))
+
+    before = coverage.raster_launches
+    graph = []
+    for i, t in enumerate(stacks):
+        phase(i)
+        graph.append(program(t))
+        assert program.stats["fused"] and "capture_ms" not in program.stats
+    assert coverage.raster_launches == before + len(stacks)
+    eager = []
+    for i, t in enumerate(stacks):
+        phase(i)
+        eager.append(eager_frame(program, t))
+    for i, (g, e) in enumerate(zip(graph, eager)):
+        assert torch.equal(g, e), GRAPH_FRAMES[i]
+    assert len({g.cpu().numpy().tobytes() for g in graph}) == len(graph)
+
+
+def test_frame_graph_replays_without_sync_on_card(card):
+    """torch.cuda.set_sync_debug_mode("error") holds around replayed
+    frames, carry and render_sequence included: no call of the frame path
+    waits for the device."""
+    _, program, stacks = orbit_program(card)
+    acc = torch.zeros((), device=card)
+    for t in stacks:
+        _, acc = program(t, carry=acc)
+    program.render_sequence(np.stack(stacks[:2]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in stacks:
+            _, acc = program(t, carry=acc)
+        frames = program.render_sequence(np.stack(stacks[:2]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(acc) > 0 and bool((frames[..., 3] != 0).any())
+
+
+def test_frame_graph_growth_recaptures_on_card(card):
+    """A program shrunk below what its frame bins: its first frame warms
+    its step up, the second captures; the deferred counters grow it, the
+    rebuild drops the graphs, and the new step warms up on the frame
+    that grew, captures on the next and replays after, one kernel launch
+    a frame; those frames equal a strict render."""
+    t = scenes.ortho(SIZE, SIZE)
+    commands = []
+    for i in range(20):
+        s = Shape([Path.from_circle((128, 128), 112 - 4 * i)])
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, s, t),
+            DrawCommand(RenderOperation.COLOR, s, t,
+                        color=(i / 20, 1 - i / 20, 0.5, 1.0)),
+        ]
+    program = Renderer(Configuration(), SIZE, SIZE, strict_capacity=False,
+                       device=card).compile_frame(commands)
+    program._caps["capacity"] = 8
+    program._build()
+    builds = program.builds
+    program()
+    first = program._seq.step
+    assert first.graph is None and "capture_ms" not in program.stats
+    for _ in range(port.FrameProgram.OVERFLOW_MAX_LAG):
+        program()
+        if program.builds > builds:
+            break
+    assert program.builds == builds + 1 and program._caps["capacity"] > 8
+    step = program._seq.step
+    assert step is not first and step.graph is None
+    want = Renderer(Configuration(), SIZE, SIZE, device=card).render(
+        commands, to_host=False)
+    for captures in (True, False):
+        before = coverage.raster_launches
+        assert torch.equal(program(), want)
+        assert ("capture_ms" in program.stats) == captures
+        assert coverage.raster_launches == before + 1
+        assert program._seq.step is step and step.graph is not None
+
+
+def test_frame_graph_clip_alpha_two_layers_on_card(card):
+    """The clip/alpha showcase with two alpha layers (layer mode 0: the
+    layers in shared memory, whose launch sets the kernel's dynamic
+    shared-memory attribute inside the capture) at 256²: the variants of
+    two stacks warmed up, then captured, then replayed, each frame equal
+    to the bit to the eager prepare + rasterize."""
+    config = Configuration(alpha_layer_count=2, blending="front_to_back")
+    commands = showcase.showcase_commands_clip_alpha(
+        showcase.build_shape(with_text=False), SIZE, SIZE)
+    program = Renderer(config, SIZE, SIZE, device=card).compile_frame(commands)
+    assert coverage.layer_mode(program._seq.spec) == 0
+    natural = Renderer._pack_transforms(commands)
+    rotated = Renderer._pack_transforms(port._rotated_probe_commands(commands))
+    captured = []
+    for _ in range(3):  # warm-ups, captures, replays
+        for transforms in (natural, rotated):
+            image = program(transforms)
+            captured.append("capture_ms" in program.stats)
+            assert torch.equal(image, eager_frame(program, transforms))
+            assert bool((image[..., 3] != 0).any())
+    # One capture per variant (the two stacks may share one), each on its
+    # variant's second frame; the last round only replays.
+    steps = [v.step for v in program._variants() if v.step is not None]
+    assert steps and all(step.graph is not None for step in steps)
+    assert captured.count(True) == len(steps)
+    assert not captured[0] and not any(captured[4:])
 
 
 def test_fill_rasterizer_on_card_matches_cpu(card):
