@@ -49,6 +49,22 @@ chip_smoke.py phase 20's drag and wheel (the median of the last 20, of
 all, the drag's 10 frames in all, the frames that captured a graph).  The last lines are one row per size and one
 JSON object.  Exits non-zero if a process fails or the roots' orbit
 frames differ.
+
+    python3 chip_ab.py --moved ROOT_A ROOT_B [ROOT_C ...]
+
+Moved frames through ``Renderer.render`` instead, in processes of the
+same order: chip_smoke.py phase 19b's frames (``moved_frames``: the
+showcase orbit at 3840x2160 and 1920x1080, config 2 and config 3 at
+1920x1080 under a drifting camera), each a miss of the binning cache, at
+``strict_capacity`` True and False, packed RGBA8: two passes, then
+three windows of 99 frames chained through ``carry`` (frames/s; the host
+ms of the render call a frame, and of ``_prepare`` where the root
+records it), frames 0, 30 and 98 of the last window hashed; then
+``ShardedFrameProgram`` over 4 row bands and ``ShardedFrameProgram2D``
+over 2x2 at 3840x2160 on chip_smoke.py phase 22's 8 orbit frames (a
+first pass, then the median of 16 frames synchronised each; frame 0
+hashed).  The last lines are one row per frame and one JSON object.
+Exits non-zero if a process fails or the roots' frames differ.
 """
 
 import hashlib
@@ -362,6 +378,121 @@ def orbit_worker(root):
     print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
 
 
+def moved_worker(root):
+    """The --moved mode's numbers with the port of ``root``; prints one
+    line ``AB {json}``."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    root = os.path.abspath(root)
+    smoke = chip_smoke()
+    sys.path.insert(0, root)
+    from contrast_renderer_tpu_torch import renderer as api
+    from contrast_renderer_tpu_torch import scenes
+    from contrast_renderer_tpu_torch.models import showcase
+    from contrast_renderer_tpu_torch.ops import coverage
+    from contrast_renderer_tpu_torch.parallel import (
+        Mesh, ShardedFrameProgram, ShardedFrameProgram2D,
+    )
+
+    if not coverage.__file__.startswith(root + os.sep):
+        fail(f"imported {coverage.__file__}, not the port of {root}")
+    coverage.build_kernels([coverage.KernelFeatures(4)])
+    results = {}
+    n = smoke.MOVED_FRAMES
+    for label, (config, w, h, frames, at) in smoke.moved_frames(
+            api, scenes, showcase).items():
+        for strict in (True, False):
+            r = api.Renderer(config, w, h, strict_capacity=strict, device="cuda")
+            acc = torch.zeros((), device="cuda")
+            for i in list(range(n)) * 2:  # chip_smoke.py's two passes
+                at(i)
+                _, acc = r.render(frames[i], uint8_kernel=True, carry=acc)
+            float(acc)
+            fps, call, prepare, held = [], 0.0, 0.0, None
+            for _ in range(smoke.MOVED_WINDOWS):
+                held = []
+                start = time.perf_counter()
+                for i in range(n):
+                    at(i)
+                    called = time.perf_counter()
+                    image, acc = r.render(frames[i], uint8_kernel=True, carry=acc)
+                    call += time.perf_counter() - called
+                    prepare += getattr(r, "timing", {}).get("prepare_ms", 0.0)
+                    held.append(image)
+                float(acc)
+                fps.append(n / (time.perf_counter() - start))
+            k = n * smoke.MOVED_WINDOWS
+            key = f"{label}, strict_capacity={strict}"
+            results[key] = {
+                "frames_per_s": fps, "median_frames_per_s": statistics.median(fps),
+                "call_ms": call * 1e3 / k, "prepare_ms": prepare / k,
+                "rgba8": [hashlib.sha256(held[i].cpu().numpy().tobytes())
+                          .hexdigest()[:16] for i in smoke.MOVED_CHECKED],
+            }
+            print(f"  moved {key}: {results[key]['median_frames_per_s']:.2f} "
+                  f"frames/s ({', '.join(f'{f:.2f}' for f in fps)}); host a "
+                  f"frame: render call {results[key]['call_ms']:.3f} ms, "
+                  f"_prepare {results[key]['prepare_ms']:.3f} ms (0: not "
+                  f"recorded by this root)", flush=True)
+            del r, held
+    devices = [f"cuda:{i % torch.cuda.device_count()}"
+               for i in range(smoke.SHARD_BANDS)]
+    shape = showcase.build_shape(with_text=True)
+    sw, sh = smoke.SHOWCASE_W, smoke.SHOWCASE_H
+    commands = showcase.showcase_commands(shape, sw, sh)
+    stacks = [showcase.orbit_transforms(i, sw, sh)
+              for i in range(smoke.SHARD_FRAMES)]
+    for name, make in (
+        ("sharded 4 bands", lambda r: ShardedFrameProgram(
+            r, commands, Mesh(devices, ("y",)))),
+        ("sharded 2x2", lambda r: ShardedFrameProgram2D(
+            r, commands, Mesh(np.array(devices).reshape(2, 2), ("y", "x")))),
+    ):
+        program = make(api.Renderer(api.Configuration(), sw, sh, device="cuda"))
+        for t in stacks:
+            program(t)
+        torch.cuda.synchronize()
+        synced = []
+        for t in stacks * 2:
+            start = time.perf_counter()
+            program(t)
+            torch.cuda.synchronize()
+            synced.append((time.perf_counter() - start) * 1e3)
+        first = program(stacks[0])
+        results[name] = {
+            "frame_ms": statistics.median(synced), "frame_lo": min(synced),
+            "frame_hi": max(synced),
+            "rgba8": [hashlib.sha256(api.Renderer._quantize(first).cpu()
+                                     .numpy().tobytes()).hexdigest()[:16]],
+        }
+        print(f"  {name} {sw}x{sh}: {results[name]['frame_ms']:.3f} ms a frame "
+              f"[{min(synced):.3f}, {max(synced):.3f}] (synchronised, "
+              f"{len(synced)} frames)", flush=True)
+        del program
+    print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
+
+
+def moved_summary(roots, runs):
+    """Rows of the --moved mode; returns whether the roots' frames are
+    equal."""
+    equal = True
+    labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))
+    for label in labels:
+        hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
+        equal &= len(hashes) == 1
+        key = "frame_ms" if label.startswith("sharded") else "median_frames_per_s"
+        unit = "ms a frame" if key == "frame_ms" else "frames/s"
+        print(f"{label}: " + "; ".join(
+            f"{letter} {', '.join(f'{r[label][key]:.2f}' for r in runs[letter])} "
+            f"{unit}" for letter in roots)
+            + f"; frames equal {len(hashes) == 1}", flush=True)
+    return equal
+
+
 def orbit_summary(roots, runs):
     """Rows of the --orbit mode; returns whether the roots' frames are
     equal."""
@@ -394,11 +525,14 @@ def main():
     if argv[:1] == ["--orbit-worker"]:
         orbit_worker(argv[1])
         return
-    orbit = argv[:1] == ["--orbit"]
-    if orbit:
+    if argv[:1] == ["--moved-worker"]:
+        moved_worker(argv[1])
+        return
+    mode = argv[0][2:] if argv[:1] in (["--orbit"], ["--moved"]) else None
+    if mode:
         argv = argv[1:]
     if not 2 <= len(argv) <= len(LETTERS):
-        fail("usage: chip_ab.py [--orbit] ROOT_A ROOT_B [ROOT_C ...]")
+        fail("usage: chip_ab.py [--orbit | --moved] ROOT_A ROOT_B [ROOT_C ...]")
     roots = dict(zip(LETTERS, argv))
     sequence = order(len(argv))
     import torch
@@ -415,7 +549,7 @@ def main():
         print(f"{letter}: {roots[letter]}", flush=True)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__),
-             "--orbit-worker" if orbit else "--worker", roots[letter]],
+             f"--{mode}-worker" if mode else "--worker", roots[letter]],
             capture_output=True, text=True, timeout=900,
         )
         for line in proc.stdout.splitlines():
@@ -426,12 +560,12 @@ def main():
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             fail(f"the {letter} process exited {proc.returncode}")
-    if orbit:
-        equal = orbit_summary(roots, runs)
-        print(json.dumps({"orbit": runs, "roots": roots, "order": sequence}),
+    if mode:
+        equal = (orbit_summary if mode == "orbit" else moved_summary)(roots, runs)
+        print(json.dumps({mode: runs, "roots": roots, "order": sequence}),
               flush=True)
         if not equal:
-            fail("the roots' orbit frames differ")
+            fail(f"the roots' {mode} frames differ")
         return
     summary = {}
     labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))

@@ -116,6 +116,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the bit; the kernel against plain on the crossing frame, its times and
    bound; and ``render_sequence`` over 16 frames against the per-frame
    calls, to the bit, with its frames/s;
+19b. moved frames through ``Renderer.render``, each a miss of its
+   binning cache, replayed from the binning step's CUDA graph: the
+   showcase orbit (with text, the dash phase moving) at 3840×2160 and
+   1920×1080, config 2 and config 3 at 1920×1080 under a drifting
+   camera (``camera_drift``), 99 frames each, packed RGBA8, at
+   ``strict_capacity`` True and False (``moved_render_phase``): frames/s
+   over three windows against the eager binning, the host split a
+   frame, the captures, the graph pool, every frame equal to the eager
+   frame to the bit, the synchronising calls of a replayed miss (none
+   without strict_capacity, the one overflow read with it), the device's
+   busy share, frames 0, 30 and 98 against the same renderer with its
+   steps cleared, and at 4K the copy that keeps a cached binning out of
+   the graph's buffers against a frame's copy;
 20. the orbit example's app (``examples.orbit_camera``) through
    ``FrameLoop`` at 3840×2160 for 24 frames: a scripted drag and a wheel
    event, 1920×1080 asked for after frame 12, a ``PngSink`` every 8
@@ -136,8 +149,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    of its clip/alpha variant, and ``render_sharded_2d`` on 2×2, against
    the single-device render (mean |Δ| < 1e-4); ``ShardedFrameProgram``
    on 8 orbit frames against ``render_sharded`` (atol 1e-6) and its
-   packed-RGBA8 twin; the time a frame; each band's kernel time, and the
-   slowest band's kernel against plain with its bound;
+   packed-RGBA8 twin; the time a frame; that program and a
+   ``ShardedFrameProgram2D`` on 2×2 through their per-rect CUDA graphs
+   (``sharded_graph_run``: host and synchronised ms a frame, each
+   rect's replay, the captures per rect, the graph pools, every frame
+   equal to the eager sharded frame to the bit); each band's kernel
+   time, and the slowest band's kernel against plain with its bound;
 23. the viewer example at 1920×1080 served on 127.0.0.1: the page and 3
    frames over HTTP;
 24. the examples ``render_showcase`` (4 frames at 1920×1080) and
@@ -200,6 +217,11 @@ ORBIT_WINDOWS = 3
 #: Frames of the orbit example through FrameLoop, the frame after which
 #: it asks for 1920x1080, and the PngSink's stride.
 LOOP_FRAMES, LOOP_RESIZE_AFTER, LOOP_PNG_EVERY = 24, 12, 8
+#: Frames of each moved run through Renderer.render (phase 19b), its
+#: timed windows, its frames under torch.profiler, and the frames held
+#: against the same renderer with its binning steps cleared.
+MOVED_FRAMES, MOVED_WINDOWS, MOVED_PROFILED = 99, 3, 33
+MOVED_CHECKED = (0, 30, 98)
 #: Row bands of the sharded phase, and ShardedFrameProgram's orbit frames.
 SHARD_BANDS, SHARD_FRAMES = 4, 8
 #: Sharded against single-device frames: mean |Δ| over the float image
@@ -944,6 +966,7 @@ def main():
     orbit = orbit_phase(coverage, showcase, Configuration, Renderer, card,
                         SHOWCASE_W, SHOWCASE_H)
     orbit_phase(coverage, showcase, Configuration, Renderer, card, WIDTH, HEIGHT)
+    moved_render_phase(coverage, renderer_module, scenes, showcase, card)
 
     # ---- 20. the orbit example through FrameLoop ---------------------------------
     frame_loop_phase(coverage, Renderer, card)
@@ -1773,6 +1796,251 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     return variant.spec, runtime, launches, err, k_ms, p_ms, bound
 
 
+def camera_drift(i, width, height):
+    """Frame i of a drifting 2D camera, in pixels: a turn of 0.005 rad a
+    frame about the frame's centre and a pan of 2 px a frame along x."""
+    import numpy as np
+
+    a = 0.005 * i
+    c, s = np.cos(a), np.sin(a)
+    cx, cy = width / 2.0, height / 2.0
+    m = np.eye(4)
+    m[:2, :2] = ((c, -s), (s, c))
+    m[0, 3] = cx - c * cx + s * cy + 2.0 * i
+    m[1, 3] = cy - s * cx - c * cy
+    return m
+
+
+def moved_frames(api, scenes, showcase, n=None):
+    """Phase 19b's moved frames: {label: (configuration, width, height,
+    commands of each frame, at(i))}, ``at(i)`` setting what frame i
+    changes on a shape (the showcase's dash phase) before its render.
+    The showcase with text under the orbit at 4K and 1080p
+    (``showcase.orbit_transforms``, the dash phase 0.032 a frame);
+    config 2 and config 3 at 1080p under ``camera_drift``."""
+    import numpy as np
+    from dataclasses import replace
+
+    n = MOVED_FRAMES if n is None else n
+    op = api.RenderOperation
+    out = {}
+    shape = showcase.build_shape(with_text=True)
+
+    def dash(i):
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP))
+
+    for w, h in ((SHOWCASE_W, SHOWCASE_H), (WIDTH, HEIGHT)):
+        commands = showcase.showcase_commands(shape, w, h)
+        out[f"showcase {w}x{h}"] = (api.Configuration(), w, h, [
+            [replace(c, transform=np.ascontiguousarray(t))
+             for c, t in zip(commands, showcase.orbit_transforms(i, w, h))]
+            for i in range(n)
+        ], dash)
+    fills = api.Shape(scenes.bezier_fill_paths(1000, WIDTH, HEIGHT, seed=0))
+    dashed = api.Shape(*scenes.dashed_strokes(WIDTH, HEIGHT, seed=1))
+    ortho = np.asarray(scenes.ortho(WIDTH, HEIGHT), np.float64)
+    for label, s, color in (("config 2", fills, (0.9, 0.4, 0.1, 1.0)),
+                            ("config 3", dashed, (1, 1, 1, 1))):
+        frames = []
+        for i in range(n):
+            t = (ortho @ camera_drift(i, WIDTH, HEIGHT)).astype(np.float32)
+            frames.append([api.DrawCommand(op.STENCIL, s, t),
+                           api.DrawCommand(op.COLOR, s, t, color=color)])
+        out[f"{label} {WIDTH}x{HEIGHT}"] = (
+            api.Configuration(), WIDTH, HEIGHT, frames, lambda i: None)
+    return out
+
+
+def copy_costs(coverage, prepared, width, height):
+    """Device ms of the copies each way of keeping a replayed miss out of
+    a graph's buffers costs at this size: cloning the binning (what a
+    cache entry keeps) and cloning a float and a packed frame (what
+    capturing the raster too would add); and the binning's MB."""
+    import torch
+
+    mb = sum(t.numel() * t.element_size() for t in prepared) / 1e6
+    frames = {
+        "float": torch.empty((height, width, 4), device="cuda"),
+        "packed": torch.empty((height, width, 4), dtype=torch.uint8,
+                              device="cuda"),
+    }
+    binning = cuda_ms(lambda: coverage.PreparedFrame(
+        *(t.clone() for t in prepared)), 5, 10, 3)[0]
+    return mb, binning, {k: cuda_ms(f.clone, 5, 10, 3)[0]
+                         for k, f in frames.items()}
+
+
+def moved_render_run(coverage, Renderer, config, width, height, frames, at,
+                     strict, label, card):
+    """One moved run of phase 19b (see moved_render_phase); returns its
+    numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(frames)
+    label = f"{label}, strict_capacity={strict}"
+    r = Renderer(config, width, height, strict_capacity=strict, device="cuda")
+    eager = Renderer(config, width, height, device="cuda")
+
+    def eager_frame(i):
+        at(i)
+        eager._prepared_cache.clear()
+        _, rasterize, runtime = eager._prepare(
+            frames[i], uint8_kernel=True, graph=False)
+        return rasterize(*runtime)
+
+    acc = torch.zeros((), device="cuda")
+    captures = []
+    start = time.perf_counter()
+    # Two passes before the timed windows: the first grows the
+    # capacities (each growth drops every step) and warms up and
+    # captures the keys it meets after its last growth; the second
+    # captures the keys met before it.
+    for i in list(range(n)) * 2:
+        at(i)
+        _, acc = r.render(frames[i], uint8_kernel=True, carry=acc)
+        if "capture_ms" in r.timing:
+            captures.append(r.timing["capture_ms"])
+    float(acc)
+    first_s = (time.perf_counter() - start) / 2
+    start = time.perf_counter()
+    want = [eager_frame(i) for i in range(n)]
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - start
+    walls, split = [], {"call_ms": 0.0, "prepare_ms": 0.0, "bin_ms": 0.0}
+    recaptured = [0] * MOVED_WINDOWS
+    for window in range(MOVED_WINDOWS):
+        held = []
+        coverage.raster_launches = 0
+        start = time.perf_counter()
+        for i in range(n):
+            at(i)
+            called = time.perf_counter()
+            image, acc = r.render(frames[i], uint8_kernel=True, carry=acc)
+            split["call_ms"] += (time.perf_counter() - called) * 1e3
+            split["prepare_ms"] += r.timing["prepare_ms"]
+            split["bin_ms"] += r.timing["bin_ms"]
+            recaptured[window] += "capture_ms" in r.timing
+            held.append(image)
+        total = float(acc)
+        walls.append(time.perf_counter() - start)
+        launches = coverage.raster_launches
+        differ = [i for i in range(n) if not torch.equal(held[i], want[i])]
+        if launches != n or differ or not total > 0:
+            fail(f"moved {label}: window {window + 1}: {launches} launches for "
+                 f"{n} frames, frames {differ[:8]} differ from the eager "
+                 f"frames, alpha sum {total}")
+    kept = held
+    frames_s = [n / w for w in walls]
+    k = MOVED_WINDOWS * n
+    print(f"moved {label} ({card}): {n} frames a window, frames/s "
+          f"{', '.join(f'{f:.2f}' for f in frames_s)} (median "
+          f"{statistics.median(frames_s):.2f}; "
+          f"eager binning in this process {n / eager_s:.2f}, the two passes "
+          f"{n / first_s:.2f} a pass); host a frame: render call "
+          f"{split['call_ms'] / k:.3f} ms, of it _prepare "
+          f"{split['prepare_ms'] / k:.3f} ms, of it the binning step's copies "
+          f"in and replay {split['bin_ms'] / k:.3f} ms; captures in the two "
+          f"passes {len(captures)} ({', '.join(f'{c:.1f}' for c in captures[:32])} "
+          f"ms), in each window {recaptured}; binning steps kept "
+          f"{len(r._bin_steps)}, graph pool {graph_pool_mib(r._pool)}; every "
+          f"window frame equal to the eager frame to the bit", flush=True)
+    # A key met on one frame a pass captures on its second miss after
+    # the last growth, which may fall in the first window.
+    if any(recaptured[1:]):
+        fail(f"moved {label}: the timed windows captured {recaptured} times")
+
+    # Synchronising calls of a replayed miss.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(5):
+                at(i % n)
+                _, acc = r.render(frames[i % n], uint8_kernel=True, carry=acc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"moved {label}: {syncs} synchronising CUDA calls in 5 replayed "
+          f"misses (torch.cuda.set_sync_debug_mode)", flush=True)
+    if syncs != (5 if strict else 0):
+        fail(f"moved {label}: {syncs} synchronising calls in 5 misses")
+
+    # The device under torch.profiler.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(MOVED_PROFILED):
+            at(i % n)
+            _, acc = r.render(frames[i % n], uint8_kernel=True, carry=acc)
+        float(acc)
+        profiled = time.perf_counter() - start
+    busy = device_busy(prof)
+    if busy is None:
+        print(f"moved {label}: device time not measured (the trace holds no "
+              f"device events)", flush=True)
+    else:
+        b_us, r_us, o_us, count = busy
+        m = MOVED_PROFILED
+        print(f"moved {label} ({card}), torch.profiler over {m} frames: device "
+              f"busy {b_us / m / 1e3:.3f} ms a frame, {b_us / (profiled * 1e6):.3f} "
+              f"of the profiled window; coverage_raster {r_us / m / 1e3:.3f} ms a "
+              f"frame; binning and the rest {o_us / m / 1e3:.3f} ms a frame, in "
+              f"{count / m:.1f} device operations a frame", flush=True)
+
+    # Frames against the same renderer's eager render, its steps cleared.
+    for i in MOVED_CHECKED:
+        if i >= n:
+            continue
+        r._drop_bin_steps()
+        r._prepared_cache.clear()
+        at(i)
+        again = r.render(frames[i], uint8_kernel=True, to_host=False)
+        if r._bin_steps and next(iter(r._bin_steps.values())).graph is not None:
+            fail(f"moved {label}: frame {i} after clearing the steps replayed")
+        if not torch.equal(again, kept[i]):
+            fail(f"moved {label}: frame {i} differs from the same renderer's "
+                 f"eager render with its steps cleared")
+    print(f"moved {label}: frames {[i for i in MOVED_CHECKED if i < n]} equal "
+          f"to the same renderer's eager render with its steps cleared",
+          flush=True)
+    return r
+
+
+def moved_render_phase(coverage, api, scenes, showcase, card):
+    """Phase 19b: moved frames through ``Renderer.render``, each a miss of
+    its binning cache (``moved_frames``: the showcase orbit at 4K and
+    1080p, config 2 and config 3 at 1080p), at strict_capacity True and
+    False, packed RGBA8, chained through ``carry``: two passes (the
+    capacities' growth, each key's warm-up and capture); the eager frames (binned outside every
+    step) and their frames/s; MOVED_WINDOWS timed windows (frames/s, the
+    host split a frame: the render call, ``_prepare``, the binning
+    step's copies in and replay), every frame equal to the eager frame
+    to the bit and one kernel launch each, no capture after the first
+    window; the captures'
+    ms, the steps kept and the graph pool's MiB; the synchronising calls
+    of 5 replayed misses (none without strict_capacity, one each with
+    it); MOVED_PROFILED frames under torch.profiler; frames
+    MOVED_CHECKED against the same renderer with its steps cleared; and
+    at 4K the copy that keeps a cache entry out of the graph's buffers
+    against the copy of a frame."""
+    for label, (config, w, h, frames, at) in moved_frames(
+            api, scenes, showcase).items():
+        for strict in (True, False):
+            r = moved_render_run(coverage, api.Renderer, config, w, h, frames,
+                                 at, strict, label, card)
+        if w == SHOWCASE_W:
+            prepared = next(iter(r._prepared_cache.values()))[0]
+            mb, binning, frame_ms = copy_costs(coverage, prepared, w, h)
+            print(f"moved {label} ({card}): keeping a replayed miss out of the "
+                  f"graph's buffers: a clone of its binning ({mb:.1f} MB) "
+                  f"{binning:.4f} ms on the device; a clone of the frame, which "
+                  f"capturing the raster too would add, float "
+                  f"{frame_ms['float']:.4f} ms, packed {frame_ms['packed']:.4f} "
+                  f"ms", flush=True)
+        del r
+
+
 def frame_loop_phase(coverage, Renderer, card):
     """Phase 20: the orbit example's app through FrameLoop at 3840x2160
     for LOOP_FRAMES frames: a scripted drag (button down, 8 pointer
@@ -1998,7 +2266,8 @@ def sharded_phase(coverage, showcase, Configuration, Renderer, card):
     import torch
 
     from contrast_renderer_tpu_torch.parallel import (
-        Mesh, ShardedFrameProgram, render_sharded, render_sharded_2d,
+        Mesh, ShardedFrameProgram, ShardedFrameProgram2D, render_sharded,
+        render_sharded_2d,
     )
     from contrast_renderer_tpu_torch.parallel import mesh as mesh_module
 
@@ -2089,6 +2358,14 @@ def sharded_phase(coverage, showcase, Configuration, Renderer, card):
           f"{statistics.median(times):.2f} ms a frame [{min(times):.2f}, "
           f"{max(times):.2f}] (host clock, synchronised each frame)", flush=True)
 
+    # The band program and a 2x2 program through their per-rect steps.
+    sharded_graph_run(mesh_module, program, stacks, "4 bands, float", card)
+    sharded_graph_run(
+        mesh_module,
+        ShardedFrameProgram2D(Renderer(config, SHOWCASE_W, SHOWCASE_H), cmds,
+                              grid),
+        stacks, "2x2, float", card)
+
     # Each band's kernel on the program's own binning of frame 0.
     pipeline, bands = program._pipeline, program._grid
     band_ms, band_runtime = [], []
@@ -2116,6 +2393,66 @@ def sharded_phase(coverage, showcase, Configuration, Renderer, card):
           f"band spec tile {spec.tile_h}x{spec.tile_w} strips {spec.tile_strips}, "
           f"{spec.n_tiles} tiles, {spec.n_commands} commands walked", flush=True)
     return spec, runtime, launches, err, band_ms[slowest][0], p_ms, bound
+
+
+def sharded_graph_run(mesh_module, program, stacks, label, card):
+    """Phase 22's sharded program through its per-rect steps (each rect's
+    warm-up, capture and replays): passes over ``stacks`` until one
+    neither rebuilds nor captures (the captures, per rect), then two
+    timed passes: the
+    frame's host ms (no synchronise) and its time synchronised, each
+    rect's copies in and replay, every frame equal to the eager sharded
+    frame of the same transforms (``mesh._run_grid``) to the bit; the
+    graph pool's MiB per device."""
+    import torch
+
+    captures = {}
+    builds = program._limits
+    # Passes until one neither rebuilds (a deferred growth drops every
+    # step) nor captures: then every rect's step is captured.
+    for _ in range(4):
+        limits, captured = program._limits, False
+        for stack in stacks:
+            program(stack)
+            for cell, ms in enumerate(program.stats["capture_ms"]):
+                if ms is not None:
+                    captures.setdefault(cell, []).append(ms)
+                    captured = True
+        if not captured and program._limits == limits:
+            break
+    torch.cuda.synchronize()
+    host, synced, rects = [], [], []
+    for stack in stacks * 2:
+        start = time.perf_counter()
+        program(stack)
+        host.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - start) * 1e3)
+        rects.append(program.stats["rect_ms"])
+        if any(c is not None for c in program.stats["capture_ms"]):
+            fail(f"sharded graph {label}: a timed frame captured")
+    differ = 0
+    for stack in stacks:
+        got = program(stack)
+        want, _ = mesh_module._run_grid(program._pipeline, program._grid,
+                                        program._rows(stack))
+        differ += not torch.equal(got, want)
+    pools = {str(d): graph_pool_mib(p) for d, p in program._pools.items()}
+    per_rect = [statistics.median(r[c] for r in rects)
+                for c in range(len(rects[0]))]
+    print(f"sharded graph {label} ({card}): {len(host)} frames: host "
+          f"{statistics.median(host):.3f} ms a frame [{min(host):.3f}, "
+          f"{max(host):.3f}], synchronised {statistics.median(synced):.3f} ms "
+          f"[{min(synced):.3f}, {max(synced):.3f}]; each rect's copies in and "
+          f"replay (median) {', '.join(f'{m:.3f}' for m in per_rect)} ms; "
+          f"captures per rect (ms) "
+          f"{ {c: [round(m, 1) for m in ms] for c, ms in captures.items()} }; "
+          f"capacities {builds} -> {program._limits}; graph pool {pools}; "
+          f"frames that differ from the eager sharded frame {differ} of "
+          f"{len(stacks)}", flush=True)
+    if differ or not all(s.graph is not None for s in program._steps.values()):
+        fail(f"sharded graph {label}: frames differ from the eager sharded "
+             f"frame, or a rect's step was not captured")
 
 
 def viewer_phase(card):

@@ -592,8 +592,12 @@ def _depth_planes(ctf, W, H):
     coefficients of (x, y, 1) in Z = a·(X + W)·W/2 + b·(W − Y)·H/2 + c·W
     gives a 3×3 system.  A draw whose system is singular (|det| ≤ 1e-30)
     gets the zero plane (reference coverage.py:1007-1043)."""
-    cols = [0, 1, 3]                       # coefficients over (x, y, 1)
-    xr, yr, zr, wr = (ctf[:, r][:, cols] for r in range(4))
+    # Coefficients over (x, y, 1): columns 0, 1 and 3, taken one by one
+    # (a list index would upload from the host, which a capture refuses).
+    xr, yr, zr, wr = (
+        torch.stack([ctf[:, r, 0], ctf[:, r, 1], ctf[:, r, 3]], -1)
+        for r in range(4)
+    )
     a = torch.stack([(xr + wr) * (0.5 * W), (wr - yr) * (0.5 * H), wr], -1)
     safe = torch.abs(_det3(a)) > 1e-30
     eye = torch.eye(3, dtype=a.dtype, device=a.device).expand_as(a)

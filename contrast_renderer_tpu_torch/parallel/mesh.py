@@ -21,6 +21,7 @@ repeat (several bands on one card, or on the CPU).
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
 from typing import Dict, List, Sequence
 
@@ -31,6 +32,7 @@ from ..error import require_finite
 from ..renderer import (
     FIT_FLOORS,
     Renderer,
+    _FrameStep,
     _copy_to_host_async,
     _fit_capacity,
     _optimize_commands,
@@ -250,10 +252,18 @@ class _Pipeline:
         return prepared, cmd_i, cmd_f, desc_f, desc_i
 
 
+def _gathered(grid: _Grid, images, overflows):
+    """(the rects' frame on the first device, their worst overflow
+    counters (4,) there): new tensors, whatever the rects wrote into."""
+    home = grid.devices[0]
+    worst = torch.stack([o.to(home) for o in overflows]).amax(dim=0)
+    return grid.gather(images), worst
+
+
 def _run_grid(pipeline, grid: _Grid, transforms):
     """Render every rect of ``grid`` from the full frame's (R, 4, 4)
-    transforms in the optimized layout: returns (the gathered frame on
-    the first device, the rects' worst overflow counters (4,) there).
+    transforms in the optimized layout, eagerly: returns
+    ``_gathered``'s (frame, worst overflow counters).
 
     Each device's adjusted stacks go up in one copy; every rect is then
     binned and rasterized on its own device, and nothing waits on
@@ -275,9 +285,7 @@ def _run_grid(pipeline, grid: _Grid, transforms):
         runtime = pipeline.runtime(device, stacks[cell])
         images.append(pipeline.rasterize(*runtime))
         overflows.append(runtime[0].overflow)
-    home = grid.devices[0]
-    worst = torch.stack([o.to(home) for o in overflows]).amax(dim=0)
-    return grid.gather(images), worst
+    return _gathered(grid, images, overflows)
 
 
 def _run_with_growth(sub, commands, run_once, outer=None, to_host=True):
@@ -370,12 +378,24 @@ class _ShardedProgramBase:
     """A persistent sharded frame step: the commands are packed once, and
     each call feeds a new (R, 4, 4) transform stack.  Capacities settle
     at build on the program's own sub-renderer (a natural and a rotated
-    probe frame, then shrink-to-fit), and the deferred-growth contract
-    is FrameProgram's: overflow counters copy to pinned host memory
-    behind a CUDA event and are read on a later call (forced at
-    OVERFLOW_MAX_LAG frames), and a scene that outgrows its buffers
-    renders at most that many under-populated frames before the program
-    rebuilds with grown capacities instead of raising."""
+    probe frame, binned eagerly, then shrink-to-fit), and the
+    deferred-growth contract is FrameProgram's: overflow counters copy
+    to pinned host memory behind a CUDA event and are read on a later
+    call (forced at OVERFLOW_MAX_LAG frames), and a scene that outgrows
+    its buffers renders at most that many under-populated frames before
+    the program rebuilds with grown capacities instead of raising.
+
+    Each rect renders through a step of its own (``renderer._FrameStep``,
+    binning and raster) on its device: on a CUDA device the rect's first
+    frame warms it up on the device's side stream, its second captures
+    it as a CUDA graph into the device's memory pool (the rects of one
+    device share it), and every frame after that copies the rect's
+    adjusted transforms in through pinned staging and replays it; on the
+    CPU it runs eagerly.  The rects' frames and counters are gathered
+    into new tensors, so a returned frame is the caller's to keep.  A
+    rebuild drops every step.  ``stats`` holds the last call's host ms:
+    ``rect_ms`` each rect's copies in and replay (or warm-up), and
+    ``capture_ms`` each rect's capture, None where it did not capture."""
 
     #: Frames an unread overflow counter may age before the host waits
     #: on it (see renderer.FrameProgram.OVERFLOW_MAX_LAG).
@@ -387,6 +407,12 @@ class _ShardedProgramBase:
         self._commands = list(commands)
         #: Per-rect packed-RGBA8 resolve (see FrameProgram uint8_output).
         self._uint8 = bool(uint8_output)
+        #: The side stream of the steps' warm-ups and captures, per CUDA
+        #: device.
+        self._sides = {
+            d: torch.cuda.Stream(d) for d in grid.devices if d.type == "cuda"
+        }
+        self.stats = {}
         self._settle_and_build()
 
     def _settle_and_build(self):
@@ -437,6 +463,28 @@ class _ShardedProgramBase:
             self._sub._tile_global_capacity,
             self._sub._clip_pool,
         )
+        #: cell -> its step, and one graph memory pool per CUDA device.
+        self._steps = {}
+        self._pools = {
+            d: torch.cuda.graph_pool_handle() for d in self._sides
+        }
+
+    def _rect_step(self, cell, device, transforms) -> _FrameStep:
+        """The rect's step, made on first use with its adjusted
+        transforms."""
+        step = self._steps.get(cell)
+        if step is None:
+            p = self._pipeline
+            scene, desc_static, paints, cmd_i, cmd_f, desc_f, desc_i = (
+                p.inputs(device)
+            )
+            step = self._steps[cell] = _FrameStep(
+                f"rect {cell} of a {type(self).__name__}", p.prepare, scene,
+                transforms, desc_static, paints, self._pools.get(device),
+                self._sides.get(device),
+                raster=(p.spec, p.rasterize, (cmd_i, cmd_f, desc_f, desc_i)),
+            )
+        return step
 
     def _sync(self):
         """Read the overflow counters whose copy has landed (and those
@@ -459,12 +507,9 @@ class _ShardedProgramBase:
         if grew:
             self._build()
 
-    def __call__(self, transforms=None):
-        """Render one frame; returns the (H, W, 4) image on the mesh's
-        first device.  ``transforms``: (R, 4, 4), one row per (command,
-        instance) draw in the ORIGINAL command layout — rows of
-        fused-away SAVE covers are dropped internally, exactly as
-        renderer.FrameProgram does."""
+    def _rows(self, transforms):
+        """A frame's stack in the optimized draw layout, validated (the
+        commands' own for None)."""
         if transforms is None:
             transforms = self._default_transform
         else:
@@ -484,10 +529,31 @@ class _ShardedProgramBase:
             if self._keep_rows is not None:
                 transforms = transforms[self._keep_rows]
             require_finite(transforms, "frame transforms")
+        return np.asarray(transforms, np.float32)
+
+    def __call__(self, transforms=None):
+        """Render one frame; returns the (H, W, 4) image on the mesh's
+        first device, a new tensor each call.  ``transforms``: (R, 4, 4),
+        one row per (command, instance) draw in the ORIGINAL command
+        layout — rows of fused-away SAVE covers are dropped internally,
+        exactly as renderer.FrameProgram does."""
+        transforms = self._rows(transforms)
         self._frame += 1
         self._sync()
-        image, overflow = _run_grid(self._pipeline, self._grid, transforms)
+        grid = self._grid
+        images, overflows, rect_ms, capture_ms = [], [], [], []
+        for cell, device in enumerate(grid.devices):
+            start = time.perf_counter()
+            adjusted = grid.adjust(transforms, cell)
+            step = self._rect_step(cell, device, adjusted)
+            prepared, captured = step(adjusted)
+            rect_ms.append((time.perf_counter() - start) * 1e3)
+            capture_ms.append(captured)
+            images.append(step.frame)
+            overflows.append(prepared.overflow)
+        image, overflow = _gathered(grid, images, overflows)
         self._pending.append((*_copy_to_host_async(overflow), self._frame))
+        self.stats = {"rect_ms": rect_ms, "capture_ms": capture_ms}
         return image
 
 

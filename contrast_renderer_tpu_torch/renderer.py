@@ -1441,7 +1441,17 @@ class Renderer:
     ``"cuda"`` (the default, or ``"cuda:N"``) launches the CUDA kernel
     and raises if no card is visible; nothing falls back to the CPU.
     ``"cpu"``, asked for explicitly, runs the kernel's plain torch
-    version (the CPU tests do)."""
+    version (the CPU tests do).
+
+    ``render`` keeps the binning of its last 8 distinct frames and
+    re-bins only when the spec, the shapes, the transforms, the dash
+    flags or the paint points change.  On a CUDA device a re-binning
+    replays a CUDA graph: one per spec and scene (``_prepare``), the
+    first miss of each its warm-up, the second its capture, at most
+    MAX_BIN_STEPS kept, all in one graph memory pool per renderer.  The
+    raster kernel runs as one launch on every frame, hit or miss.  What
+    ``render`` returns, and what the cache keeps, are tensors of their
+    own: a caller may keep any frame."""
 
     def __init__(
         self,
@@ -1518,6 +1528,18 @@ class Renderer:
         self._finite_ok = {}
         #: Per-stage counters of the last rendered frame.
         self.stats = {}
+        #: Host ms of the last _prepare: the whole call (``prepare_ms``),
+        #: of it the binning step's copies in and replay or eager run
+        #: (``bin_ms``, 0 on a cache hit), and the capture of the step's
+        #: graph on a miss that captured (``capture_ms``).
+        self.timing = {}
+        #: The side stream of the binning steps' warm-ups and captures
+        #: (CUDA only).
+        self._side = (
+            torch.cuda.Stream(self.device)
+            if self.device.type == "cuda" else None
+        )
+        self._drop_bin_steps()
 
     # ------------------------------------------------------------------
 
@@ -1529,6 +1551,7 @@ class Renderer:
         self.height = int(height)
         self._executors.clear()
         self._prepared_cache.clear()
+        self._drop_bin_steps()
 
     def set_blend_constant(self, color):
         """Set the blend-constant color read by the ``constant`` /
@@ -1732,6 +1755,50 @@ class Renderer:
             self._executors[spec] = execs
         return execs
 
+    #: Binning steps (one per spec and scene) a renderer keeps; past
+    #: this the least recently used goes, and with it its graph.  The
+    #: showcase orbit's 99 frames auto-instance into 13 groupings, each
+    #: a spec of its own.
+    MAX_BIN_STEPS = 16
+
+    def _drop_bin_steps(self):
+        """Forget every binning step: the next misses warm up and capture
+        again, into a new graph memory pool."""
+        #: (spec, scene key, input shapes) -> _FrameStep, least recently
+        #: used first.
+        self._bin_steps = {}
+        self._pool = (
+            torch.cuda.graph_pool_handle()
+            if self.device.type == "cuda" else None
+        )
+
+    def _bin_step(self, spec, prepare, scene_key, scene, transforms,
+                  desc_static, paint_model) -> "_FrameStep":
+        """The binning step of ``spec`` over ``scene``, made on the first
+        miss with these inputs, and marked most recently used."""
+        key = (
+            spec, scene_key, transforms.shape, desc_static.shape,
+            None if paint_model is None else paint_model.shape,
+        )
+        step = self._bin_steps.pop(key, None)
+        if step is not None and step.scene_arrays[0] is not scene.xy:
+            # The scene was evicted and built anew: other arrays.
+            step = None
+        if step is None:
+            if len(self._bin_steps) >= self.MAX_BIN_STEPS:
+                del self._bin_steps[next(iter(self._bin_steps))]
+            step = _FrameStep(
+                f"the binning of a {spec.width}x{spec.height} frame of "
+                f"{spec.n_commands} commands",
+                prepare, scene.arrays, transforms,
+                _Staged(desc_static, self.device),
+                None if paint_model is None
+                else _Staged(paint_model, self.device),
+                self._pool, self._side,
+            )
+        self._bin_steps[key] = step
+        return step
+
     @staticmethod
     def _pack_descriptors(shapes):
         tables = [s.descriptors for s in shapes]
@@ -1849,7 +1916,10 @@ class Renderer:
 
     def _dev_cached(self, name: str, arr: np.ndarray, digest=None):
         """Device copy of ``arr``, re-uploaded only when its bytes
-        change (keyed on a 16-byte BLAKE2 digest)."""
+        change (keyed on a 16-byte BLAKE2 digest).  On a CUDA device the
+        upload goes through pinned memory and does not wait for the
+        device (a dash phase that moves every frame re-uploads
+        ``desc_f`` every frame)."""
         arr = np.ascontiguousarray(arr)
         if digest is None:
             digest = hashlib.blake2b(arr, digest_size=16).digest()
@@ -1858,7 +1928,9 @@ class Renderer:
         if dev is None:
             if len(self._upload_cache) >= 64:
                 self._upload_cache.pop(next(iter(self._upload_cache)))
-            dev = torch.as_tensor(arr).to(self.device)
+            dev = torch.as_tensor(arr)
+            if self.device.type == "cuda":
+                dev = dev.pin_memory().to(self.device, non_blocking=True)
             self._upload_cache[key] = dev
         return dev
 
@@ -1953,17 +2025,38 @@ class Renderer:
         if overflow[3] > limits[3]:
             self._clip_pool = _next_pow2(int(overflow[3]))
             grew = True
+        if grew:
+            # Every later spec carries the new capacities: the steps of
+            # the old ones would never run again.
+            self._drop_bin_steps()
         return grew
 
     # ------------------------------------------------------------------
 
-    def _prepare(self, commands, uint8_kernel=False):
+    def _prepare(self, commands, uint8_kernel=False, graph=True):
         """Validate, pack and bin a frame: returns ``(raster_spec,
         rasterize, runtime_args)``, where ``rasterize(*runtime_args)``
-        renders it.  Binning reruns only when the spec, the shapes or
-        the transforms change.  With ``strict_capacity`` the capacities
-        grow until nothing overflows; without it the counters are read
-        on a later frame (_defer_overflow)."""
+        renders it.  Binning reruns only when the spec, the shapes, the
+        transforms, the descriptors' static columns or the paint points
+        change (a miss of ``_prepared_cache``, which keeps 8 frames).
+
+        A miss bins through the step of its spec and scene
+        (``_FrameStep``, binning only, kept in ``_bin_steps``): on a CUDA
+        device the key's first miss runs it eagerly (the warm-up), its
+        second captures it as a CUDA graph, and every miss after that
+        copies the transforms, ``desc_static`` and the paint points in
+        through pinned staging and replays the graph.  A replayed
+        frame's binning sits in the step's buffers, which its next miss
+        overwrites, so the cache keeps a copy of its own: nothing that
+        ``_prepare`` returns or caches aliases a graph's buffer.
+        ``graph=False`` bins eagerly outside every step (a settle frame
+        met once).  With ``strict_capacity`` the capacities grow until
+        nothing overflows, reading the counters back once per binning;
+        without it they are read on a later frame (_defer_overflow) and
+        a replayed miss waits for nothing on the device.  A growth
+        drops every step."""
+        start = time.perf_counter()
+        timing = {"bin_ms": 0.0}
         self._validate(commands)
         commands, _ = _optimize_commands(commands)
         if self.auto_instance:
@@ -2017,13 +2110,28 @@ class Renderer:
             if cached is not None:
                 prepared, self.stats = cached
                 break
-            prepared = prepare(
-                *scene.arrays,
-                self._dev_cached("transforms", transforms, digest=tf_digest),
-                self._dev_cached("desc_static", desc_static),
-                None if paint_model is None
-                else self._dev_cached("paints", paint_model),
-            )
+            binning = time.perf_counter()
+            step = None
+            if graph:
+                step = self._bin_step(
+                    spec, prepare, scene_key, scene, transforms,
+                    desc_static, paint_model,
+                )
+                prepared, capture_ms = step(
+                    transforms, desc_static, paint_model
+                )
+                if capture_ms is not None:
+                    timing["capture_ms"] = capture_ms
+            else:
+                prepared = prepare(
+                    *scene.arrays,
+                    self._dev_cached("transforms", transforms,
+                                     digest=tf_digest),
+                    self._dev_cached("desc_static", desc_static),
+                    None if paint_model is None
+                    else self._dev_cached("paints", paint_model),
+                )
+            timing["bin_ms"] += (time.perf_counter() - binning) * 1e3
             limits = (
                 spec.capacity,
                 spec.global_capacity,
@@ -2048,7 +2156,12 @@ class Renderer:
                 logger.debug("prepare: %s", self.stats)
                 if self._grow_capacities(overflow, limits):
                     continue
-            else:
+            if step is not None and prepared is step.prepared:
+                # The step's next call overwrites its buffers.
+                prepared = coverage.PreparedFrame(
+                    *(t.clone() for t in prepared)
+                )
+            if not self.strict_capacity:
                 self.stats = stats
                 self._defer_overflow(prepared.overflow, limits)
             if len(self._prepared_cache) >= 8:
@@ -2068,6 +2181,8 @@ class Renderer:
             self._dev_cached("desc_f", desc_f),
             self._dev_cached("desc_i", desc_i),
         )
+        timing["prepare_ms"] = (time.perf_counter() - start) * 1e3
+        self.timing = timing
         return raster_spec, rasterize, runtime_args
 
     def render(
@@ -2249,85 +2364,95 @@ class _Staged:
         self._held = np.array(array, copy=True)
 
 
+def _held(x):
+    """The device tensor of a step input: a ``_Staged`` buffer's, or the
+    tensor (or None) itself."""
+    return x.tensor if isinstance(x, _Staged) else x
+
+
 class _FrameStep:
-    """One variant's frame, binning then raster, as one CUDA graph: the
-    port's counterpart of the reference's ``jax.jit(step)``
-    (contrast_renderer_tpu/renderer.py, ``FrameProgram._build_variant``).
+    """A frame's binning, and with ``raster`` its raster too, as one CUDA
+    graph: the port's counterpart of the reference's ``jax.jit`` of its
+    executors (contrast_renderer_tpu/renderer.py,
+    ``Renderer._get_executors`` and ``FrameProgram._build_variant``;
+    parallel/mesh.py, the ``jax.jit(shard_map(...))`` of a frame).  Its
+    owners: ``Renderer._prepare`` (binning only, one step per spec and
+    scene), each ``FrameProgram`` variant and each rect of a sharded
+    program (binning and raster).
 
-    Every device input stays at one address: the variant's transform
-    stack (``_Staged``, written each frame), the program's descriptors
-    (``_Staged``, written when their bytes change), and the variant's
-    command tables and paint points and the scene arrays, fixed per
-    build.  The outputs are static too: the frame, and the overflow
-    counters that the capture allocated.  A caller copies what it keeps
-    before the next call.
+    Every device input stays at one address: the transform stack
+    (``_Staged``, written by each call); ``desc_static`` and the paint
+    points (each a ``_Staged`` written by the call or by the owner, or a
+    tensor fixed for the step's life); the scene arrays; and with a
+    raster ``(cmd_i, cmd_f, desc_f, desc_i)``, tensors or ``_Staged``.
+    The outputs are static too: ``prepared``, the ``PreparedFrame`` that
+    the capture allocated, and with a raster ``frame``.  A call returns
+    ``(prepared, capture ms or None)``; whatever the owner keeps past the
+    step's next call it copies out first.
 
-    On a CUDA device the first call runs the step on the program's side
+    On a CUDA device the first call runs the step on the owner's side
     stream (the warm-up that capture needs: it loads the kernel library
-    and makes ``make_prepare``'s device constants) and returns that run's
-    frame.  The second call captures ``make_prepare`` and
-    ``coverage_raster`` into a graph in the program's memory pool, and
-    it and every later call replay the graph, adding its captured kernel
-    launches to ``coverage.raster_launches``; so a variant met once (a
-    grouping of one frame of a drag) never pays a capture.  A failed
-    capture or replay raises, naming the variant.  On the CPU every call
-    runs the step eagerly on the same buffers."""
+    and makes ``make_prepare``'s device constants) and returns that
+    run's own ``prepared``.  The second call captures the step into a
+    graph in the owner's memory pool, and it and every later call replay
+    the graph, adding its captured kernel launches to
+    ``coverage.raster_launches``; so a step met once never pays a
+    capture.  A failed capture or replay raises, naming the step.  On
+    the CPU every call runs the step eagerly and copies its binning into
+    ``prepared``, as a replay leaves it."""
 
-    def __init__(self, variant: _ProgramVariant, scene, descriptors,
-                 transforms: np.ndarray, pool, side):
-        spec = variant.spec
-        device = variant.cmd_i.device
-        # The variant's functions and tables, not the variant, which holds
-        # the step: without a reference cycle a step (and its graph) is
-        # freed when its program drops it, never by a collection.
-        self._prepare = variant.prepare
-        self._rasterize = variant.rasterize
-        self._tables = (variant.cmd_i, variant.cmd_f, variant.paints)
-        self.scene = scene
-        #: The program's staged descriptors: "static", "f", "i".
-        self.descriptors = descriptors
-        self.transforms = _Staged(transforms, device)
-        self.frame = torch.empty(
-            (spec.height, spec.width, 4),
-            dtype=torch.uint8 if spec.out_uint8 else torch.float32,
-            device=device,
-        )
-        self.overflow = None
+    def __init__(self, name, prepare, scene_arrays, transforms: np.ndarray,
+                 desc_static, paints, pool, side, raster=None):
+        self.device = scene_arrays[0].device
+        # Functions and tensors, never the owner: without a reference
+        # cycle a step (and its graph) is freed when its owner drops it,
+        # never by a collection.
+        self._prepare = prepare
+        self.scene_arrays = scene_arrays
+        self.transforms = _Staged(transforms, self.device)
+        self._inputs = (self.transforms, desc_static, paints)
+        #: (spec, rasterize, (cmd_i, cmd_f, desc_f, desc_i)) or None.
+        self._raster = raster
+        self.frame = None
+        if raster is not None:
+            spec = raster[0]
+            self.frame = torch.empty(
+                (spec.height, spec.width, 4),
+                dtype=torch.uint8 if spec.out_uint8 else torch.float32,
+                device=self.device,
+            )
+        self.prepared = None
         self._warm = False
         self.graph = None
         #: Kernel launches that one replay makes.
         self.launches = 0
         #: Host ms of the capture (and the graph's instantiation).
         self.capture_ms = None
-        self.name = (
-            f"the {len(variant.opt_commands)}-command variant of a "
-            f"{spec.width}x{spec.height} FrameProgram"
-        )
+        self.name = name
         self._pool = pool
         self._side = side
 
     def _step(self):
-        d = self.descriptors
-        cmd_i, cmd_f, paints = self._tables
         prepared = self._prepare(
-            *self.scene.arrays, self.transforms.tensor, d["static"].tensor,
-            paints,
+            *self.scene_arrays, *(_held(x) for x in self._inputs)
         )
-        self._rasterize(prepared, cmd_i, cmd_f, d["f"].tensor, d["i"].tensor,
-                        self.frame)
-        return prepared.overflow
+        if self._raster is not None:
+            _, rasterize, tables = self._raster
+            rasterize(prepared, *(_held(t) for t in tables), self.frame)
+        return prepared
 
     def _warm_up(self):
-        """Run the step on the side stream; returns its overflow counters
-        (its frame is in ``self.frame``)."""
-        stream = torch.cuda.current_stream(self.frame.device)
+        """Run the step on the side stream; returns its binning (its
+        frame is in ``self.frame``)."""
+        stream = torch.cuda.current_stream(self.device)
         self._side.wait_stream(stream)
         with torch.cuda.stream(self._side):
-            overflow = self._step()
+            prepared = self._step()
         stream.wait_stream(self._side)
-        overflow.record_stream(stream)
+        for t in prepared:
+            t.record_stream(stream)
         self._warm = True
-        return overflow
+        return prepared
 
     def _capture(self):
         """Capture the step into ``self.graph``; returns the host ms."""
@@ -2342,7 +2467,7 @@ class _FrameStep:
             with torch.cuda.stream(self._side):
                 graph.capture_begin(pool=self._pool)
                 try:
-                    self.overflow = self._step()
+                    self.prepared = self._step()
                 finally:
                     graph.capture_end()
         except RuntimeError as exc:
@@ -2358,26 +2483,37 @@ class _FrameStep:
     def capture(self):
         """Warm up (a frame of the staged inputs) and capture now, on a
         CUDA device, unless captured already; nothing on the CPU."""
-        if self.frame.is_cuda and self.graph is None:
+        if self.device.type == "cuda" and self.graph is None:
             if not self._warm:
                 self._warm_up()
             self._capture()
 
-    def __call__(self, transforms: np.ndarray):
-        """Write ``transforms`` and run the step: ``(frame, overflow,
-        capture ms or None)``, the first two the step's own buffers."""
-        self.transforms.write(transforms)
-        if not self.frame.is_cuda:
-            return self.frame, self._step(), None
+    def __call__(self, transforms: np.ndarray, desc_static=None,
+                 paints=None):
+        """Write ``transforms`` (and ``desc_static`` and ``paints`` where
+        given, into the step's own staged buffers) and run the step:
+        ``(prepared, capture ms or None)``."""
+        for staged, array in zip(self._inputs,
+                                 (transforms, desc_static, paints)):
+            if array is not None:
+                staged.write(array)
+        if self.device.type != "cuda":
+            prepared = self._step()
+            if self.prepared is None:
+                self.prepared = prepared
+            else:
+                for own, new in zip(self.prepared, prepared):
+                    own.copy_(new)
+            return self.prepared, None
         if not self._warm:
-            return self.frame, self._warm_up(), None
+            return self._warm_up(), None
         capture_ms = None if self.graph is not None else self._capture()
         try:
             self.graph.replay()
         except RuntimeError as exc:
             raise RuntimeError(f"replaying {self.name} failed") from exc
         coverage.raster_launches += self.launches
-        return self.frame, self.overflow, capture_ms
+        return self.prepared, capture_ms
 
 
 class FrameProgram:
@@ -2441,14 +2577,16 @@ class FrameProgram:
         # Settle the capacities on two strict frames, the natural one and
         # a rotated probe (see _rotated_probe_commands); the renderer's
         # stats go back to the natural frame's.
+        # Binned eagerly: the renderer's binning steps are for frames a
+        # caller renders.
         was_strict = renderer.strict_capacity
         renderer.strict_capacity = True
         try:
-            renderer.render(self._commands, to_host=False)
+            renderer._prepare(self._commands, graph=False)
             natural_stats = dict(renderer.stats)
             stats = dict(natural_stats)
-            renderer.render(
-                _rotated_probe_commands(self._commands), to_host=False
+            renderer._prepare(
+                _rotated_probe_commands(self._commands), graph=False
             )
             for key in _CAP_STATS:
                 if key in renderer.stats:
@@ -2931,9 +3069,14 @@ class FrameProgram:
         """The variant's step, made on first use with this frame's
         transforms (after ``_stage_descriptors``)."""
         if variant.step is None:
+            d, spec = self._desc, variant.spec
             variant.step = _FrameStep(
-                variant, self._scene, self._desc, transforms, self._pool,
-                self._side,
+                f"the {len(variant.opt_commands)}-command variant of a "
+                f"{spec.width}x{spec.height} FrameProgram",
+                variant.prepare, self._scene.arrays, transforms,
+                d["static"], variant.paints, self._pool, self._side,
+                raster=(spec, variant.rasterize,
+                        (variant.cmd_i, variant.cmd_f, d["f"], d["i"])),
             )
         return variant.step
 
@@ -2984,15 +3127,14 @@ class FrameProgram:
         variant, transforms = self._choose(transforms)
         planned = time.perf_counter()
         self._stage_descriptors()
-        image, overflow, capture_ms = self._frame_step(
-            variant, transforms
-        )(transforms)
+        step = self._frame_step(variant, transforms)
+        prepared, capture_ms = step(transforms)
         stepped = time.perf_counter()
         # The step's frame is overwritten by its next replay.
-        image = image.clone()
+        image = step.frame.clone()
         if carry is not None:
             carry = self._renderer._carry(carry, image)
-        self._defer(overflow)
+        self._defer(prepared.overflow)
         self.stats = {
             "fused": variant is not self._seq,
             "plan_ms": (planned - start) * 1e3,
@@ -3050,11 +3192,11 @@ class FrameProgram:
         )
         worst = None
         for b in range(len(transforms)):
-            image, overflow, _ = step(transforms[b])
+            overflow = step(transforms[b])[0].overflow
             if quantize:
-                frames[b] = Renderer._quantize(image)
+                frames[b] = Renderer._quantize(step.frame)
             else:
-                frames[b].copy_(image)
+                frames[b].copy_(step.frame)
             worst = (
                 overflow.clone() if worst is None
                 else torch.maximum(worst, overflow)

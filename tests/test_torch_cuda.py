@@ -11,9 +11,15 @@ paint compiled into the kernel; the cap golden; the whole path on the
 card against the path on the CPU; ``render_sequence`` writing its
 frames in place; ``FrameProgram``'s captured frame step (its replays
 against the eager binning and raster, without a synchronise, across a
-capacity growth and with two alpha layers); and the standalone fill rasterizer, band sharding and
-the frame loop on the card against the CPU, the single render and
-``compile_frame``.
+capacity growth and with two alpha layers); ``Renderer.render``'s
+binning step under a moving camera (replayed misses against the eager
+binning and raster, float and packed, cached binnings and returned
+frames that alias none of its buffers, no synchronise without
+``strict_capacity``, one read with it, a growth, two alpha layers,
+depth and paints); the
+sharded programs' per-rect steps against their eager frames; and the
+standalone fill rasterizer, band sharding and the frame loop on the card
+against the CPU, the single render and ``compile_frame``.
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -1033,3 +1039,253 @@ def test_frame_loop_on_card_matches_compile_frame(card):
         want = Renderer._quantize(program(app.transforms(reference)))
         assert np.array_equal(presented, want.cpu().numpy()), index
         assert (presented[..., 3] > 0).any()
+
+
+def moved(commands, stack):
+    """The commands under one frame's transform stack."""
+    return [replace(c, transform=np.ascontiguousarray(t))
+            for c, t in zip(commands, stack)]
+
+
+def eager_render(renderer, commands, **kw):
+    """``commands`` binned eagerly outside every binning step (on a
+    renderer of their own), then rasterized: the frame without graphs."""
+    renderer._prepared_cache.clear()
+    _, rasterize, runtime = renderer._prepare(
+        commands, uint8_kernel=kw.get("uint8_kernel", False), graph=False)
+    return rasterize(*runtime)
+
+
+def showcase_orbit(card, config=None, clip_alpha=False, **renderer_kw):
+    """The showcase (with text) at SIZE² and its GRAPH_FRAMES orbit
+    stacks; a renderer for the graph path and one for the eager path,
+    neither auto-instanced (one binning step serves every frame)."""
+    config = config or Configuration()
+    build = (showcase.showcase_commands_clip_alpha if clip_alpha
+             else showcase.showcase_commands)
+    commands = build(showcase.build_shape(with_text=not clip_alpha), SIZE, SIZE)
+    stacks = [showcase.command_transforms(
+        SIZE, SIZE, clip_alpha=clip_alpha, view_rotation=showcase.orbit_rotor(i))
+        for i in GRAPH_FRAMES]
+    graph, eager = (
+        Renderer(config, SIZE, SIZE, auto_instance=False, device=card,
+                 **renderer_kw)
+        for _ in range(2)
+    )
+    for r in (graph, eager):
+        # Grow the capacities over every stack first (eagerly), so that
+        # no frame below grows them and drops the step.
+        strict, r.strict_capacity = r.strict_capacity, True
+        for t in stacks:
+            r._prepare(moved(commands, t), graph=False)
+        r.strict_capacity = strict
+        r._prepared_cache.clear()
+    return commands, stacks, graph, eager
+
+
+@pytest.mark.parametrize("uint8_kernel", [False, True], ids=["float", "packed"])
+def test_render_graph_matches_eager_on_card(card, uint8_kernel):
+    """Renderer.render of the moved showcase, a cache miss a frame: the
+    first frame warms the binning step up, the second captures it, the
+    rest replay it; every frame equals the eager binning + raster to the
+    bit, one kernel launch each; the cached binnings and the returned
+    frames alias no buffer of the step and stay as they were."""
+    commands, stacks, r, e = showcase_orbit(card, strict_capacity=False)
+    frames, captured = [], []
+    for t in stacks:
+        before = coverage.raster_launches
+        frames.append(r.render(moved(commands, t), to_host=False,
+                               uint8_kernel=uint8_kernel))
+        assert coverage.raster_launches == before + 1
+        captured.append("capture_ms" in r.timing)
+    assert captured == [False, True] + [False] * (len(stacks) - 2)
+    (step,) = r._bin_steps.values()
+    assert step.graph is not None and step.launches == 0
+    kept = [f.clone() for f in frames]
+    entries = [p for p, _ in r._prepared_cache.values()]
+    cached = [[t.clone() for t in p] for p in entries]
+    for t in stacks[::-1]:
+        r.render(moved(commands, t), to_host=False, uint8_kernel=uint8_kernel)
+    own = {t.data_ptr() for t in step.prepared}
+    for p, c in zip(entries, cached):
+        assert not own & {t.data_ptr() for t in p}
+        assert all(torch.equal(a, b) for a, b in zip(p, c))
+    for i, (f, k, t) in enumerate(zip(frames, kept, stacks)):
+        assert torch.equal(f, k), i
+        want = eager_render(e, moved(commands, t), uint8_kernel=uint8_kernel)
+        assert torch.equal(f, want), GRAPH_FRAMES[i]
+    assert len({f.cpu().numpy().tobytes() for f in frames}) == len(frames)
+
+
+def test_render_graph_miss_without_sync_on_card(card):
+    """At strict_capacity=False a replayed miss, the dash phase moving
+    (desc_f uploads every frame), waits for nothing on the device:
+    torch.cuda.set_sync_debug_mode("error") holds around it."""
+    commands, stacks, r, _ = showcase_orbit(card, strict_capacity=False)
+    shape = commands[0].shape
+
+    def frame(phase, t):
+        shape.set_dynamic_stroke_options(0, showcase.dashed_options(phase))
+        return r.render(moved(commands, t), to_host=False, uint8_kernel=True)
+
+    for i, t in enumerate(stacks):
+        frame(0.1 * i, t)
+    r._prepared_cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        images = [frame(0.1 * i + 0.05, t) for i, t in enumerate(stacks)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    (step,) = r._bin_steps.values()
+    assert step.graph is not None
+    assert all(bool((image[..., 3] != 0).any()) for image in images)
+
+
+def test_render_graph_reads_overflow_once_per_miss_on_card(card):
+    """At strict_capacity=True a replayed miss reads the overflow
+    counters back once, its only synchronising call; a cache hit makes
+    none."""
+    import warnings
+
+    commands, stacks, r, _ = showcase_orbit(card)
+    for t in stacks[:2]:  # the warm-up and the capture
+        r.render(moved(commands, t), to_host=False)
+    torch.cuda.synchronize()
+
+    def syncs(t):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r.render(moved(commands, t), to_host=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    for t in stacks[2:]:
+        assert syncs(t) == 1
+        assert r.timing["bin_ms"] > 0 and "max_tile_entries" in r.stats
+        assert syncs(t) == 0 and r.timing["bin_ms"] == 0.0
+
+
+def test_render_graph_growth_recaptures_on_card(card):
+    """A renderer whose tile capacity is below what its frames bin, at
+    strict_capacity=False: the deferred counters grow it within two
+    frames, the growth drops the binning step, and a new step warms up,
+    captures and replays; the frames after the growth equal a strict
+    render's."""
+    t = scenes.ortho(SIZE, SIZE)
+    commands = []
+    for i in range(20):
+        s = Shape([Path.from_circle((128, 128), 112 - 4 * i)])
+        commands += [
+            DrawCommand(RenderOperation.STENCIL, s, t),
+            DrawCommand(RenderOperation.COLOR, s, t,
+                        color=(i / 20, 1 - i / 20, 0.5, 1.0)),
+        ]
+    r = Renderer(Configuration(), SIZE, SIZE, tile_capacity=8,
+                 strict_capacity=False, auto_instance=False, device=card)
+    strict = Renderer(Configuration(), SIZE, SIZE, auto_instance=False,
+                      device=card)
+
+    def frame(k):
+        shift = np.eye(4, dtype=np.float32)
+        shift[0, 3] = 0.002 * k
+        return [replace(c, transform=shift @ c.transform) for c in commands]
+
+    r.render(frame(0), to_host=False)
+    (first,) = r._bin_steps.values()
+    k = 0
+    while r.tile_capacity == 8:
+        k += 1
+        r.render(frame(k), to_host=False)
+        assert k <= 3
+    # The frame that read the counters grew the capacity, dropped the
+    # step and warmed up a new one.
+    (grown,) = r._bin_steps.values()
+    assert grown is not first and grown.graph is None
+    captures = []
+    for _ in range(3):
+        k += 1
+        got = r.render(frame(k), to_host=False)
+        captures.append("capture_ms" in r.timing)
+        assert torch.equal(got, strict.render(frame(k), to_host=False))
+    assert captures == [True, False, False]
+    assert list(r._bin_steps.values()) == [grown] and grown.graph is not None
+
+
+def test_render_graph_clip_alpha_two_layers_on_card(card):
+    """The moved clip/alpha showcase with two alpha layers (layer mode 0,
+    whose launch sets the kernel's dynamic shared-memory attribute) at
+    SIZE²: its binning step captured and replayed, each frame equal to
+    the eager binning + raster to the bit."""
+    config = Configuration(alpha_layer_count=2, blending="front_to_back")
+    commands, stacks, r, e = showcase_orbit(card, config, clip_alpha=True)
+    for t in stacks:
+        got = r.render(moved(commands, t), to_host=False)
+        assert torch.equal(got, eager_render(e, moved(commands, t)))
+        assert bool((got[..., 3] != 0).any())
+    (step,) = r._bin_steps.values()
+    assert step.graph is not None
+
+
+def test_render_graph_depth_and_paints_on_card(card):
+    """The mixed-paints frame (gradient, instanced solid pair, checker
+    UserPaint) under less_equal with depth write, panned a little each
+    frame: its binning step (depth planes and paint points projected
+    inside the graph) captured and replayed, each frame equal to the
+    eager binning + raster to the bit."""
+    config = Configuration(depth_compare="less_equal", depth_write_enabled=True)
+    commands = scenes.mixed_paints(SIZE, SIZE)
+    r, e = (Renderer(config, SIZE, SIZE, device=card) for _ in range(2))
+    for k in range(5):
+        pan = np.eye(4, dtype=np.float32)
+        pan[0, 3] = 0.01 * k
+        frame = [replace(c, transform=pan @ np.asarray(c.transform, np.float32))
+                 for c in commands]
+        got = r.render(frame, to_host=False)
+        assert torch.equal(got, eager_render(e, frame)), k
+    steps = list(r._bin_steps.values())
+    assert steps and all(step.graph is not None for step in steps)
+
+
+@pytest.mark.parametrize("grid", ["bands", "2x2"])
+def test_sharded_program_graph_matches_eager_on_card(card, grid):
+    """ShardedFrameProgram over 4 row bands and ShardedFrameProgram2D over
+    2x2 rects (on the cards there are, in turn) of the moved showcase at
+    SIZE²: each rect's step warms up on the first frame, captures on the
+    second and replays after, one kernel launch a rect a frame; every
+    frame equals the eager sharded frame to the bit and is a tensor of
+    its own."""
+    from contrast_renderer_tpu_torch.parallel import (
+        Mesh, ShardedFrameProgram, ShardedFrameProgram2D,
+    )
+    from contrast_renderer_tpu_torch.parallel import mesh as mesh_module
+
+    commands = showcase.showcase_commands(
+        showcase.build_shape(with_text=True), SIZE, SIZE)
+    r = Renderer(Configuration(), SIZE, SIZE, device=card)
+    if grid == "bands":
+        program = ShardedFrameProgram(r, commands, _band_mesh())
+    else:
+        n = torch.cuda.device_count()
+        mesh = Mesh(np.array([f"cuda:{i % n}" for i in range(4)]).reshape(2, 2),
+                    ("y", "x"))
+        program = ShardedFrameProgram2D(r, commands, mesh)
+    stacks = [showcase.orbit_transforms(g, SIZE, SIZE) for g in GRAPH_FRAMES[:5]]
+    for stack in stacks:  # a pass that may grow and rebuild
+        program(stack)
+    frames = []
+    for stack in stacks:
+        before = coverage.raster_launches
+        frames.append(program(stack))
+        assert coverage.raster_launches == before + 4
+        want, _ = mesh_module._run_grid(
+            program._pipeline, program._grid, program._rows(stack))
+        assert torch.equal(frames[-1], want)
+    own = {s.frame.data_ptr() for s in program._steps.values()}
+    assert len(own) == 4
+    assert all(s.graph is not None for s in program._steps.values())
+    assert not own & {f.data_ptr() for f in frames}
+    assert len({f.cpu().numpy().tobytes() for f in frames}) == len(frames)

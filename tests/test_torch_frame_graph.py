@@ -91,11 +91,11 @@ def renderer(package, size=SIZE, **config):
                         auto_instance=False, device="cpu")
 
 
-def binning_inputs(package, commands, **config):
+def binning_inputs(package, commands, size=SIZE, **config):
     """The spec, scene arrays, transforms, desc_static and paint points
     that ``package``'s renderer derives for ``commands`` (sequential)."""
     api = PACKAGES[package][0]
-    r = renderer(package, **config)
+    r = renderer(package, size, **config)
     opt, _ = api._optimize_commands(commands)
     shapes, index = r._unique_shapes(opt)
     _, scene = r._scene_arrays(shapes)
