@@ -43,10 +43,15 @@ RGBA8) through ``Renderer.compile_frame`` and ``plan_for_motion`` at
 ``FrameProgram.stats`` a frame, the capture ms where the root captures
 its frame steps, 33 frames under torch.profiler (the device's busy share
 and operations a frame), the peak device memory over the windows, and
-the packed frames 0, 30 and 98 hashed for the comparison; then the orbit
+the packed frames 0, 30 and 98 hashed for the comparison; the time of
+``plan_for_motion`` over the 99 frames at each size; the orbit at
+3840x2160 through a program that never planned (frames/s, frames fused,
+frames that captured a graph, the longest frame's host ms, frames 0, 30
+and 98 hashed); then the orbit
 example's app through ``app.FrameLoop`` at 3840x2160, 24 frames under
 chip_smoke.py phase 20's drag and wheel (the median of the last 20, of
-all, the drag's 10 frames in all, the frames that captured a graph).  The last lines are one row per size and one
+all, the drag's 10 frames in all and each, its longest, the frames that
+captured a graph).  The last lines are one row per size and one
 JSON object.  Exits non-zero if a process fails or the roots' orbit
 frames differ.
 
@@ -314,6 +319,49 @@ def orbit_size(api, showcase, smoke, width, height):
     return out
 
 
+def unplanned_orbit(api, showcase, width, height):
+    """The orbit's frames through a program that never planned (chip_smoke
+    phase 19's unplanned orbit), chained through ``carry`` with one fetch
+    at the end: frames/s, frames fused, frames that captured a graph,
+    each frame's host ms (the call) and the longest, frames 0, 30 and 98
+    hashed."""
+    import statistics
+    import time
+
+    import torch
+
+    shape = showcase.build_shape(with_text=True)
+    stacks = [showcase.orbit_transforms(i, width, height)
+              for i in range(ORBIT_FRAMES)]
+    renderer = api.Renderer(api.Configuration(), width, height,
+                            strict_capacity=False, device="cuda")
+    program = renderer.compile_frame(
+        showcase.showcase_commands(shape, width, height), uint8_output=True)
+    torch.cuda.synchronize()
+    acc = torch.zeros((), device="cuda")
+    host_ms, fused, captured, hashes = [], 0, 0, []
+    start = time.perf_counter()
+    for i in range(ORBIT_FRAMES):
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP))
+        begin = time.perf_counter()
+        image, acc = program(stacks[i], carry=acc)
+        host_ms.append((time.perf_counter() - begin) * 1e3)
+        fused += program.stats["fused"]
+        captured += "capture_ms" in program.stats
+        if i in ORBIT_HASHED:
+            hashes.append(image)
+    float(acc)
+    wall = time.perf_counter() - start
+    return {
+        "frames_per_s": ORBIT_FRAMES / wall, "fused": fused,
+        "captured": captured,
+        "median_ms": statistics.median(host_ms), "longest_ms": max(host_ms),
+        "rgba8": [hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()[:16]
+                  for h in hashes],
+    }
+
+
 def orbit_worker(root):
     """The --orbit mode's numbers with the port of ``root``; prints one
     line ``AB {json}``."""
@@ -346,6 +394,13 @@ def orbit_worker(root):
               f"capture ms {[round(c, 1) for c in r['capture_ms']]}; peak "
               f"{r['peak_mib']:.1f} MiB over the windows, reserved "
               f"{r['reserved_mib']:.1f} MiB; builds {r['builds']}", flush=True)
+    label = f"unplanned orbit {smoke.SHOWCASE_W}x{smoke.SHOWCASE_H}"
+    results[label] = r = unplanned_orbit(api, showcase, smoke.SHOWCASE_W,
+                                         smoke.SHOWCASE_H)
+    print(f"  {label}: {r['frames_per_s']:.2f} frames/s, {r['fused']} fused, "
+          f"{r['captured']} frames captured a graph; host ms a frame median "
+          f"{r['median_ms']:.2f}, "
+          f"longest {r['longest_ms']:.2f}", flush=True)
     app = ShowcaseOrbitApp(with_text=True)
     loop = FrameLoop(app, smoke.SHOWCASE_W, smoke.SHOWCASE_H)
     seconds, captures = [], 0
@@ -367,14 +422,17 @@ def orbit_worker(root):
     results["frame loop"] = {
         "median_ms": loop_ms, "all_median_ms": statistics.median(seconds) * 1e3,
         "drag_ms": sum(seconds[:10]) * 1e3, "first_ms": seconds[0] * 1e3,
-        "captures": captures,
+        "drag_frames_ms": [t * 1e3 for t in seconds[:10]],
+        "drag_longest_ms": max(seconds[:10]) * 1e3, "captures": captures,
     }
     print(f"  frame loop {smoke.SHOWCASE_W}x{smoke.SHOWCASE_H}: median "
           f"{loop_ms:.2f} ms a frame of the last {LOOP_FRAMES - LOOP_SETTLE}, "
           f"{results['frame loop']['all_median_ms']:.2f} of all {LOOP_FRAMES}; "
           f"the drag's 10 frames {results['frame loop']['drag_ms']:.1f} ms in "
-          f"all; first {seconds[0] * 1e3:.1f} ms; {captures} frames captured "
-          f"a graph", flush=True)
+          f"all ({', '.join(f'{t * 1e3:.1f}' for t in seconds[:10])}), the "
+          f"longest {results['frame loop']['drag_longest_ms']:.1f}; first "
+          f"{seconds[0] * 1e3:.1f} ms; {captures} frames captured a graph",
+          flush=True)
     print("AB " + json.dumps({"root": root, "frames": results}), flush=True)
 
 
@@ -510,9 +568,27 @@ def orbit_summary(roots, runs):
             )
         print(f"{label}: {'; '.join(cells)}; frames equal {len(hashes) == 1}",
               flush=True)
+    print("plan_for_motion, 99 frames: " + "; ".join(
+        f"{letter} " + " / ".join(
+            ", ".join(f"{r[f'orbit {w}x{h}']['plan_for_motion_s']:.3f}"
+                      for r in runs[letter])
+            for w, h in ((3840, 2160), (1920, 1080)))
+        + " s (4K / 1080p)" for letter in roots), flush=True)
+    label = "unplanned orbit 3840x2160"
+    hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
+    equal &= len(hashes) == 1
+    print(f"{label}: " + "; ".join(
+        f"{letter} {', '.join(f'{r[label]['frames_per_s']:.2f}' for r in runs[letter])} "
+        f"frames/s, fused {', '.join(str(r[label]['fused']) for r in runs[letter])}, "
+        f"captured {', '.join(str(r[label]['captured']) for r in runs[letter])}, "
+        f"longest {', '.join(f'{r[label]['longest_ms']:.1f}' for r in runs[letter])} ms"
+        for letter in roots) + f"; frames equal {len(hashes) == 1}", flush=True)
     print("frame loop: " + "; ".join(
         f"{letter} {', '.join(f'{r['frame loop']['median_ms']:.2f}' for r in runs[letter])} ms "
-        f"(drag {', '.join(f'{r['frame loop']['drag_ms']:.0f}' for r in runs[letter])} ms)"
+        f"(drag {', '.join(f'{r['frame loop']['drag_ms']:.0f}' for r in runs[letter])} ms, "
+        f"its longest frame "
+        f"{', '.join(f'{r['frame loop'].get('drag_longest_ms', float('nan')):.1f}' for r in runs[letter])} ms, "
+        f"captured {', '.join(str(r['frame loop']['captures']) for r in runs[letter])})"
         for letter in roots), flush=True)
     return equal
 

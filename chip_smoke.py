@@ -96,9 +96,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    axis, the dash phase 0.032 a frame), at 3840×2160 and at 1920×1080,
    through ``Renderer.compile_frame(uint8_output=True)``: the settled
    capacities, ``plan_for_motion`` over the 99 frames timed (the fused
-   plan, its commands, the scouted capacities), the time to build one
-   variant, each variant's capture (the fused plan's by
-   ``plan_for_motion``, the sequential walk's forced) with its host ms,
+   plan, its commands, the scouted capacities), with its scout through
+   a binning graph and, on a second program, with the eager scout (same
+   plan and capacities), the time to build one variant, each variant's
+   capture (the fused plan's by ``plan_for_motion``, the sequential
+   walk's forced) with its host ms,
    launches and the graph pool's memory, each frame's near-plane
    crossings (from the sequential walk's binning); one window of the 99
    frames on the eager path (the variant's prepare and rasterize outside
@@ -114,8 +116,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    crossings, a fused frame and a frame that fell back (where one does)
    against ``Renderer(auto_instance=False).render``, packed RGBA8, to
    the bit; the kernel against plain on the crossing frame, its times and
-   bound; and ``render_sequence`` over 16 frames against the per-frame
-   calls, to the bit, with its frames/s;
+   bound; ``render_sequence`` over 16 frames against the per-frame
+   calls, to the bit, with its frames/s; and the 99 frames through a
+   program that never planned (``unplanned_orbit_run``: the hysteresis
+   at work; frames/s, frames fused, groupings built, the frames that
+   captured a graph with their host ms, each frame's host ms and the
+   longest, every frame equal to the eager sequential walk's to the
+   bit);
 19b. moved frames through ``Renderer.render``, each a miss of its
    binning cache, replayed from the binning step's CUDA graph: the
    showcase orbit (with text, the dash phase moving) at 3840×2160 and
@@ -135,8 +142,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    frames; the last frame at each size against the app's
    ``compile_frame`` program called outside the loop, RGBA8, to the bit;
    each PNG read back against the frame presented; ``FrameTimer``'s fps
-   and average at each size; the frames that captured a variant's graph,
-   with their host ms, and the other frames' median; one more frame under
+   and average at each size; each of the drag's 10 frames' host ms and
+   the longest, each against the eager sequential walk's frame, RGBA8,
+   to the bit; the frames that captured a variant's graph, with their
+   host ms, and the other frames' median; one more frame under
    ``utils.profiling.device_trace``, whose trace must hold the kernel;
 21. the standalone fill rasterizer (``ops.raster.make_fill_rasterizer``,
    plain torch on the card): BASELINE config 1 (the circle at 256²)
@@ -1551,10 +1560,30 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     plan = program._plan
     walked = program._seq.opt_commands if plan is None else plan.commands
     print(f"{label}: compile_frame {compile_s:.2f} s, settled capacities "
-          f"{settled}; plan_for_motion over {n} frames {plan_s:.2f} s: fused "
-          f"plan active {fused}, {len(commands)} commands -> {len(walked)} "
-          f"after fusion (groups {[len(g) for g in plan.signature[0][1:]] if plan else None}), "
+          f"{settled}; plan_for_motion over {n} frames {plan_s:.2f} s (the "
+          f"scout through a binning graph, the plan's build and capture): "
+          f"fused plan active {fused}, {len(commands)} "
+          f"commands -> {len(walked)} after fusion (groups "
+          f"{[len(g) for g in plan.signature[0][1:]] if plan else None}), "
           f"capacities {program._caps}", flush=True)
+    # The same plan_for_motion on a program of its own, scouting with the
+    # eager prepare over every frame instead (the scout before the
+    # binning graph): same plan, same capacities.
+    eager_program = renderer.compile_frame(commands, uint8_output=True)
+    eager_program._scout = lambda *a: eager_scout(eager_program, *a)
+    start = time.perf_counter()
+    eager_program.plan_for_motion(stacks)
+    torch.cuda.synchronize()
+    eager_plan_s = time.perf_counter() - start
+    same = (eager_program._caps == program._caps
+            and eager_program._plan.signature == plan.signature)
+    print(f"{label} ({card}): plan_for_motion over {n} frames with the graph "
+          f"scout {plan_s:.3f} s, with the eager scout {eager_plan_s:.3f} s in "
+          f"this process; same plan and capacities {same}", flush=True)
+    if not same:
+        fail(f"{label}: the graph scout and the eager scout disagree: "
+             f"{program._caps} against {eager_program._caps}")
+    del eager_program
     builds = []
     for _ in range(5):
         start = time.perf_counter()
@@ -1659,6 +1688,9 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
               f"{host['bin_ms'] / n:.3f} ms, copy out and carry (raster_ms) "
               f"{host['raster_ms'] / n:.3f} ms; alpha sum {total:.6g}; frames "
               f"equal to the eager path's {n - len(differ)} of {n}", flush=True)
+        if captured:
+            fail(f"{label}: {captured} frames captured a graph in a timed "
+                 f"window")
         if launches != n:
             fail(f"{label}: {launches} coverage_raster launches for {n} frames")
         if not np.isfinite(total) or total <= 0:
@@ -1793,7 +1825,121 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
           f"{len(segment) / seq_s:.2f} frames/s", flush=True)
     if not all(equal):
         fail(f"{label}: render_sequence differs from __call__")
+    unplanned_orbit_run(Configuration, Renderer, card, width, height, commands,
+                        at)
     return variant.spec, runtime, launches, err, k_ms, p_ms, bound
+
+
+def eager_scout(program, plan, stacks, desc_static, paints):
+    """One round of plan_for_motion's capacity scout as it ran before the
+    binning graph: the round spec's prepare on every frame, eagerly, the
+    overflow counters reduced by max on the device and read once."""
+    import numpy as np
+    import torch
+
+    from contrast_renderer_tpu_torch.ops import coverage
+
+    prepare = coverage.make_prepare(program._variant_spec(plan.commands))
+    device = program._renderer.device
+    worst = None
+    for t in stacks:
+        overflow = prepare(
+            *program._scene.arrays,
+            torch.as_tensor(np.ascontiguousarray(t[plan.gather]), device=device),
+            desc_static, paints,
+        ).overflow
+        worst = overflow if worst is None else torch.maximum(worst, overflow)
+    return worst.cpu().numpy()
+
+
+def eager_sequential(program, transforms, descriptors=None):
+    """The frame of ``program`` under ``transforms`` (the public layout)
+    and ``descriptors`` (``program._descriptors()`` by default) through
+    its sequential walk's own prepare and rasterize, outside every graph,
+    whatever variant the program would choose."""
+    import torch
+
+    seq, device = program._seq, program._renderer.device
+    if descriptors is None:
+        descriptors = program._descriptors()
+    d = {k: torch.as_tensor(a, device=device) for k, a in descriptors.items()}
+    prepared = seq.prepare(
+        *program._scene.arrays,
+        torch.as_tensor(program._opt_rows(transforms), device=device),
+        d["static"], seq.paints,
+    )
+    return seq.rasterize(prepared, seq.cmd_i, seq.cmd_f, d["f"], d["i"])
+
+
+def unplanned_orbit_run(Configuration, Renderer, card, width, height, commands,
+                        at):
+    """Phase 19, last: the orbit's frames through a new program with no
+    plan_for_motion, as an app that never planned would run them.  The
+    hysteresis builds the groupings met twice, and each variant warms up
+    on its first frame and captures its graph on its second.  Frames
+    chained through ``carry``, one fetch at the end: frames/s, frames
+    fused, groupings counted and built, the frames that captured a graph
+    with their host ms, each frame's host ms (the call, unsynchronised)
+    and the longest, the frames over 50 ms; every frame kept and, unless
+    its binning overflowed the capacities it ran at (the deferred
+    growth's under-populated frames, counted), held against the eager
+    sequential walk's to the bit."""
+    import torch
+
+    label = f"unplanned orbit {width}x{height}"
+    n = ORBIT_FRAMES
+    renderer = Renderer(Configuration(), width, height, strict_capacity=False,
+                        device="cuda")
+    program = renderer.compile_frame(commands, uint8_output=True)
+    torch.cuda.synchronize()
+    acc = torch.zeros((), device=renderer.device)
+    held, host_ms, fused, captured = [], [], 0, []
+    counters, slow = [], []
+    start = time.perf_counter()
+    for i in range(n):
+        t = at(i)
+        caps = [program._caps[name] for name in ("capacity", "global_capacity",
+                                                 "tile_global_capacity",
+                                                 "clip_pool")]
+        builds = program.builds
+        begin = time.perf_counter()
+        image, acc = program(t, carry=acc)
+        host_ms.append((time.perf_counter() - begin) * 1e3)
+        held.append(image)
+        # The frame's overflow counters (a pinned copy behind an event).
+        counters.append((program._pending[-1][:2], caps))
+        fused += program.stats["fused"]
+        if "capture_ms" in program.stats:
+            captured.append(f"{i}: {program.stats['capture_ms']:.1f}")
+        if host_ms[-1] > 50.0:
+            slow.append(f"{i}: {host_ms[-1]:.1f} ms (fused "
+                        f"{program.stats['fused']}, captured "
+                        f"{'capture_ms' in program.stats}, rebuilt "
+                        f"{program.builds > builds})")
+    float(acc)
+    wall = time.perf_counter() - start
+    differ, overflowed = [], []
+    for i in range(n):
+        (host, event), caps = counters[i]
+        event.synchronize()
+        if any(int(c) > cap for c, cap in zip(host.tolist(), caps)):
+            overflowed.append(i)
+        elif not torch.equal(held[i], eager_sequential(program, at(i))):
+            differ.append(i)
+    longest = max(range(n), key=host_ms.__getitem__)
+    print(f"{label} ({card}): {n} frames in {wall * 1e3:.1f} ms, "
+          f"{n / wall:.2f} frames/s; {fused} fused; groupings counted "
+          f"{len(program._sig_counts)}, built {len(program._fused_variants)}; "
+          f"{len(captured)} frames captured a graph (frame: host ms "
+          f"{', '.join(captured) or 'none'}); host ms a frame: median "
+          f"{statistics.median(host_ms):.2f}, longest {host_ms[longest]:.2f} "
+          f"(frame {longest}); frames over 50 ms: {'; '.join(slow) or 'none'}; "
+          f"{len(overflowed)} frames overflowed their capacities (deferred "
+          f"growth: {overflowed}), the other {n - len(overflowed)} equal to "
+          f"the eager sequential walk's {n - len(overflowed) - len(differ)}; "
+          f"builds {program.builds}", flush=True)
+    if differ:
+        fail(f"{label}: frames {differ[:8]} differ from the eager sequential walk")
 
 
 def camera_drift(i, width, height):
@@ -2050,8 +2196,11 @@ def frame_loop_phase(coverage, Renderer, card):
     FrameProgram called outside the loop under the same camera and dash
     phase (the first frame of a program built after the resize may be
     under-populated until its deferred overflow counters are read,
-    FrameProgram's contract); every PNG reads back as the frame
-    presented; no frame is blank."""
+    FrameProgram's contract); each of the drag's 10 frames whose binning
+    did not overflow equals the eager sequential walk under its camera
+    and descriptors, held after the loop so that the checks do not pace
+    the drag; every PNG reads back as the frame presented; no frame is
+    blank."""
     import tempfile
 
     import numpy as np
@@ -2079,7 +2228,7 @@ def frame_loop_phase(coverage, Renderer, card):
               f"{time.perf_counter() - start:.2f} s", flush=True)
         if loop.renderer.device.type != "cuda":
             fail(f"{label}: the loop's renderer is on {loop.renderer.device}")
-        seconds, captured = {}, {}
+        seconds, captured, dragged = {}, {}, []
         coverage.raster_launches = 0
         for index in range(LOOP_FRAMES):
             if index == 0:
@@ -2096,6 +2245,19 @@ def frame_loop_phase(coverage, Renderer, card):
             seconds.setdefault(size, []).append(loop.timer.last_s)
             captured.setdefault(size, []).append(
                 app._program.stats.get("capture_ms"))
+            if index < 10:
+                # The drag: what each frame needs to be held against the
+                # eager sequential walk after the loop (its camera, its
+                # descriptors with the dash phase, its overflow counters
+                # and the capacities it ran at).
+                program = app._program
+                dragged.append((
+                    image, program, app.transforms(loop.renderer),
+                    program._descriptors(), program._pending[-1][:2],
+                    [program._caps[k] for k in ("capacity", "global_capacity",
+                                                "tile_global_capacity",
+                                                "clip_pool")],
+                ))
             if index in (LOOP_RESIZE_AFTER, LOOP_FRAMES - 1):
                 # The app's program outside the loop, same camera and
                 # dash phase (set on the shape by the frame's render).
@@ -2122,6 +2284,29 @@ def frame_loop_phase(coverage, Renderer, card):
                   for (w, h), v in seconds.items())
               + f"; {launches} coverage_raster launches; builds of the "
               f"{WIDTH}x{HEIGHT} program {app._program.builds}", flush=True)
+        overflowed = []
+        for index, (image, program, t, desc, (host, event), caps) in enumerate(
+                dragged):
+            event.synchronize()
+            if any(int(c) > cap for c, cap in zip(host.tolist(), caps)):
+                overflowed.append(index)
+                continue
+            want = Renderer._quantize(
+                eager_sequential(program, t, desc)).cpu().numpy()
+            if not np.array_equal(image, want):
+                fail(f"{label}: drag frame {index} differs from the eager "
+                     f"sequential walk")
+        del dragged
+        drag = seconds[(SHOWCASE_W, SHOWCASE_H)][:10]
+        longest = max(range(10), key=drag.__getitem__)
+        print(f"{label} ({card}) {SHOWCASE_W}x{SHOWCASE_H}: the drag's 10 frames "
+              f"(host ms, render, quantize and fetch) "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in drag)}: {sum(drag) * 1e3:.1f} "
+              f"ms in all, the longest {drag[longest] * 1e3:.1f} ms (frame "
+              f"{longest}); {len(overflowed)} overflowed their capacities "
+              f"(deferred growth: {overflowed}), the other "
+              f"{10 - len(overflowed)} equal to the eager sequential walk",
+              flush=True)
         for (w, h), v in seconds.items():
             caps = captured[(w, h)]
             other = [t for t, c in zip(v, caps) if c is None]

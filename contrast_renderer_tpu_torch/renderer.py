@@ -2536,10 +2536,14 @@ class FrameProgram:
 
     Runs of single-instance (STENCIL, COLOR) pairs are found once, by
     structure (``_structural_runs``); each call groups them by cover
-    disjointness under its own transforms and dispatches that grouping's
-    fused variant, or the sequential walk where no grouping holds.
-    Either gives the same pixels.  ``plan_for_motion`` fixes one
-    grouping for a whole camera path.
+    disjointness under its own transforms and dispatches a cached
+    grouping's fused variant where one holds, or the sequential walk.
+    Either gives the same pixels.  A grouping derived from a frame is
+    built only once it has been derived twice among the last
+    ``SIG_WINDOW`` derivations (the reference's compile hysteresis:
+    continuous motion derives a new grouping nearly every frame), and
+    the frames until then walk in sequence.  ``plan_for_motion`` fixes
+    one grouping for a whole camera path.
 
     Dash phases animate through ``Shape.set_dynamic_stroke_options``
     (descriptors are packed every call) and the blend constant through
@@ -2558,6 +2562,9 @@ class FrameProgram:
     #: Frames an unread overflow counter may age before the host waits
     #: on it: the most under-populated frames a growing scene renders.
     OVERFLOW_MAX_LAG = 16
+
+    #: Derived grouping signatures whose counts the hysteresis keeps.
+    SIG_WINDOW = 64
 
     def __init__(self, renderer: Renderer, commands: Sequence[DrawCommand],
                  uint8_output: bool = False):
@@ -2630,6 +2637,9 @@ class FrameProgram:
         #: grouping signature -> (plan, variant), emptied so that new
         #: capacities apply to every fused variant.
         self._fused_variants = {}
+        #: How often each grouping not built was derived, oldest first,
+        #: at most SIG_WINDOW (the hysteresis of _try_fused).
+        self._sig_counts = {}
         self._drop_steps()
         self._plan = None
         self.builds += 1
@@ -2803,17 +2813,23 @@ class FrameProgram:
                         return None
         return np.ascontiguousarray(transforms[plan.gather])
 
-    def _try_fused(self, transforms):
+    def _try_fused(self, transforms, derive=True):
         """(variant, fused-layout transforms) for this frame, or None for
         the sequential walk.
 
         The active plan is re-validated first, then the other cached
-        groupings; if none holds, a grouping is derived from this frame
-        and its variant built at once, until MAX_FUSED_VARIANTS are
-        cached.  The reference builds on a background thread with a
-        hysteresis, since its build is a compile of seconds; here a
-        build makes a spec and two executors over kernel libraries the
-        program has loaded already (chip_smoke.py times it)."""
+        groupings (host work: boxes and separating axes).  If none holds,
+        a grouping is derived from the frame and counted; once it has
+        been derived twice among the last SIG_WINDOW derivations its
+        variant is built, room permitting (MAX_FUSED_VARIANTS).  The
+        frame itself walks in sequence either way, and the grouping
+        serves later frames from the cache.  The reference builds on a
+        background thread, since its build is a compile of seconds; here
+        a build makes a spec and two executors over kernel libraries the
+        program has loaded already (chip_smoke.py times it), and the
+        variant's graph is captured by its second frame.  ``derive=False``
+        (eager checks of a frame, ``_bin``) chooses as a frame would, but
+        derives and counts nothing."""
         if self._plan is not None:
             tf = self._plan_transforms_if_valid(self._plan, transforms)
             if tf is not None:
@@ -2826,23 +2842,28 @@ class FrameProgram:
                 self._plan = plan
                 return variant, tf
         self._plan = None
-        if len(self._fused_variants) >= self.MAX_FUSED_VARIANTS:
+        if (not derive
+                or len(self._fused_variants) >= self.MAX_FUSED_VARIANTS):
             return None
         plan = self._derive_plan(transforms)
         if plan is None:
             return None
-        # Derived from this frame, the plan holds on it.
-        self._plan = plan
-        return self._install(plan), np.ascontiguousarray(
-            transforms[plan.gather]
-        )
+        sig = plan.signature
+        count = self._sig_counts.get(sig, 0) + 1
+        self._sig_counts[sig] = count
+        if len(self._sig_counts) > self.SIG_WINDOW:
+            self._sig_counts.pop(next(iter(self._sig_counts)))
+        if count >= 2 and sig not in self._fused_variants:
+            self._install(plan)
+        return None
 
-    def plan_for_motion(self, transforms_seq) -> bool:
+    def plan_for_motion(self, transforms_seq, wait=True,
+                        timeout=600.0) -> bool:
         """Derive one fused grouping that stays exact across every
         transform stack of ``transforms_seq`` (the frames of a camera
         path, each in the public layout of ``__call__``), size the
         capacities for every one of those frames, build the grouping's
-        variant and make it the active plan.
+        variant, capture its graph and make it the active plan.
 
         Pairs fuse only where their covers are disjoint (or the overlap
         escape holds) in every frame, so one variant serves the whole
@@ -2850,7 +2871,10 @@ class FrameProgram:
         walks in sequence, never renders a wrong frame.  Returns True
         when the plan's variant is built and active; False when nothing
         fuses across the motion, or when MAX_FUSED_VARIANTS leaves no
-        room for its variant."""
+        room for its variant.  ``wait`` and ``timeout`` are the
+        reference's, whose compile runs on a background thread; here the
+        build and capture are done when the call returns, so neither
+        changes anything."""
         if not self._runs:
             return False
         stacks = [self._opt_rows(t) for t in transforms_seq]
@@ -2905,19 +2929,7 @@ class FrameProgram:
         )
         grew_any = False
         for _round in range(6):
-            prepare = coverage.make_prepare(self._variant_spec(plan.commands))
-            worst = None
-            for t in stacks:
-                overflow = prepare(
-                    *self._scene.arrays,
-                    torch.as_tensor(t[plan.gather], device=renderer.device),
-                    desc_static, paints,
-                ).overflow
-                worst = (
-                    overflow if worst is None
-                    else torch.maximum(worst, overflow)
-                )
-            worst = worst.cpu().numpy()
+            worst = self._scout(plan, stacks, desc_static, paints)
             grew = False
             for i, name in enumerate(_CAP_NAMES):
                 if int(worst[i]) > self._caps[name]:
@@ -2946,10 +2958,34 @@ class FrameProgram:
         self._frame_step(variant, first).capture()
         return True
 
+    def _scout(self, plan, stacks, desc_static, paints):
+        """One round of plan_for_motion's capacity scout: every frame of
+        ``stacks`` binned under ``plan`` at the program's capacities by a
+        binning-only step of that round's spec (on a CUDA device warmed
+        up by the first frame, captured by the second and replayed for
+        the rest, in a graph pool of its own), its overflow counters
+        reduced by max on the device and read once.  Returns them."""
+        spec = self._variant_spec(plan.commands)
+        step = _FrameStep(
+            f"the capacity scout of a {spec.width}x{spec.height} "
+            f"FrameProgram",
+            coverage.make_prepare(spec), self._scene.arrays,
+            np.ascontiguousarray(stacks[0][plan.gather]), desc_static,
+            paints, self._new_pool(), self._side,
+        )
+        worst = None
+        for t in stacks:
+            overflow = step(np.ascontiguousarray(t[plan.gather]))[0].overflow
+            worst = (
+                overflow.clone() if worst is None
+                else torch.maximum(worst, overflow)
+            )
+        return worst.cpu().numpy()
+
     def wait_fused_compiles(self, timeout=None) -> bool:
         """True: variants build and capture their graphs in the calling
         thread, so none is ever in flight (the reference's background
-        compiles are waited on here)."""
+        compiles are waited on here, up to ``timeout`` seconds)."""
         return True
 
     def _ceilings(self):
@@ -3041,7 +3077,11 @@ class FrameProgram:
         for v in self._variants():
             v.step = None
         self._desc = None
-        self._pool = (
+        self._pool = self._new_pool()
+
+    def _new_pool(self):
+        """A new graph memory pool on a CUDA device, else None."""
+        return (
             torch.cuda.graph_pool_handle()
             if self._renderer.device.type == "cuda" else None
         )
@@ -3080,22 +3120,24 @@ class FrameProgram:
             )
         return variant.step
 
-    def _choose(self, transforms):
+    def _choose(self, transforms, derive=True):
         """The frame's variant and its transforms in that variant's
-        layout: the fused grouping that holds, or the sequential walk."""
+        layout: the fused grouping that holds, or the sequential walk
+        (see _try_fused for ``derive``)."""
         if self._runs:
-            fused = self._try_fused(transforms)
+            fused = self._try_fused(transforms, derive)
             if fused is not None:
                 return fused
         return self._seq, transforms
 
     def _bin(self, transforms):
-        """Choose the frame's variant and bin the frame eagerly with the
+        """Choose the frame's variant as a frame would (deriving and
+        counting no grouping) and bin the frame eagerly with the
         variant's own ``prepare``, outside its graph, on inputs of its
         own: returns ``(variant, runtime)``, where
         ``variant.rasterize(*runtime)`` renders it.  For checks and
         measurement; frames replay the variant's step."""
-        variant, transforms = self._choose(transforms)
+        variant, transforms = self._choose(transforms, derive=False)
         dev = self._renderer.device
         d = {k: torch.as_tensor(a, device=dev)
              for k, a in self._descriptors().items()}

@@ -11,7 +11,9 @@ paint compiled into the kernel; the cap golden; the whole path on the
 card against the path on the CPU; ``render_sequence`` writing its
 frames in place; ``FrameProgram``'s captured frame step (its replays
 against the eager binning and raster, without a synchronise, across a
-capacity growth and with two alpha layers); ``Renderer.render``'s
+capacity growth and with two alpha layers), its compile hysteresis over
+an unplanned motion and its scout through a binning step;
+``Renderer.render``'s
 binning step under a moving camera (replayed misses against the eager
 binning and raster, float and packed, cached binnings and returned
 frames that alias none of its buffers, no synchronise without
@@ -934,7 +936,9 @@ def test_frame_graph_clip_alpha_two_layers_on_card(card):
     layers in shared memory, whose launch sets the kernel's dynamic
     shared-memory attribute inside the capture) at 256²: the variants of
     two stacks warmed up, then captured, then replayed, each frame equal
-    to the bit to the eager prepare + rasterize."""
+    to the bit to the eager prepare + rasterize.  A grouping the rotated
+    stack derives is built on its second frame (the hysteresis), so its
+    warm-up and capture come two rounds after the others'."""
     config = Configuration(alpha_layer_count=2, blending="front_to_back")
     commands = showcase.showcase_commands_clip_alpha(
         showcase.build_shape(with_text=False), SIZE, SIZE)
@@ -943,7 +947,7 @@ def test_frame_graph_clip_alpha_two_layers_on_card(card):
     natural = Renderer._pack_transforms(commands)
     rotated = Renderer._pack_transforms(port._rotated_probe_commands(commands))
     captured = []
-    for _ in range(3):  # warm-ups, captures, replays
+    for _ in range(5):  # counts and builds, warm-ups, captures, replays
         for transforms in (natural, rotated):
             image = program(transforms)
             captured.append("capture_ms" in program.stats)
@@ -954,7 +958,85 @@ def test_frame_graph_clip_alpha_two_layers_on_card(card):
     steps = [v.step for v in program._variants() if v.step is not None]
     assert steps and all(step.graph is not None for step in steps)
     assert captured.count(True) == len(steps)
-    assert not captured[0] and not any(captured[4:])
+    assert not captured[0] and not any(captured[8:])
+
+
+def test_hysteresis_motion_matches_sequential_walk_on_card(card):
+    """The 256² showcase orbit's 99 frames with no plan: the hysteresis
+    builds the groupings met twice, whose frames then warm up, capture
+    and replay; some frames are fused and no variant captures twice
+    between two builds of the program.  Every frame whose binning did not
+    overflow the capacities it ran at (the deferred growth's
+    under-populated frames, FrameProgram's contract) equals, to the bit,
+    the eager frame of the variant it ran and then the strict sequential
+    walk (``Renderer(auto_instance=False).render``)."""
+    shape = showcase.build_shape(with_text=True)
+    program = Renderer(Configuration(), SIZE, SIZE, strict_capacity=False,
+                       device=card).compile_frame(
+        showcase.showcase_commands(shape, SIZE, SIZE), uint8_output=True)
+    walk = Renderer(Configuration(), SIZE, SIZE, auto_instance=False,
+                    device=card)
+    fused, captured, overflowed, unlike_walk = 0, [], [], []
+    for i in range(99):
+        t = showcase.orbit_transforms(i, SIZE, SIZE)
+        caps = [program._caps[name] for name in port._CAP_NAMES]
+        plan = program._plan
+        image = program(t)
+        fused += program.stats["fused"]
+        if "capture_ms" in program.stats:
+            captured.append((program.builds,
+                             program._plan and program._plan.signature))
+        host, event = program._pending[-1][:2]
+        event.synchronize()
+        if any(int(c) > cap for c, cap in zip(host.tolist(), caps)):
+            overflowed.append(i)
+            continue
+        # The variant the frame ran: the active plan's, or the walk's.
+        variant = (program._fused_variants[program._plan.signature][1]
+                   if program.stats["fused"] else program._seq)
+        rows = program._opt_rows(t)
+        if variant is not program._seq:
+            rows = rows[program._plan.gather]
+        d = {k: torch.as_tensor(a, device=card)
+             for k, a in program._descriptors().items()}
+        prepared = variant.prepare(
+            *program._scene.arrays, torch.as_tensor(rows, device=card),
+            d["static"], variant.paints)
+        eager = variant.rasterize(prepared, variant.cmd_i, variant.cmd_f,
+                                  d["f"], d["i"])
+        assert torch.equal(image, eager), (i, plan)
+        want = walk.render(
+            showcase.showcase_commands(shape, SIZE, SIZE,
+                                       view_rotation=showcase.orbit_rotor(i)),
+            to_host=False, as_uint8=True)
+        if not torch.equal(image, want):
+            unlike_walk.append((i, int((image != want).any(-1).sum())))
+    assert fused > 0 and program._sig_counts
+    assert len(overflowed) <= 2 * port.FrameProgram.OVERFLOW_MAX_LAG
+    assert len(captured) == len(set(captured)), captured
+    assert not unlike_walk, f"(frame, pixels) unlike the walk: {unlike_walk}"
+
+
+def test_step_scout_matches_eager_scout_on_card(card):
+    """plan_for_motion's scout round through its binning step (warm-up,
+    capture, replays) over the 256² orbit's GRAPH_FRAMES gives the
+    overflow counters of the eager prepare over each frame."""
+    _, program, stacks = orbit_program(card)
+    plan = program._plan
+    rows = [program._opt_rows(t) for t in stacks]
+    desc_static = torch.as_tensor(program._descriptors()["static"],
+                                  device=card)
+    paints = program._device_paints(plan.commands)
+    got = program._scout(plan, rows, desc_static, paints)
+    prepare = coverage.make_prepare(program._variant_spec(plan.commands))
+    want = np.max([
+        prepare(*program._scene.arrays,
+                torch.as_tensor(np.ascontiguousarray(t[plan.gather]),
+                                device=card),
+                desc_static, paints).overflow.cpu().numpy()
+        for t in rows
+    ], axis=0)
+    assert np.array_equal(got, want) and want[3] > 0, (got, want)
 
 
 def test_fill_rasterizer_on_card_matches_cpu(card):

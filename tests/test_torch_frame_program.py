@@ -84,8 +84,11 @@ def test_fused_dispatch_matches_sequential_walk():
 def test_regroups_when_covers_touch_and_back():
     """Covers slid onto each other: the plan stops holding, nothing fuses
     and the sequential walk renders; apart again, the cached grouping
-    serves.  A partial overlap splits the run into (0,) + (1, 2), built
-    and dispatched on the same frame."""
+    serves.  A partial overlap splits the run into (0,) + (1, 2), as the
+    reference's test_partial_overlap_regroups_into_disjoint_groups has
+    it: the first frame under it only counts the grouping, the second
+    builds it, both walk in sequence, and from the third the same
+    transforms dispatch fused."""
     shape = circle(7.0)
     commands = pairs(shape, [(0, 0), (40, 0)])
     program = renderer().compile_frame(commands)
@@ -102,10 +105,16 @@ def test_regroups_when_covers_touch_and_back():
     commands = pairs(shape, [(0, 0), (40, 0), (20, 20)])
     program = renderer().compile_frame(commands)
     moved = pairs(shape, [(0, 0), (6, 4), (40, 0)])
-    assert np.array_equal(program(stack(moved)).numpy(), sequential(moved))
-    assert program._plan.signature == ((False, (0,), (1, 2)),)
-    assert program.stats["fused"] and program.wait_fused_compiles()
+    sig = ((False, (0,), (1, 2)),)
+    for count in (1, 2):
+        assert np.array_equal(program(stack(moved)).numpy(),
+                              sequential(moved))
+        assert program._plan is None and not program.stats["fused"]
+        assert program._sig_counts[sig] == count
+    assert program.wait_fused_compiles(timeout=300.0)
     assert len(program._fused_variants) == 2
+    assert np.array_equal(program(stack(moved)).numpy(), sequential(moved))
+    assert program._plan.signature == sig and program.stats["fused"]
 
 
 def test_mismatched_rows_and_translucent_overlap_never_fuse():
