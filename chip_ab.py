@@ -53,7 +53,9 @@ chip_smoke.py phase 20's drag and wheel (the median of the last 20, of
 all, the drag's 10 frames in all and each, its longest, the frames that
 captured a graph).  The last lines are one row per size and one
 JSON object.  Exits non-zero if a process fails or the roots' orbit
-frames differ.
+frames differ, but for frames that cross the near plane (their
+crossings counted by the sequential walk's binning): those may differ,
+and the pixels that do are counted and printed.
 
     python3 chip_ab.py --moved ROOT_A ROOT_B [ROOT_C ...]
 
@@ -69,7 +71,11 @@ records it), frames 0, 30 and 98 of the last window hashed; then
 over 2x2 at 3840x2160 on chip_smoke.py phase 22's 8 orbit frames (a
 first pass, then the median of 16 frames synchronised each; frame 0
 hashed).  The last lines are one row per frame and one JSON object.
-Exits non-zero if a process fails or the roots' frames differ.
+Exits non-zero if a process fails or the roots' frames differ, but for
+frames that cross the near plane (counted as in --orbit).
+
+In both modes a hashed frame that crosses the near plane is also kept
+as a .npy file under .checkouts/ab_frames/ (gitignored) for the count.
 """
 
 import hashlib
@@ -104,6 +110,88 @@ def chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+#: Where the workers keep their hashed frames that cross the near plane,
+#: one folder per root, for the summary's count of the pixels that differ.
+FRAMES_DIR = os.path.join(HERE, ".checkouts", "ab_frames")
+
+
+def frame_path(root, label, index):
+    folder = os.path.join(FRAMES_DIR,
+                          hashlib.sha256(root.encode()).hexdigest()[:12])
+    os.makedirs(folder, exist_ok=True)
+    name = "".join(c if c.isalnum() else "_" for c in label)
+    return os.path.join(folder, f"{name}_{index}.npy")
+
+
+def keep_frames(root, label, result):
+    """Save the result's crossing frames (``result.pop("images")``) for
+    the summary; what stays in ``result`` is JSON."""
+    import numpy as np
+
+    images = result.pop("images")
+    for index, crossings, image in zip(result["indices"], result["crossings"],
+                                       images):
+        if crossings:
+            np.save(frame_path(root, label, index), image.cpu().numpy())
+
+
+def sequential_crossings(program, transforms):
+    """Near-plane crossings that a FrameProgram's sequential walk bins for
+    ``transforms`` (its own prepare, outside every graph)."""
+    import torch
+
+    seq, device = program._seq, program._renderer.device
+    d = program._descriptors()
+    prepared = seq.prepare(
+        *program._scene.arrays,
+        torch.as_tensor(program._opt_rows(transforms), device=device),
+        torch.as_tensor(d["static"], device=device), seq.paints,
+    )
+    return int(prepared.overflow[3])
+
+
+def compare_frames(roots, runs, label):
+    """Whether the roots' hashed frames of ``label`` agree as they must:
+    each root's processes alike, and across roots every frame that
+    crosses no near plane equal to the bit.  Returns (agree, text), the
+    text naming each frame's crossings and, where a crossing frame
+    differs from root A's, the pixels that differ."""
+    import numpy as np
+
+    first = {}
+    for letter in roots:
+        hashes = {tuple(r[label]["rgba8"]) for r in runs[letter]}
+        if len(hashes) != 1:
+            return False, f"{letter}'s processes differ"
+        first[letter] = runs[letter][0][label]
+    a = first["A"]
+    agree, notes = True, []
+    indices = a.get("indices", list(range(len(a["rgba8"]))))
+    for k, index in enumerate(indices):
+        crossings = [first[letter].get("crossings", [0] * len(indices))[k]
+                     for letter in roots]
+        differ = []
+        for letter in list(roots)[1:]:
+            if first[letter]["rgba8"][k] == a["rgba8"][k]:
+                continue
+            if not all(crossings):
+                agree = False
+                differ.append(f"{letter} differs")
+                continue
+            want = np.load(frame_path(os.path.abspath(roots["A"]), label,
+                                      index))
+            got = np.load(frame_path(os.path.abspath(roots[letter]), label,
+                                     index))
+            unlike = got != want
+            if unlike.ndim == 3:
+                unlike = unlike.any(-1)
+            differ.append(f"{letter} {int(unlike.sum())} of {unlike.size} "
+                          f"pixels unlike A")
+        notes.append(f"frame {index} ({'/'.join(map(str, crossings))} "
+                     f"crossings): {', '.join(differ) or 'equal'}")
+    return agree, "; ".join(notes)
 
 
 def frames(api, scenes, showcase, smoke):
@@ -295,10 +383,12 @@ def orbit_size(api, showcase, smoke, width, height):
         float(acc)
         profiled = time.perf_counter() - start
     busy = smoke.device_busy(prof)
-    hashes = []
+    hashes, images = [], []
     for i in ORBIT_HASHED:
         image = program(at(i))
+        images.append(image)
         hashes.append(hashlib.sha256(image.cpu().numpy().tobytes()).hexdigest()[:16])
+    crossings = [sequential_crossings(program, stacks[i]) for i in ORBIT_HASHED]
     out = {
         "fused": fused, "plan_for_motion_s": plan_s, "frames_per_s": fps,
         "median_frames_per_s": statistics.median(fps),
@@ -306,6 +396,8 @@ def orbit_size(api, showcase, smoke, width, height):
         "capture_ms": captures, "peak_mib": peak / 2**20,
         "reserved_mib": torch.cuda.memory_reserved() / 2**20,
         "builds": program.builds, "rgba8": hashes,
+        "indices": list(ORBIT_HASHED), "crossings": crossings,
+        "images": images,
     }
     if busy is not None:
         b_us, r_us, o_us, count = busy
@@ -339,7 +431,7 @@ def unplanned_orbit(api, showcase, width, height):
         showcase.showcase_commands(shape, width, height), uint8_output=True)
     torch.cuda.synchronize()
     acc = torch.zeros((), device="cuda")
-    host_ms, fused, captured, hashes = [], 0, 0, []
+    host_ms, fused, captured, kept = [], 0, 0, []
     start = time.perf_counter()
     for i in range(ORBIT_FRAMES):
         shape.set_dynamic_stroke_options(
@@ -350,7 +442,7 @@ def unplanned_orbit(api, showcase, width, height):
         fused += program.stats["fused"]
         captured += "capture_ms" in program.stats
         if i in ORBIT_HASHED:
-            hashes.append(image)
+            kept.append(image)
     float(acc)
     wall = time.perf_counter() - start
     return {
@@ -358,7 +450,11 @@ def unplanned_orbit(api, showcase, width, height):
         "captured": captured,
         "median_ms": statistics.median(host_ms), "longest_ms": max(host_ms),
         "rgba8": [hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()[:16]
-                  for h in hashes],
+                  for h in kept],
+        "indices": list(ORBIT_HASHED),
+        "crossings": [sequential_crossings(program, stacks[i])
+                      for i in ORBIT_HASHED],
+        "images": kept,
     }
 
 
@@ -383,6 +479,7 @@ def orbit_worker(root):
     for w, h in ((smoke.SHOWCASE_W, smoke.SHOWCASE_H), (smoke.WIDTH, smoke.HEIGHT)):
         label = f"orbit {w}x{h}"
         results[label] = r = orbit_size(api, showcase, smoke, w, h)
+        keep_frames(root, label, r)
         print(f"  {label}: {r['median_frames_per_s']:.2f} frames/s "
               f"({', '.join(f'{v:.2f}' for v in r['frames_per_s'])}); host a "
               f"frame: plan {r['plan_ms']:.3f} ms, bin {r['bin_ms']:.3f} ms, "
@@ -397,6 +494,7 @@ def orbit_worker(root):
     label = f"unplanned orbit {smoke.SHOWCASE_W}x{smoke.SHOWCASE_H}"
     results[label] = r = unplanned_orbit(api, showcase, smoke.SHOWCASE_W,
                                          smoke.SHOWCASE_H)
+    keep_frames(root, label, r)
     print(f"  {label}: {r['frames_per_s']:.2f} frames/s, {r['fused']} fused, "
           f"{r['captured']} frames captured a graph; host ms a frame median "
           f"{r['median_ms']:.2f}, "
@@ -485,12 +583,20 @@ def moved_worker(root):
                 fps.append(n / (time.perf_counter() - start))
             k = n * smoke.MOVED_WINDOWS
             key = f"{label}, strict_capacity={strict}"
+            crossings = []
+            for i in smoke.MOVED_CHECKED:
+                at(i)
+                _, _, runtime = r._prepare(frames[i], graph=False)
+                crossings.append(int(runtime[0].overflow[3]))
             results[key] = {
                 "frames_per_s": fps, "median_frames_per_s": statistics.median(fps),
                 "call_ms": call * 1e3 / k, "prepare_ms": prepare / k,
                 "rgba8": [hashlib.sha256(held[i].cpu().numpy().tobytes())
                           .hexdigest()[:16] for i in smoke.MOVED_CHECKED],
+                "indices": list(smoke.MOVED_CHECKED), "crossings": crossings,
+                "images": [held[i] for i in smoke.MOVED_CHECKED],
             }
+            keep_frames(root, key, results[key])
             print(f"  moved {key}: {results[key]['median_frames_per_s']:.2f} "
                   f"frames/s ({', '.join(f'{f:.2f}' for f in fps)}); host a "
                   f"frame: render call {results[key]['call_ms']:.3f} ms, "
@@ -535,29 +641,29 @@ def moved_worker(root):
 
 
 def moved_summary(roots, runs):
-    """Rows of the --moved mode; returns whether the roots' frames are
-    equal."""
+    """Rows of the --moved mode; returns whether the roots' frames agree
+    (compare_frames)."""
     equal = True
     labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))
     for label in labels:
-        hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
-        equal &= len(hashes) == 1
+        agree, text = compare_frames(roots, runs, label)
+        equal &= agree
         key = "frame_ms" if label.startswith("sharded") else "median_frames_per_s"
         unit = "ms a frame" if key == "frame_ms" else "frames/s"
         print(f"{label}: " + "; ".join(
             f"{letter} {', '.join(f'{r[label][key]:.2f}' for r in runs[letter])} "
             f"{unit}" for letter in roots)
-            + f"; frames equal {len(hashes) == 1}", flush=True)
+            + f"; frames as they must be {agree}: {text}", flush=True)
     return equal
 
 
 def orbit_summary(roots, runs):
-    """Rows of the --orbit mode; returns whether the roots' frames are
-    equal."""
+    """Rows of the --orbit mode; returns whether the roots' frames agree
+    (compare_frames)."""
     equal = True
     for label in (f"orbit {w}x{h}" for w, h in ((3840, 2160), (1920, 1080))):
-        hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
-        equal &= len(hashes) == 1
+        agree, text = compare_frames(roots, runs, label)
+        equal &= agree
         cells = []
         for letter in roots:
             done = [r[label] for r in runs[letter]]
@@ -566,8 +672,8 @@ def orbit_summary(roots, runs):
                 f"frames/s, bin {', '.join(f'{d['bin_ms']:.2f}' for d in done)} ms, "
                 f"busy {', '.join(f'{d.get('busy_share', float('nan')):.3f}' for d in done)}"
             )
-        print(f"{label}: {'; '.join(cells)}; frames equal {len(hashes) == 1}",
-              flush=True)
+        print(f"{label}: {'; '.join(cells)}; frames as they must be {agree}: "
+              f"{text}", flush=True)
     print("plan_for_motion, 99 frames: " + "; ".join(
         f"{letter} " + " / ".join(
             ", ".join(f"{r[f'orbit {w}x{h}']['plan_for_motion_s']:.3f}"
@@ -575,14 +681,15 @@ def orbit_summary(roots, runs):
             for w, h in ((3840, 2160), (1920, 1080)))
         + " s (4K / 1080p)" for letter in roots), flush=True)
     label = "unplanned orbit 3840x2160"
-    hashes = {tuple(r[label]["rgba8"]) for rs in runs.values() for r in rs}
-    equal &= len(hashes) == 1
+    agree, text = compare_frames(roots, runs, label)
+    equal &= agree
     print(f"{label}: " + "; ".join(
         f"{letter} {', '.join(f'{r[label]['frames_per_s']:.2f}' for r in runs[letter])} "
         f"frames/s, fused {', '.join(str(r[label]['fused']) for r in runs[letter])}, "
         f"captured {', '.join(str(r[label]['captured']) for r in runs[letter])}, "
         f"longest {', '.join(f'{r[label]['longest_ms']:.1f}' for r in runs[letter])} ms"
-        for letter in roots) + f"; frames equal {len(hashes) == 1}", flush=True)
+        for letter in roots) + f"; frames as they must be {agree}: {text}",
+        flush=True)
     print("frame loop: " + "; ".join(
         f"{letter} {', '.join(f'{r['frame loop']['median_ms']:.2f}' for r in runs[letter])} ms "
         f"(drag {', '.join(f'{r['frame loop']['drag_ms']:.0f}' for r in runs[letter])} ms, "
@@ -641,7 +748,8 @@ def main():
         print(json.dumps({mode: runs, "roots": roots, "order": sequence}),
               flush=True)
         if not equal:
-            fail(f"the roots' {mode} frames differ")
+            fail(f"the roots' {mode} frames differ where no near plane is "
+                 f"crossed")
         return
     summary = {}
     labels = list(dict.fromkeys(k for rs in runs.values() for r in rs for k in r))

@@ -136,6 +136,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    busy share, frames 0, 30 and 98 against the same renderer with its
    steps cleared, and at 4K the copy that keeps a cached binning out of
    the graph's buffers against a frame's copy;
+19c. triangles clipped at the near plane (``near_plane_phase``): the
+   repro of tests/test_torch_near_plane.py (the showcase with text at
+   64² under orbit frame 31: pair 18's stencil, then pair 15's stencil
+   and cover, ``auto_instance=False``): the crossings binned, the kernel
+   against plain, and the frame against pair 15 alone and against the
+   frame binned in float64 (``coverage.prepare_in_float64``), packed
+   RGBA8, each to the bit, the differing pixels counted; then the 99
+   orbit frames at 256² through a program that never planned
+   (``unplanned_orbit_run``), whose fused groupings reorder stencils and
+   covers: every frame against the eager sequential walk, to the bit;
+   and orbit frames 30 and 98 at 3840×2160 through ``Renderer.render``
+   against their float64 binning: the pixels that differ counted, at
+   most 0.1% of them;
 20. the orbit example's app (``examples.orbit_camera``) through
    ``FrameLoop`` at 3840×2160 for 24 frames: a scripted drag and a wheel
    event, 1920×1080 asked for after frame 12, a ``PngSink`` every 8
@@ -231,6 +244,16 @@ LOOP_FRAMES, LOOP_RESIZE_AFTER, LOOP_PNG_EVERY = 24, 12, 8
 #: against the same renderer with its binning steps cleared.
 MOVED_FRAMES, MOVED_WINDOWS, MOVED_PROFILED = 99, 3, 33
 MOVED_CHECKED = (0, 30, 98)
+#: The near-plane repro of phase 19c: its size and orbit frame, the
+#: showcase commands drawn (pair 18's stencil, then pair 15's stencil and
+#: cover) and pair 15 alone; the size of its unplanned orbit.
+NEAR_SIZE, NEAR_FRAME = 64, 31
+NEAR_REPRO, NEAR_ALONE = (36, 30, 31), (30, 31)
+NEAR_ORBIT_SIZE = 256
+#: Orbit frames of phase 19c held at 3840x2160 against their float64
+#: binning (181 and 7 near-plane crossings), and the share of pixels they
+#: may differ in (float32 rounding at samples on an edge).
+NEAR_4K_FRAMES, NEAR_4K_LIMIT = (30, 98), 1e-3
 #: Row bands of the sharded phase, and ShardedFrameProgram's orbit frames.
 SHARD_BANDS, SHARD_FRAMES = 4, 8
 #: Sharded against single-device frames: mean |Δ| over the float image
@@ -975,6 +998,7 @@ def main():
     orbit = orbit_phase(coverage, showcase, Configuration, Renderer, card,
                         SHOWCASE_W, SHOWCASE_H)
     orbit_phase(coverage, showcase, Configuration, Renderer, card, WIDTH, HEIGHT)
+    near_plane_phase(coverage, showcase, Configuration, Renderer, card)
     moved_render_phase(coverage, renderer_module, scenes, showcase, card)
 
     # ---- 20. the orbit example through FrameLoop ---------------------------------
@@ -1509,15 +1533,17 @@ def device_busy(prof, raster_name="coverage_raster"):
 
 def graph_pool_mib(pool):
     """The device memory that the segments of the CUDA graph memory pool
-    ``pool`` hold, as text ("not measured" where the allocator's snapshot
-    does not name the pools of its segments)."""
+    ``pool`` (a ``renderer._GraphPool``, its current pool, or a handle)
+    hold, as text ("not measured" where the allocator's snapshot does
+    not name the pools of its segments)."""
     import torch
 
+    handle = tuple(getattr(pool, "handle", pool))
     segments = torch.cuda.memory_snapshot()
     if not segments or "segment_pool_id" not in segments[0]:
         return "not measured"
     held = sum(seg["total_size"] for seg in segments
-               if tuple(seg["segment_pool_id"]) == tuple(pool))
+               if tuple(seg["segment_pool_id"]) == handle)
     return f"{held / 2**20:.1f} MiB"
 
 
@@ -1830,6 +1856,95 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     return variant.spec, runtime, launches, err, k_ms, p_ms, bound
 
 
+def in_float64(coverage, fn):
+    """``fn()`` while ``coverage.make_prepare`` bins in float64
+    (``coverage.prepare_in_float64``): phase 19c's oracle."""
+    make_prepare = coverage.make_prepare
+    coverage.make_prepare = lambda s: coverage.prepare_in_float64(
+        make_prepare(s))
+    try:
+        return fn()
+    finally:
+        coverage.make_prepare = make_prepare
+
+
+def near_plane_phase(coverage, showcase, Configuration, Renderer, card):
+    """Phase 19c: the near-plane repro, kernel against plain and its
+    frame against pair 15 alone and the float64-binned frame; the 256²
+    orbit through a program that never planned; two 4K orbit frames
+    against their float64 binning."""
+    size = NEAR_SIZE
+    shape = showcase.build_shape(with_text=True)
+    every = showcase.showcase_commands(
+        shape, size, size, view_rotation=showcase.orbit_rotor(NEAR_FRAME))
+
+    def render(indices):
+        r = Renderer(Configuration(), size, size, auto_instance=False,
+                     device="cuda")
+        return r.render([every[i] for i in indices], to_host=False,
+                        as_uint8=True)
+
+    label = f"near plane {size}x{size}"
+    r = Renderer(Configuration(), size, size, auto_instance=False,
+                 device="cuda")
+    spec, _, runtime = r._prepare([every[i] for i in NEAR_REPRO])
+    crossings = int(runtime[0].overflow[3])
+    kernel_vs_plain(coverage, spec, runtime, label)
+    got, alone = render(NEAR_REPRO), render(NEAR_ALONE)
+    oracle = in_float64(coverage, lambda: render(NEAR_REPRO))
+    unlike_alone = int((got != alone).any(-1).sum())
+    unlike_oracle = int((got != oracle).any(-1).sum())
+    print(f"{label} ({card}): orbit frame {NEAR_FRAME}, commands "
+          f"{list(NEAR_REPRO)}: {crossings} near-plane crossings binned; "
+          f"{int((got[..., 3] > 0).sum())} covered pixels; pixels unlike "
+          f"pair 15 alone {unlike_alone}, unlike the float64-binned frame "
+          f"{unlike_oracle}", flush=True)
+    if crossings == 0:
+        fail(f"{label}: no near-plane crossing binned")
+    if unlike_alone or unlike_oracle:
+        fail(f"{label}: winding leaks from the clipped stencil")
+
+    size = NEAR_ORBIT_SIZE
+    shape = showcase.build_shape(with_text=True)
+    commands = showcase.showcase_commands(shape, size, size)
+    stacks = [showcase.orbit_transforms(i, size, size)
+              for i in range(ORBIT_FRAMES)]
+
+    def at(i):
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP))
+        return stacks[i]
+
+    unplanned_orbit_run(Configuration, Renderer, card, size, size, commands,
+                        at)
+
+    width, height = SHOWCASE_W, SHOWCASE_H
+    shape = showcase.build_shape(with_text=True)
+    for i in NEAR_4K_FRAMES:
+        shape.set_dynamic_stroke_options(
+            0, showcase.dashed_options(i * showcase.ORBIT_DASH_STEP))
+        frame = showcase.showcase_commands(
+            shape, width, height, view_rotation=showcase.orbit_rotor(i))
+
+        def render_4k():
+            r = Renderer(Configuration(), width, height, auto_instance=False,
+                         device="cuda")
+            return r, r.render(frame, to_host=False, as_uint8=True)
+
+        r, got = render_4k()
+        _, want = in_float64(coverage, render_4k)
+        unlike = (got != want).any(-1)
+        share = float(unlike.float().mean())
+        worst = int((got.int() - want.int()).abs().max())
+        print(f"near plane {width}x{height} ({card}): orbit frame {i}, "
+              f"{r.stats['near_plane_crossings']} crossings: {int(unlike.sum())} "
+              f"of {unlike.numel()} pixels ({share:.2e}) unlike the "
+              f"float64-binned frame, max {worst} LSB", flush=True)
+        if share > NEAR_4K_LIMIT:
+            fail(f"near plane {width}x{height}: frame {i} off its float64 "
+                 f"binning in {share:.2e} of the pixels")
+
+
 def eager_scout(program, plan, stacks, desc_static, paints):
     """One round of plan_for_motion's capacity scout as it ran before the
     binning graph: the round spec's prepare on every frame, eagerly, the
@@ -1924,8 +2039,10 @@ def unplanned_orbit_run(Configuration, Renderer, card, width, height, commands,
         event.synchronize()
         if any(int(c) > cap for c, cap in zip(host.tolist(), caps)):
             overflowed.append(i)
-        elif not torch.equal(held[i], eager_sequential(program, at(i))):
-            differ.append(i)
+        else:
+            want = eager_sequential(program, at(i))
+            if not torch.equal(held[i], want):
+                differ.append((i, int((held[i] != want).any(-1).sum())))
     longest = max(range(n), key=host_ms.__getitem__)
     print(f"{label} ({card}): {n} frames in {wall * 1e3:.1f} ms, "
           f"{n / wall:.2f} frames/s; {fused} fused; groupings counted "
@@ -1939,7 +2056,8 @@ def unplanned_orbit_run(Configuration, Renderer, card, width, height, commands,
           f"the eager sequential walk's {n - len(overflowed) - len(differ)}; "
           f"builds {program.builds}", flush=True)
     if differ:
-        fail(f"{label}: frames {differ[:8]} differ from the eager sequential walk")
+        fail(f"{label}: (frame, pixels) {differ[:8]} differ from the eager "
+             f"sequential walk")
 
 
 def camera_drift(i, width, height):

@@ -493,9 +493,49 @@ def _corner_min_max(a, b, c, x0, y0, tw, th):
     """Min/max of the linear function a·x+b·y+c over the tile rectangle
     [x0, x0+tw] × [y0, y0+th] (all broadcastable)."""
     base = a * x0 + b * y0 + c
-    lo = base + torch.clamp(a * tw, max=0.0) + torch.clamp(b * th, max=0.0)
-    hi = base + torch.clamp(a * tw, min=0.0) + torch.clamp(b * th, min=0.0)
+    # The products once each: every operation is a node of the binning's
+    # CUDA graph, and this runs for each edge slot and hull line a frame.
+    dx = a * tw
+    dy = b * th
+    lo = base + torch.clamp(dx, max=0.0) + torch.clamp(dy, max=0.0)
+    hi = base + torch.clamp(dx, min=0.0) + torch.clamp(dy, min=0.0)
     return lo, hi
+
+
+def _nearer_endpoint(p, q, mp, mq):
+    """Of each edge p → q (points (..., 2), magnitudes mp and mq, max
+    |coordinate|), the endpoint of smaller magnitude, ties to the smaller
+    x, then the smaller y: the same point whichever way the edge runs.
+    An edge's constant c = -(a·x + b·y) taken there makes two triangles
+    that share the edge get exactly negated (a, b, c), so that the
+    top-left rule keeps it watertight.
+
+    The reference takes c at the edge's first vertex.  A vertex clipped
+    at the near plane (w = 1e-6) projects to about 1e8 px, where a float
+    is 8 px apart; c taken there misses the line's position by pixels,
+    and two triangles that evaluate the shared edge from opposite ends
+    disagree.  make_prepare takes this rule for the clip pool's rows and
+    a clipped hull's lines only: every row of unclipped geometry keeps
+    the reference's rounding."""
+    use_q = (mq < mp) | (
+        (mq == mp) & ((q[..., 0] < p[..., 0])
+                      | ((q[..., 0] == p[..., 0]) & (q[..., 1] < p[..., 1])))
+    )
+    return torch.where(use_q[..., None], q, p)
+
+
+def _from_nearest_vertex(pix, mag, cycles):
+    """Triangles (N, 3, 2) with their vertices in the same cyclic order
+    but starting from the one of smallest magnitude ``mag`` (N, 3);
+    ``cycles`` is the (3, 3) table of the three rotations of (0, 1, 2).
+
+    The area (v1 - v0) × (v2 - v0), as the reference takes it, is then
+    taken at that vertex.  At a vertex clipped at the near plane (about
+    1e8 px) both differences round alike, and a thin triangle's area
+    cancels to 0, which drops the triangle: make_prepare takes the
+    areas of the clip pool's rows so."""
+    order = cycles[torch.argmin(mag, -1)]
+    return torch.gather(pix, 1, order[..., None].expand(-1, -1, 2))
 
 
 def _transform_points(x, y, m):
@@ -688,6 +728,7 @@ def make_prepare(spec: FrameSpec):
                 sshape=idx(s_shape_np),
                 s_row=idx(draws.s_row),
                 rot=idx([1, 2, 0]),
+                cycles=idx([[0, 1, 2], [1, 2, 0], [2, 0, 1]]),
                 fan0=idx([0, 1, 2]),
                 fan1=idx([0, 2, 3]),
                 perm=idx([2, 0, 1]),
@@ -821,10 +862,19 @@ def make_prepare(spec: FrameSpec):
         py = (1.0 - ndc[..., 1]) * (0.5 * H)
         pix = torch.stack([px, py], -1)                  # (N, 3, 2)
 
-        v0, v1, v2 = pix[..., 0, :], pix[..., 1, :], pix[..., 2, :]
+        # The clip pool's rows hold the near-plane vertices: their areas
+        # are taken at their nearest vertex (_from_nearest_vertex), their
+        # edges' constants at the nearer endpoint (_nearer_endpoint).
+        pool_pix = pix[N0:]
+        pool_mag = torch.abs(pool_pix).amax(-1)
+        v0, v1, v2 = torch.cat([
+            pix[:N0], _from_nearest_vertex(pool_pix, pool_mag, k["cycles"])
+        ]).unbind(1)
         area = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - (
             v1[..., 1] - v0[..., 1]
         ) * (v2[..., 0] - v0[..., 0])
+        anchor = torch.cat([pix[:N0], _nearer_endpoint(
+            pool_pix, pool_pix[:, rot], pool_mag, pool_mag[:, rot])])
         orient = torch.sign(area)
         finite = torch.isfinite(pix).all(-1).all(-1) & torch.isfinite(area)
         visible = finite & (area != 0.0) & near_ok
@@ -836,7 +886,7 @@ def make_prepare(spec: FrameSpec):
             b_v = pix[..., bi, :]
             ea = -(b_v[..., 1] - a_v[..., 1]) * orient
             eb = (b_v[..., 0] - a_v[..., 0]) * orient
-            ec = -(ea * a_v[..., 0] + eb * a_v[..., 1])
+            ec = -(ea * anchor[:, ai, 0] + eb * anchor[:, ai, 1])
             aa = torch.where(orient[..., None] > 0, a_v, b_v)
             bb = torch.where(orient[..., None] > 0, b_v, a_v)
             top_left = (
@@ -1132,7 +1182,18 @@ def make_prepare(spec: FrameSpec):
         hsign = torch.where(h_area >= 0, 1.0, -1.0)[:, None]
         ha = -(hyn - hy) * hsign
         hb = (hxn - hx) * hsign
-        hc = -(ha * hx + hb * hy)
+        # A hull clipped at the near plane takes each line's constant at
+        # its nearer endpoint (_nearer_endpoint); the others as the
+        # reference does.
+        h_pt = torch.stack([hx, hy], -1)
+        h_next = torch.stack([hxn, hyn], -1)
+        h_mag = torch.abs(h_pt).amax(-1)
+        h_at = torch.where(
+            in_a.all(-1)[:, None, None],
+            h_pt,
+            _nearer_endpoint(h_pt, h_next, h_mag, torch.roll(h_mag, -1, -1)),
+        )
+        hc = -(ha * h_at[..., 0] + hb * h_at[..., 1])
         degenerate = (ha == 0.0) & (hb == 0.0)
         ha = torch.where(degenerate, 0.0, ha)
         hb = torch.where(degenerate, 0.0, hb)
@@ -1229,6 +1290,25 @@ def make_prepare(spec: FrameSpec):
         return PreparedFrame(**{k: v.contiguous() for k, v in fields.items()})
 
     return prepare
+
+
+def prepare_in_float64(prepare):
+    """``prepare`` (a ``make_prepare`` closure) run in float64: every
+    floating input cast to double, every output rounded back to its own
+    dtype (float32 rows, int32 tables).  The oracle that the near-plane
+    rules (_nearer_endpoint, _from_nearest_vertex) are held to, in the
+    tests and in chip_smoke.py; no path of the renderer calls it."""
+
+    def run(*args):
+        out = prepare(*(
+            a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args
+        ))
+        return PreparedFrame(*(
+            o.float() if o.is_floating_point() else o.int() for o in out
+        ))
+
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from ..renderer import (
     FIT_FLOORS,
     Renderer,
     _FrameStep,
+    _GraphPool,
     _copy_to_host_async,
     _fit_capacity,
     _optimize_commands,
@@ -466,7 +467,7 @@ class _ShardedProgramBase:
         #: cell -> its step, and one graph memory pool per CUDA device.
         self._steps = {}
         self._pools = {
-            d: torch.cuda.graph_pool_handle() for d in self._sides
+            d: _GraphPool(d) for d in self._sides
         }
 
     def _rect_step(self, cell, device, transforms) -> _FrameStep:

@@ -1448,7 +1448,8 @@ class Renderer:
     flags or the paint points change.  On a CUDA device a re-binning
     replays a CUDA graph: one per spec and scene (``_prepare``), the
     first miss of each its warm-up, the second its capture, at most
-    MAX_BIN_STEPS kept, all in one graph memory pool per renderer.  The
+    MAX_BIN_STEPS kept, in one graph memory pool per renderer (a new
+    one after an eviction that frees a graph, ``_GraphPool``).  The
     raster kernel runs as one launch on every frame, hit or miss.  What
     ``render`` returns, and what the cache keeps, are tensors of their
     own: a caller may keep any frame."""
@@ -1767,10 +1768,7 @@ class Renderer:
         #: (spec, scene key, input shapes) -> _FrameStep, least recently
         #: used first.
         self._bin_steps = {}
-        self._pool = (
-            torch.cuda.graph_pool_handle()
-            if self.device.type == "cuda" else None
-        )
+        self._pool = _GraphPool(self.device)
 
     def _bin_step(self, spec, prepare, scene_key, scene, transforms,
                   desc_static, paint_model) -> "_FrameStep":
@@ -1783,10 +1781,12 @@ class Renderer:
         step = self._bin_steps.pop(key, None)
         if step is not None and step.scene_arrays[0] is not scene.xy:
             # The scene was evicted and built anew: other arrays.
+            self._pool.dropped(step)
             step = None
         if step is None:
             if len(self._bin_steps) >= self.MAX_BIN_STEPS:
-                del self._bin_steps[next(iter(self._bin_steps))]
+                self._pool.dropped(
+                    self._bin_steps.pop(next(iter(self._bin_steps))))
             step = _FrameStep(
                 f"the binning of a {spec.width}x{spec.height} frame of "
                 f"{spec.n_commands} commands",
@@ -2370,6 +2370,37 @@ def _held(x):
     return x.tensor if isinstance(x, _Staged) else x
 
 
+def _new_graph_pool(device):
+    """A new CUDA graph memory pool handle on a CUDA device, else None."""
+    return (
+        torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    )
+
+
+class _GraphPool:
+    """The graph memory pool that an owner's frame steps capture into.
+
+    A step reads ``handle`` when it captures, not when it is made.
+    PyTorch's allocator gives a pool up once every graph captured into it
+    is freed, and then refuses a capture into it (``use_count > 0``).  So
+    an owner that drops a step and keeps others calls ``dropped``: when
+    that frees a captured graph, the pool is renewed, and every step that
+    captures after it, made before or after, captures into the new one.
+    Graphs captured already keep the old pool alive.  On the CPU the
+    handle is None."""
+
+    __slots__ = ("device", "handle")
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.handle = _new_graph_pool(self.device)
+
+    def dropped(self, step):
+        """Note that the owner drops ``step`` (a ``_FrameStep`` or None)."""
+        if step is not None and step.graph is not None:
+            self.handle = _new_graph_pool(self.device)
+
+
 class _FrameStep:
     """A frame's binning, and with ``raster`` its raster too, as one CUDA
     graph: the port's counterpart of the reference's ``jax.jit`` of its
@@ -2394,7 +2425,8 @@ class _FrameStep:
     stream (the warm-up that capture needs: it loads the kernel library
     and makes ``make_prepare``'s device constants) and returns that
     run's own ``prepared``.  The second call captures the step into a
-    graph in the owner's memory pool, and it and every later call replay
+    graph in the memory pool that the owner holds then (``pool``, a
+    ``_GraphPool``), and it and every later call replay
     the graph, adding its captured kernel launches to
     ``coverage.raster_launches``; so a step met once never pays a
     capture.  A failed capture or replay raises, naming the step.  On
@@ -2465,7 +2497,7 @@ class _FrameStep:
         gc.disable()
         try:
             with torch.cuda.stream(self._side):
-                graph.capture_begin(pool=self._pool)
+                graph.capture_begin(pool=self._pool.handle)
                 try:
                     self.prepared = self._step()
                 finally:
@@ -2529,7 +2561,8 @@ class FrameProgram:
     (``_FrameStep``): the variant's first frame is the warm-up, its
     second captures the graph (``plan_for_motion`` captures its plan's
     ahead), and every frame from then on replays it; the variants
-    of a program share one graph memory pool and replay one after
+    of a program share one graph memory pool (a new one after
+    ``plan_for_motion`` evicts a captured grouping) and replay one after
     another on the caller's stream.  On the CPU the same step runs
     eagerly.  A rebuild (capacity growth, a geometry edit, a new scene
     size) drops the graphs, and the next frames capture again.
@@ -2948,7 +2981,9 @@ class FrameProgram:
             # A motion plan outranks groupings cached on the way: evict
             # the oldest (the active plan is replaced just below).
             while len(self._fused_variants) >= self.MAX_FUSED_VARIANTS:
-                del self._fused_variants[next(iter(self._fused_variants))]
+                _, evicted = self._fused_variants.pop(
+                    next(iter(self._fused_variants)))
+                self._pool.dropped(evicted.step)
             self._install(plan)
         self._plan, variant = self._fused_variants[plan.signature]
         # Capture the plan's graph now, so that the motion's frames
@@ -2971,7 +3006,7 @@ class FrameProgram:
             f"FrameProgram",
             coverage.make_prepare(spec), self._scene.arrays,
             np.ascontiguousarray(stacks[0][plan.gather]), desc_static,
-            paints, self._new_pool(), self._side,
+            paints, _GraphPool(self._renderer.device), self._side,
         )
         worst = None
         for t in stacks:
@@ -3077,14 +3112,7 @@ class FrameProgram:
         for v in self._variants():
             v.step = None
         self._desc = None
-        self._pool = self._new_pool()
-
-    def _new_pool(self):
-        """A new graph memory pool on a CUDA device, else None."""
-        return (
-            torch.cuda.graph_pool_handle()
-            if self._renderer.device.type == "cuda" else None
-        )
+        self._pool = _GraphPool(self._renderer.device)
 
     def _stage_descriptors(self):
         """Write this call's descriptors into the staged buffers that

@@ -12,7 +12,10 @@ card against the path on the CPU; ``render_sequence`` writing its
 frames in place; ``FrameProgram``'s captured frame step (its replays
 against the eager binning and raster, without a synchronise, across a
 capacity growth and with two alpha layers), its compile hysteresis over
-an unplanned motion and its scout through a binning step;
+an unplanned motion and its scout through a binning step; the
+near-plane repro (kernel against plain, against pair 15 alone and the
+float64-binned frame); captures after evictions that renew a graph pool
+(``Renderer``'s binning steps, ``plan_for_motion``);
 ``Renderer.render``'s
 binning step under a moving camera (replayed misses against the eager
 binning and raster, float and packed, cached binnings and returned
@@ -1015,6 +1018,124 @@ def test_hysteresis_motion_matches_sequential_walk_on_card(card):
     assert len(overflowed) <= 2 * port.FrameProgram.OVERFLOW_MAX_LAG
     assert len(captured) == len(set(captured)), captured
     assert not unlike_walk, f"(frame, pixels) unlike the walk: {unlike_walk}"
+
+
+#: The near-plane repro of tests/test_torch_near_plane.py: the showcase
+#: with text at 64², orbit frame 31; pair 18's stencil, then pair 15's
+#: stencil and cover, and pair 15 alone.
+NEAR_SIZE, NEAR_FRAME = 64, 31
+NEAR_REPRO, NEAR_ALONE = (36, 30, 31), (30, 31)
+
+
+def near_plane_commands(indices):
+    every = showcase.showcase_commands(
+        showcase.build_shape(with_text=True), NEAR_SIZE, NEAR_SIZE,
+        view_rotation=showcase.orbit_rotor(NEAR_FRAME))
+    return [every[i] for i in indices]
+
+
+def test_near_plane_repro_on_card(card, monkeypatch):
+    """The repro on the card: the kernel equal to its plain version on
+    the repro's binning, a near-plane crossing binned; the frame through
+    Renderer.render equal to the bit to pair 15 rendered alone (no
+    winding leaks from pair 18's clipped stencil) and to the frame
+    binned in float64 (coverage.prepare_in_float64)."""
+    def render(indices):
+        r = Renderer(Configuration(), NEAR_SIZE, NEAR_SIZE,
+                     auto_instance=False, device=card)
+        return r.render(near_plane_commands(indices), to_host=False,
+                        as_uint8=True)
+
+    r = Renderer(Configuration(), NEAR_SIZE, NEAR_SIZE, auto_instance=False,
+                 device=card)
+    spec, _, runtime = r._prepare(near_plane_commands(NEAR_REPRO))
+    assert int(runtime[0].overflow[3]) > 0
+    assert_kernel_matches_plain(spec, *runtime)
+    got = render(NEAR_REPRO)
+    assert torch.equal(got, render(NEAR_ALONE))
+    make_prepare = coverage.make_prepare
+    monkeypatch.setattr(coverage, "make_prepare", lambda spec: (
+        coverage.prepare_in_float64(make_prepare(spec))))
+    assert torch.equal(got, render(NEAR_REPRO))
+
+
+def circle_pairs(shape, offsets, size=64):
+    """A stencil and colour pair of ``shape`` at each pixel offset."""
+    out = []
+    for i, (dx, dy) in enumerate(offsets):
+        t = scenes.ortho(size, size)
+        t[0, 3] += 2.0 * dx / size
+        t[1, 3] += 2.0 * dy / size
+        out += [
+            DrawCommand(RenderOperation.STENCIL, shape, t),
+            DrawCommand(RenderOperation.COLOR, shape, t,
+                        color=(1.0, 0.15 * (i % 6), 0.3, 0.8)),
+        ]
+    return out
+
+
+def test_bin_step_eviction_keeps_captures_on_card(card):
+    """Renderer.render over MAX_BIN_STEPS + 1 binning keys (n circles
+    for n = 1 ... MAX_BIN_STEPS + 1): key 1 captures on its second miss,
+    the one graph of the renderer's pool; key 2 warms up; the last key
+    evicts key 1 and frees its graph, which renews the pool; then key
+    2, made before the eviction, captures on its second miss (into the
+    new pool: the old one, with no graph left, refuses a capture) and
+    replays.  Every frame equal to the bit to the eager frame."""
+    shape = Shape([Path.from_circle((4.0, 4.0), 3.0)])
+    r = Renderer(Configuration(), 64, 64, auto_instance=False, device=card)
+    eager = Renderer(Configuration(), 64, 64, auto_instance=False,
+                     device=card)
+
+    def frame(n, shift=0.0):
+        commands = circle_pairs(shape, [(5 * i + shift, 3 * i)
+                                        for i in range(n)])
+        got = r.render(commands, to_host=False, uint8_kernel=True)
+        assert torch.equal(got, eager_render(eager, commands,
+                                             uint8_kernel=True)), n
+
+    frame(1)
+    frame(1, 1.0)
+    (first,) = r._bin_steps.values()
+    assert first.graph is not None
+    frame(2)
+    second = list(r._bin_steps.values())[-1]
+    assert second.graph is None
+    handle = r._pool.handle
+    for n in range(3, r.MAX_BIN_STEPS + 2):
+        frame(n)
+    assert all(s is not first for s in r._bin_steps.values())
+    assert r._pool.handle != handle
+    frame(2, 1.0)
+    assert second.graph is not None and second._pool is r._pool
+    frame(2, 2.0)
+
+
+def test_plan_eviction_keeps_captures_on_card(card):
+    """plan_for_motion over MAX_FUSED_VARIANTS + 1 plans, with room for
+    one grouping: the first plan captures its grouping ahead; the second
+    evicts it, freeing its graph, which renews the program's pool, and
+    captures its own; the motion's frames replay it, each equal to the
+    bit to the eager frame."""
+    shape = Shape([Path.from_circle((8.0, 8.0), 7.0)])
+    apart = circle_pairs(shape, [(0, 0), (40, 0), (20, 20)])
+    moved_pairs = circle_pairs(shape, [(0, 0), (6, 4), (40, 0)])
+    program = Renderer(Configuration(), 64, 64, device=card).compile_frame(
+        apart)
+    program.MAX_FUSED_VARIANTS = 1
+    stacks = [Renderer._pack_transforms(c) for c in (apart, moved_pairs)]
+    assert program.plan_for_motion(stacks[:1])
+    (_, first), = program._fused_variants.values()
+    assert first.step.graph is not None
+    handle = program._pool.handle
+    assert program.plan_for_motion(stacks[1:])
+    (_, second), = program._fused_variants.values()
+    assert second is not first and second.step.graph is not None
+    assert program._pool.handle != handle
+    for _ in range(2):
+        image = program(stacks[1])
+        assert program.stats["fused"]
+        assert torch.equal(image, eager_frame(program, stacks[1]))
 
 
 def test_step_scout_matches_eager_scout_on_card(card):

@@ -39,7 +39,8 @@ COMMANDS = 8
 #: (XLA on the CPU contracts multiply-adds into fused ones) differs from
 #: its own raster run op by op, in 12 and 41 of the 4,096 pixels
 #: (measured); tests/test_torch_render_graph_ref.py holds the port's
-#: frames to the op-by-op run, to the bit.
+#: frames to the frames it bins in float64, to the bit, and to the
+#: op-by-op run.
 REFERENCE_FMA_FRAMES = (24, 30)
 PACKAGES = {"reference": (ref, ref_showcase), "port": (port, showcase)}
 
