@@ -8,11 +8,15 @@ Fresh processes, each root three times in the order A, B, B, A, A, B
 (with more roots, the roots in order, reversed, then in order again),
 each import ``contrast_renderer_tpu_torch`` from their root (its kernels
 built from that root's sources into its own ``build/``), bin
-chip_smoke.py's eight 4× MSAA frames on the card, and time each: the
+chip_smoke.py's eight 4× MSAA frames on the card, config 3 at 8× MSAA,
+config 2 under LessEqual with depth write (the depth build without
+strokes) and orbit frame 30 at 3840x2160 as a planned program bins it
+(``chip_smoke.orbit_frame``), and time each: the
 kernel (``coverage_raster``, median of 5 batches of 10 launches, with
 the batches' least and greatest; CUDA events, chip_smoke.py's
 ``cuda_ms``) and the frame with cached binning (``Renderer.render``,
-median of 10 frames), and, for the 4K showcase, the device operations of
+median of 10 frames; none for the orbit frame), and, for the 4K
+showcase, the device operations of
 one cached frame under torch.profiler (whether a de-tiling copy follows
 the kernel). Each process also hashes each frame's packed RGBA8 kernel
 output as an (H, W) frame (a root whose kernel writes tiles has them
@@ -227,6 +231,16 @@ def frames(api, scenes, showcase, smoke):
         "showcase + depth": (depth, sw, sh, show),
         "gradient card": (cfg(), sw, sh, scenes.gradient_card(sw, sh)[0]),
         "mixed paints": (depth, w, h, scenes.mixed_paints(w, h)),
+        # The builds whose register counts move the most: strokes at 8x
+        # MSAA, and depth without strokes.
+        "config 3 S=8": (cfg(msaa_sample_count=8), w, h, [
+            api.DrawCommand(op.STENCIL, dashed, t),
+            api.DrawCommand(op.COLOR, dashed, t, color=(1, 1, 1, 1)),
+        ]),
+        "config 2 + depth": (depth, w, h, [
+            api.DrawCommand(op.STENCIL, fills, t),
+            api.DrawCommand(op.COLOR, fills, t, color=(0.9, 0.4, 0.1, 1.0)),
+        ]),
     }
     if hasattr(scenes, "config4_text"):
         out["config 4 fused"] = (cfg(), w, h, scenes.config4_text("fused"))
@@ -286,7 +300,7 @@ def worker(root):
     KF = coverage.KernelFeatures
     coverage.build_kernels([
         KF(4), KF(4, depth=True), KF(4, paint_mode=1),
-        KF(4, True, 2, (scenes.CHECKER_CUDA,)),
+        KF(4, True, 2, (scenes.CHECKER_CUDA,)), KF(8),
     ])
     for name, (seconds, log) in cuda_build.build_logs.items():
         print(f"  {name}: built in {seconds:.1f} s", flush=True)
@@ -294,12 +308,24 @@ def worker(root):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     results = {}
-    for label, (config, w, h, commands) in frames(api, scenes, showcase, smoke).items():
-        renderer = api.Renderer(config, w, h, device="cuda")
-        spec, _, runtime = renderer._prepare(commands)
+    todo = dict(frames(api, scenes, showcase, smoke))
+    # Orbit frame 30 at 3840x2160 as a planned FrameProgram bins it (no
+    # frame time: it is not a Renderer.render frame).
+    todo[f"orbit 4K frame {smoke.ORBIT_BREAKDOWN_FRAME}"] = None
+    for label, frame in todo.items():
+        if frame is None:
+            renderer = commands = None
+            spec, runtime = smoke.orbit_frame(
+                coverage, showcase, api.Configuration, api.Renderer,
+                smoke.ORBIT_BREAKDOWN_FRAME)
+        else:
+            config, w, h, commands = frame
+            renderer = api.Renderer(config, w, h, device="cuda")
+            spec, _, runtime = renderer._prepare(commands)
         args = smoke.raster_args(coverage, spec, runtime)
         k_ms, k_lo, k_hi = smoke.cuda_ms(lambda: coverage.coverage_raster(*args), 5, 10, 3)
-        f_ms = smoke.cuda_ms(lambda: renderer.render(commands, to_host=False), 10, 1, 3)[0]
+        f_ms = (float("nan") if renderer is None else smoke.cuda_ms(
+            lambda: renderer.render(commands, to_host=False), 10, 1, 3)[0])
         packed_spec = replace(spec, out_uint8=True)
         packed = packed_frame(
             packed_spec, coverage.coverage_raster(packed_spec, *args[1:])

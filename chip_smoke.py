@@ -4,7 +4,7 @@
 Usage, from the repository root on a machine with a CUDA device and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--ptxas-report]
+    python3 chip_smoke.py [--ptxas-report] [--breakdown]
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -15,7 +15,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    build, depth, gradients, gradients and the checker user paint; 16×
    MSAA: the base build; phase 25's profiling builds of the four 4×
    MSAA feature sets and its subtractive build), all at once; with
-   ``--ptxas-report`` also the depth and gradient builds
+   ``--ptxas-report`` also the base, depth and gradient builds
    at 1, 2, 8 and 16 samples, which no frame uses; print each library's
    build seconds and ptxas' registers and spills per instantiation;
 3. on the BASELINE config-2 frame (1,000 integral quadratic and cubic
@@ -182,17 +182,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 24. the examples ``render_showcase`` (4 frames at 1920×1080) and
    ``gradients`` (3840×2160), their PNGs read back; the gradient card's
    PNG against phase 12's image over white;
-25. the kernel body by body on config 2, the showcase, the showcase +
-   depth, the gradient card and the mixed-paints frame: the profiling
+25. the kernel body by body on config 2, config 3, the showcase, the
+   showcase + depth, the gradient card, the mixed-paints frame and orbit
+   frame 30 at 3840x2160 as the planned program bins it: the profiling
    build's warp-cycles per body (``coverage.PROFILE_BODIES``) and each
    body's share, the kernel's time in the build that renders and in the
-   profiling build, and the subtractive build of ``BREAKDOWN_OMIT``.
+   profiling build, the subtractive builds of ``BREAKDOWN_OMIT``, and
+   the stencil walk's counts (``walk_counts``).
+
+Phase 25 bins its frames itself (``breakdown_frames``) and holds each
+against its plain version before it times it.  With ``--breakdown`` the
+run stops after phase 2 (without the 16× MSAA build), runs phase 25
+alone, and ends with ``{"breakdown_only": true, "device": ...}`` in
+place of the full run's last line.
 
 Kernel times are the median of 5 batches of launches, printed with the
 batches' least and greatest.  Beside each frame's bound it prints what
 the kernel's stencil walk skipped on that frame (``rasterize_plain``'s
-``work``): the (warp, entry) pairs that the box test culled, and the
-stroke sample evaluations that the warp vote skipped.
+``work``): the (block, entry) rows staged, the (warp, entry) pairs
+walked, culled by the box test and dropped by the edge reject, the
+stroke pairs with an inside sample, the predicate lanes used, the
+curve pairs with no sample inside, and the stroke sample evaluations
+that the warp vote skipped.
 
 Kernel against plain is equality to the bit, float and packed RGBA8,
 frame against de-tiled tiles.  The line before the two JSON lines gives
@@ -265,7 +276,10 @@ VIEWER_FRAMES = 3
 #: The subtractive build of the breakdown phase: {frame: bodies} of
 #: coverage.PROFILE_BODIES skipped, timing only; frames of the base
 #: build (KernelFeatures(4)).
-BREAKDOWN_OMIT = {"showcase": ("fill",)}
+BREAKDOWN_OMIT = {"showcase": ("fill",), "config 3": ("stroke",)}
+#: The orbit frame of the breakdown phase (181 near-plane crossings at
+#: 3840x2160, as the planned program bins it).
+ORBIT_BREAKDOWN_FRAME = 30
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -436,7 +450,8 @@ def kernel_vs_plain(coverage, spec, runtime, label):
 
 def breakdown_phase(coverage, frames, card, omit):
     """The kernel body by body on each frame of ``frames`` ({label:
-    (spec, runtime)}): the profiling build's warp-cycles per body
+    (spec, runtime)}), each first held against its plain version
+    (kernel_vs_plain): the profiling build's warp-cycles per body
     (``coverage.PROFILE_BODIES``) of one launch and each body's share of
     their sum; the kernel's time in the build that renders and in the
     profiling build; and, for each body of ``omit``, the time of the
@@ -447,6 +462,8 @@ def breakdown_phase(coverage, frames, card, omit):
 
     bodies = coverage.PROFILE_BODIES
     out = {}
+    for label, (spec, runtime) in frames.items():
+        kernel_vs_plain(coverage, spec, runtime, f"breakdown {label}")
     for label, (spec, runtime) in frames.items():
         args = raster_args(coverage, spec, runtime)
         prof = torch.zeros(len(bodies), dtype=torch.int64, device="cuda")
@@ -464,8 +481,10 @@ def breakdown_phase(coverage, frames, card, omit):
             body: cuda_ms(lambda: coverage.coverage_raster(*args, omit=body), 5, 10, 3)
             for body in omit.get(label, ())
         }
+        work = {}
+        coverage.rasterize_plain(*args, work=work)
         out[label] = {"shares": shares, "cycles": cycles, "ms": ms,
-                      "profile_ms": profile_ms, "omit_ms": omit_ms}
+                      "profile_ms": profile_ms, "omit_ms": omit_ms, "work": work}
         split = ", ".join(f"{b} {shares[b]:.3f}" for b in bodies)
         omitted = "; ".join(
             f"without {b} {v[0]:.3f} ms [{v[1]:.3f}, {v[2]:.3f}]"
@@ -475,7 +494,64 @@ def breakdown_phase(coverage, frames, card, omit):
               f"({total:.4g} warp-cycles); kernel {ms[0]:.3f} ms "
               f"[{ms[1]:.3f}, {ms[2]:.3f}], profiling build {profile_ms[0]:.3f} ms"
               f"{'; ' + omitted if omitted else ''}", flush=True)
+        print(f"breakdown {label}: {walk_counts(work)}", flush=True)
     return out
+
+
+def orbit_frame(coverage, showcase, Configuration, Renderer, index,
+                width=SHOWCASE_W, height=SHOWCASE_H):
+    """Orbit frame ``index`` (the showcase with text, its dash phase) as
+    a program planned over the orbit's frames bins it: (spec, runtime)
+    of the variant that frame takes."""
+    shape = showcase.build_shape(with_text=True)
+    stacks = [showcase.orbit_transforms(i, width, height)
+              for i in range(ORBIT_FRAMES)]
+    renderer = Renderer(Configuration(), width, height, strict_capacity=False,
+                        device="cuda")
+    program = renderer.compile_frame(
+        showcase.showcase_commands(shape, width, height), uint8_output=True)
+    program.plan_for_motion(stacks)
+    shape.set_dynamic_stroke_options(
+        0, showcase.dashed_options(index * showcase.ORBIT_DASH_STEP))
+    variant, runtime = program._bin(program._opt_rows(stacks[index]))
+    return variant.spec, runtime
+
+
+def breakdown_frames(coverage, scenes, showcase, api):
+    """Phase 25's frames, binned on the card: {label: (spec, runtime)}."""
+    import torch
+
+    cfg, op, Shape = api.Configuration, api.RenderOperation, api.Shape
+    depth = cfg(depth_compare="less_equal", depth_write_enabled=True)
+    t = scenes.ortho(WIDTH, HEIGHT)
+
+    def pair(shape, color):
+        return [api.DrawCommand(op.STENCIL, shape, t),
+                api.DrawCommand(op.COLOR, shape, t, color=color)]
+
+    show = showcase.showcase_commands(
+        showcase.build_shape(with_text=True), SHOWCASE_W, SHOWCASE_H)
+    frames = {
+        "config 2": (cfg(), WIDTH, HEIGHT, pair(
+            Shape(scenes.bezier_fill_paths(1000, WIDTH, HEIGHT, seed=0)),
+            (0.9, 0.4, 0.1, 1.0))),
+        "config 3": (cfg(), WIDTH, HEIGHT, pair(
+            Shape(*scenes.dashed_strokes(WIDTH, HEIGHT, seed=1)), (1, 1, 1, 1))),
+        "showcase": (cfg(), SHOWCASE_W, SHOWCASE_H, show),
+        "showcase + depth": (depth, SHOWCASE_W, SHOWCASE_H, show),
+        "gradient card": (cfg(), SHOWCASE_W, SHOWCASE_H,
+                          scenes.gradient_card(SHOWCASE_W, SHOWCASE_H)[0]),
+        "mixed paints": (depth, WIDTH, HEIGHT, scenes.mixed_paints(WIDTH, HEIGHT)),
+    }
+    yardsticks = {}
+    for label, (config, width, height, commands) in frames.items():
+        spec, _, runtime = api.Renderer(config, width, height,
+                                        device="cuda")._prepare(commands)
+        yardsticks[label] = (spec, runtime)
+    yardsticks[f"orbit 4K frame {ORBIT_BREAKDOWN_FRAME}"] = orbit_frame(
+        coverage, showcase, api.Configuration, api.Renderer, ORBIT_BREAKDOWN_FRAME)
+    torch.cuda.synchronize()
+    return yardsticks
 
 
 def blend_ops(coverage, blending):
@@ -634,6 +710,25 @@ def bound_from_work(coverage, spec, runtime, work):
     return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s else "operations"), nbytes, ops
 
 
+def walk_counts(work):
+    """The stencil walk's counts of a plain run (rasterize_plain's
+    ``work``), as printed beside each frame: what a block stages, what
+    its warps walk, and how full the stroke predicates' lanes are."""
+    def share(key, of):
+        n, d = work.get(key, 0), work.get(of, 0)
+        return f"{n} of {d}" + (f" ({n / d:.3f})" if d else "")
+
+    return (
+        f"staged {share('staged_rows', 'entry_blocks')} (block, entry) rows; "
+        f"walked {share('walked', 'entry_warps')} (warp, entry) pairs, box "
+        f"test culled {work.get('culled', 0)}, edge reject dropped "
+        f"{work.get('edge_rejected', 0)}; stroke pairs with an inside sample "
+        f"{share('inside_pairs', 'stroke_pairs')}; predicate lanes used "
+        f"{share('keep_lanes', 'keep_slots_sample')}; curve pairs with no sample "
+        f"inside {share('fill_pairs_outside', 'fill_pairs')}"
+    )
+
+
 def check_frame(image, height, width, label):
     """Shape, device, finite values, alpha in [0, 1]; returns the covered
     share of pixels, which must be positive."""
@@ -720,13 +815,15 @@ def main():
 
     # ---- 2. build -------------------------------------------------------
     KF = coverage.KernelFeatures
+    only_breakdown = "--breakdown" in sys.argv[1:]
     features = [
         KF(4),                                   # phases 3-10
         KF(4, depth=True),                       # showcase + depth
         KF(4, paint_mode=1),                     # gradient card
         KF(4, True, 2, (scenes.CHECKER_CUDA,)),  # mixed paints
-        KF(16),                                  # 16 alpha layers, 16x MSAA
     ]
+    if not only_breakdown:
+        features.append(KF(16))                  # 16 alpha layers, 16x MSAA
     # Phase 25's profiling builds, and its subtractive build.
     features += [f._replace(variant="profile") for f in features[:4]]
     features += [KF(4, variant=f"omit_{body}")
@@ -734,6 +831,7 @@ def main():
     if "--ptxas-report" in sys.argv[1:]:
         # For ptxas' report only: the depth and gradient builds at the
         # other sample counts, where their registers and spills differ.
+        features += [KF(s) for s in (1, 2, 8, 16) if KF(s) not in features]
         features += [KF(s, depth=True) for s in (1, 2, 8, 16)]
         features += [KF(s, paint_mode=1) for s in (1, 2, 8, 16)]
     start = time.perf_counter()
@@ -746,6 +844,17 @@ def main():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    if only_breakdown:
+        breakdown_phase(coverage,
+                        breakdown_frames(coverage, scenes, showcase, renderer_module),
+                        card, BREAKDOWN_OMIT)
+        # Not the full run's last line: only phases 1, 2 and 25 ran.
+        print(json.dumps({"breakdown_only": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
 
     # ---- 3. kernel vs plain on the config-2 frame -------------------------
     start = time.perf_counter()
@@ -1017,10 +1126,9 @@ def main():
     examples_phase(Renderer, card_image)
 
     # ---- 25. the kernel body by body ----------------------------------------------
-    yardsticks = {"config 2": (spec, runtime)}
-    yardsticks.update({k: shown[k][2:4] for k in ("showcase",)})
-    yardsticks.update({k: v[2:4] for k, v in paint_frames.items()})
-    breakdown_phase(coverage, yardsticks, card, BREAKDOWN_OMIT)
+    breakdown_phase(coverage,
+                    breakdown_frames(coverage, scenes, showcase, renderer_module),
+                    card, BREAKDOWN_OMIT)
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -1040,8 +1148,7 @@ def main():
         print(f"bound {label}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP "
               f"-> {b_ms:.4f} ms ({b_by}); kernel {times[label][0]:.3f} ms; "
               f"clip vote skipped {work.get('clip_skipped', 0)} (warp, unit) "
-              f"pairs; box test culled {work.get('culled', 0)} of "
-              f"{work.get('entry_warps', 0)} (warp, entry) pairs; warp vote "
+              f"pairs; {walk_counts(work)}; warp vote "
               f"skipped {work.get('vote_skipped', 0)} of "
               f"{work.get('stroke_samples', 0)} stroke sample evaluations; cover "
               f"vote skipped {work.get('cover_skipped', 0)} of "
@@ -1822,9 +1929,8 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     print(f"timing {label} frame {crossing} ({card}): coverage_raster "
           f"{k_ms:.3f} ms [{k_lo:.3f}, {k_hi:.3f}], rasterize_plain "
           f"{p_ms:.3f} ms; kernel_bound {bound[0]:.4f} ms ({bound[1]}: "
-          f"{bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); box test "
-          f"culled {work.get('culled', 0)} of {work.get('entry_warps', 0)} "
-          f"(warp, entry) pairs", flush=True)
+          f"{bound[2] / 1e6:.1f} MB, {bound[3] / 1e9:.2f} GFLOP); "
+          f"{walk_counts(work)}", flush=True)
 
     # render_sequence over a segment at one dash phase, against __call__.
     segment = np.stack(stacks[:ORBIT_SEQUENCE])

@@ -43,10 +43,15 @@
 // costs far more: per sample a divide, two or three texcoords and the
 // cap, join and dash predicates (~60-250 operations, fmodf and the atan2
 // polynomial included).  An entry covers few of its tile's 4,096 pixels
-// (a stroke triangle is thin), so most of that work used to end in a
-// false edge test.  Entry rows and descriptors are read once per block and
-// shared by its 256 threads; their bandwidth is orders of magnitude below
-// the ALU time.  Registers bound occupancy: per pixel the kernel holds S
+// (a stroke triangle is thin), so most of that work would end in a false
+// edge test; staging and stepping over the entries that cannot cover a
+// warp's pixels, one shared load and one vote at a time, took most of the
+// rest (rasterize_plain's counts on config 2, config 3 and the 4K
+// showcase, PERF.md: a block staged every row of its tile, 1.2-3.9 times
+// the rows whose box meets it, and each warp stepped over every staged
+// row, 1.3-9.4 times the pairs its box keeps).  Entry rows are read once
+// per walking warp; their bandwidth is orders of magnitude below the ALU
+// time.  Registers bound occupancy: per pixel the kernel holds S
 // windings, 4*S colours, S clip counters and, with one alpha layer, S
 // layer slots.
 //
@@ -56,72 +61,34 @@
 //     more than a block's shared memory, but the state never crosses
 //     pixels, so no block needs it all: a block is a 256-pixel slab of a
 //     tile (4 rows x 64 lanes), on a grid of (tiles, slabs).
-//   - The block stages the entry rows it is about to walk into shared
-//     memory in chunks, once for all its threads; a stroke row is staged
-//     with its group's descriptor, so the per-entry cap and join codes are
-//     uniform over the block and the cap `switch` never diverges.
-//   - Edge functions, curve weights, texcoord numerators and 1/w are
-//     evaluated once at the pixel centre and reached at each sample by a
-//     uniform shift, as the reference does.
-//   - The six stroke classes are six template instantiations, each
-//     branch-free in its class.  A stroke entry's sample loop is not
-//     unrolled: it yields a bit per sample, which an unrolled loop ORs into
-//     the register windings.  The code of the heavy predicates thus stays
-//     independent of S.
-//   - Alpha layers: one layer is held in registers (S floats per pixel, 4
-//     for the showcase at S=4).  With more, each pixel's L*S slots live in
-//     the block's dynamic shared memory at [j][s][thread], the reference's
-//     per-grid-step (L, S, th, tw) layers: no bank conflicts, and a thread
-//     touches only its own pixel's slots, so no barrier guards them.  The
-//     kernel zeroes them per tile.  They fit beside the static staging
-//     (~14 KiB) in the 227 KiB a block may opt into up to L*S = 213 (every
-//     L up to 26 at S <= 8, L <= 13 at S = 16).  Past that (256 slots at
-//     S=16, L=16) they go to a global scratch that the wrapper allocates,
-//     one slice per block that can be resident at once on the card, and
-//     the grid holds that many blocks, each walking (tile, slab) items in
-//     a loop with its own slice: tens of MiB whatever the frame's size (a
-//     scratch per pixel of the frame took 8.5 GB at 3840x2160).  No L is
-//     refused.
-//   - Bracket gating (binning, renderer._gate_spans) drops a balanced clip
-//     or alpha bracket from the tiles that no content touches; they take
-//     the empty-tile path here.
-//   - The clip vote.  Every stencil update, colour cover and alpha op of
-//     a command masks each sample with clip[s] == its depth.  Before a
-//     unit other than clip and unclip, each lane ORs that test over its
-//     samples and the warp skips the unit when the __reduce_or_sync of it
-//     is 0: it would change nothing there.  A stencil unit's entry walk
-//     stages chunks behind block barriers, so such a warp still stages
-//     its share and meets every barrier, and skips each chunk's entries.
-//     An alpha op is skipped, after the hull test, where no lane has a
-//     sample inside its hull that passes the clip test.
-//   - Frames without clip or alpha ops compile both out (no clip registers)
-//     and skip commands at a nonzero clip depth whole, and frames without
-//     stroke rows compile the stroke classes out, as the reference's
-//     static specialisation does: the stroke code would otherwise raise
-//     the register count of fill-only frames (at S=4, 64 -> 128).  That
-//     makes six instantiations per build.  A build holds one sample count
-//     and one feature set, chosen by the defines RASTER_SAMPLES,
-//     RASTER_DEPTH (the S depth registers and the test) and RASTER_PAINT (0
-//     solid only, 1 gradients, 2 gradients and user paints): a frame loads
-//     only the build it needs, and the depth and paint bodies never enter
-//     the registers of frames without them.  The compare function is a
-//     runtime argument, uniform over the grid and switched outside the
-//     sample loop, not a template parameter (eight times the builds).
-//   - Per-warp culling.  A warp is 4 rows x 8 lanes of the tile (with
-//     strips, 8 lanes of one strip), so a thin or diagonal entry meets
-//     fewer warps than a 1x32 run of a row would; its footprint, the union
-//     of its pixels' squares, is the 8x4-pixel rectangle that holds their
-//     samples.  A chunk of entries is staged with each entry's box
-//     (RF_AABB, widened by the margin below and by half a pixel, once per
-//     entry).  Walking the chunk, each lane tests whether the box holds
-//     its pixel's centre, and the warp skips the entry, before any
-//     per-pixel work, unless the OR over its lanes is set.  That OR is a
-//     __reduce_or_sync, whose result lies in a uniform register: the
-//     compiler then knows the branch cannot diverge.  Branching on a
-//     per-thread value instead (a ballot mask walked bit by bit, or one
-//     bit per (entry, warp) staged in shared memory) raised the fill-only
-//     build from 63 to 79-126 registers and the stroke builds' spills to
-//     300-500 B (ptxas, S=4).
+//   - One staged walk per (tile, command): the command's stencil rows, its
+//     stroke rows then its fill rows (walk_runs), go through shared memory
+//     CHUNK at a time, one barrier pair a chunk.  Warp 0 stages a chunk,
+//     two rows a lane: each row's culling box (cull_box) is tested against
+//     the block's rectangle of pixel centres, and only the rows that meet
+//     it enter the chunk, in walk order (a ballot and __popc), as a box and
+//     a meta (class, table, row).  A stroke's OR and a fill's add do not
+//     commute, and the walk keeps the strokes first; each warp walks its
+//     hits in staged order.
+//   - Per-warp hit lists: after the barrier each warp tests the staged
+//     boxes 32 at a time, lane j box j, against its own rectangle of pixel
+//     centres, the least and greatest of its 32 pixels (a warp min and
+//     max).  Where a strip is 8 pixels wide or more, the 8 x 4 pixels form
+//     a product grid and every box is wider than a pixel, so the box meets
+//     the rectangle exactly when it holds one of the warp's centres; in a
+//     narrower strip the 8 lanes span several strips, th rows apart, and
+//     the rectangle holds them all.  The warp writes its hits' metas into
+//     its list in shared memory; it then walks the list.  Each listed
+//     meta goes through a __reduce_or_sync, which leaves it in a uniform
+//     register: the compiler knows the class switch and the row addresses
+//     cannot diverge.  Branching on a per-thread value instead (a ballot mask
+//     walked bit by bit, or one bit per (entry, warp) in shared memory)
+//     raised the fill-only build from 63 to 79-126 registers.
+//   - The stroke edge reject: a stroke row in a warp's box is listed only
+//     if none of its three edge functions, at the corner of the warp's
+//     sample footprint that maximises it, lies below minus its rounding
+//     margin (edge_reject, below); a thin diagonal triangle's box meets
+//     many warps that no edge of it admits.
 //   - The warp vote.  stroke_cover runs the S edge tests first and ORs
 //     the inside bits over the warp.  A warp where no lane has a sample
 //     inside returns at once; otherwise only the samples that some lane
@@ -129,6 +96,68 @@
 //     result is `inside & keep` per sample, so no bit changes.  A lane
 //     with no inside sample still runs its warp's predicates: skipping
 //     them would only mask it, since the warp issues them for the others.
+//     Spreading the warp's inside (lane, sample) pairs over the lanes, 32
+//     a round (a prefix sum by ballots, the owner's centre values by
+//     shuffles, a ballot per round back), filled more of the lanes on
+//     config 3 but gained nothing there and lost 17% on the
+//     showcase under depth and on config 3 at 8x MSAA (the depth stroke
+//     build went from 79 to 87 registers, three blocks an SM to two):
+//     taken out (PERF.md).
+//   - Fill rows through shuffles.  A fill row is read by one coalesced
+//     load, lane j its float j, and each value taken by a shuffle
+//     (WarpRow); a curve weight's offsets to the samples are the same for
+//     every pixel, so lane k * S + s computes offset (k, s) once and the
+//     pixels take it by a shuffle.  Neither holds the row or the 2 * NCH
+//     slopes in every lane's registers, which keeps the capped fill build
+//     at 64 registers without a spill.  A vote on a curve entry's edge
+//     tests before its curve weights (52-61% of the curve pairs walked
+//     have no sample inside) lost 21% on the showcase under depth and 10%
+//     on config 3 at 8x MSAA (the depth stroke build went from 79 to 93
+//     registers): taken out (PERF.md).
+//   - Edge functions, curve weights, texcoord numerators and 1/w are
+//     evaluated once at the pixel centre and reached at each sample by a
+//     uniform shift, as the reference does.
+//   - The six stroke classes are six template instantiations, each
+//     branch-free in its class, selected by the uniform class switch.
+//   - Alpha layers: one layer is held in registers (S floats per pixel, 4
+//     for the showcase at S=4).  With more, each pixel's L*S slots live in
+//     the block's dynamic shared memory at [j][s][thread], the reference's
+//     per-grid-step (L, S, th, tw) layers: no bank conflicts, and a thread
+//     touches only its own pixel's slots, so no barrier guards them.  The
+//     kernel zeroes them per tile.  They fit beside the static shared
+//     memory (3.4-4.5 KiB) in the 227 KiB a block may opt into up to L*S
+//     = 222 (every L up to 27 at S <= 8, L <= 13 at S = 16).  Past that (256
+//     slots at S=16, L=16) they go to a global scratch that the wrapper
+//     allocates, one slice per block that can be resident at once on the
+//     card, and the grid holds that many blocks, each walking (tile, slab)
+//     items in a loop with its own slice: tens of MiB whatever the
+//     frame's size (a scratch per pixel of the frame took 8.5 GB at
+//     3840x2160).  No L is refused.
+//   - Bracket gating (binning, renderer._gate_spans) drops a balanced clip
+//     or alpha bracket from the tiles that no content touches; they take
+//     the empty-tile path here.
+//   - The clip vote.  Every stencil update, colour cover and alpha op of
+//     a command masks each sample with clip[s] == its depth.  Before a
+//     unit other than clip and unclip, each lane ORs that test over its
+//     samples and the warp skips the unit when the __reduce_or_sync of it
+//     is 0: it would change nothing there.  A stencil unit's walk stages
+//     chunks behind block barriers, so such a warp still meets every
+//     barrier, and walks no entry.  An alpha op is skipped, after the hull
+//     test, where no lane has a sample inside its hull that passes the
+//     clip test.
+//   - Frames without clip or alpha ops compile both out (no clip registers)
+//     and skip commands at a nonzero clip depth whole, and frames without
+//     stroke rows compile the stroke classes out, as the reference's
+//     static specialisation does: the stroke code would otherwise raise
+//     the register count of fill-only frames.  That makes six
+//     instantiations per build.  A build holds one sample count and one
+//     feature set, chosen by the defines RASTER_SAMPLES, RASTER_DEPTH (the
+//     S depth registers and the test) and RASTER_PAINT (0 solid only, 1
+//     gradients, 2 gradients and user paints): a frame loads only the
+//     build it needs, and the depth and paint bodies never enter the
+//     registers of frames without them.  The compare function is a
+//     runtime argument, uniform over the grid and switched outside the
+//     sample loop, not a template parameter (eight times the builds).
 //   - The frame's own layout.  The kernel writes each pixel at (by, bx) of
 //     the frame, a float4 of (H, W, 4) float32 or an int32 of packed RGBA8,
 //     and skips the padding of the last tile row and column; a warp row's
@@ -180,8 +209,23 @@
 // X sum_k (|a_k| + |b_k|) inv_area, over three times that bound, and does
 // not cull where the slack test fails.  The term needs no divide.  It is
 // below 0.1 px for most entries and grows only along a sliver's long
-// side.  tests/test_torch_cull.py checks on three scenes that every pixel
-// with a passing sample has its centre in its entry's box.
+// side.  A block's rectangle holds its warps' rectangles, so the block's
+// test drops no row that a warp's would keep.
+//
+// Why the edge reject is exact.  A sample passes edge k when the computed
+// e_k at its pixel's centre exceeds the computed nt_k = -(a dx + b dy)
+// (or equals it, with the top-left flag).  With Q = (|a| + |b|) X + |c|,
+// the computed e_k is within 3.01u Q of the exact a x + b y + c at the
+// centre, nt_k within u(|a| + |b|) of its exact value, and the edge
+// function at the footprint corner that maximises it within 3.01u Q; the
+// exact function at any sample of the warp is at most its value at that
+// corner.  So where the computed corner value lies below -7.1u Q, every
+// computed e_k - nt_k of the warp is negative, and no sample passes.
+// edge_reject's margin is 2^-20 Q = 16u Q (computed in float, off by a
+// few u of itself), plus 2^-100 for products that underflow.
+// tests/test_torch_cull.py and tests/test_torch_stencil_walk.py check on
+// seven scenes, the near-plane orbit frame among them, that every (warp,
+// entry) pair with a passing sample is staged, boxed and kept.
 //
 // Measured (chip_ab.py, one H100 80GB HBM3 at 700 W, against this kernel
 // without the culling, the vote and the 4x8 warps, in one run; PERF.md):
@@ -201,7 +245,14 @@
 // -> 0.65 ms, the gradient card 0.64 -> 0.36, config 2 0.19 -> 0.11,
 // config 3 0.79 -> 0.69, the clip/alpha showcase 1.34 -> 1.15, most of it
 // from the blend kinds; every image equal to the bit.
-//
+// Then the stencil walk above, against this kernel with a block that
+// staged every row of its tile and warps that voted on each staged row,
+// in one run (chip_ab.py): config 3 0.69 -> 0.38 ms (the edge reject
+// alone 0.58 -> 0.39), the 4K showcase 0.64 -> 0.32, the clip/alpha
+// showcase 1.16 -> 0.78, the showcase under depth 0.68 -> 0.34, config 3
+// at 8x MSAA 1.11 -> 0.75, the other frames no slower; every image equal
+// to the bit.
+
 // Rounding: built with --fmad=false, so every multiply and add rounds on
 // its own, in the reference's order of operations; divides and square
 // roots are IEEE (no fast math), fmodf is exact, and atan2 is the
@@ -263,19 +314,9 @@ constexpr int RF_AABB = 26;  // 26..29: pixel-space min x, min y, max x, max y
 constexpr int RI_CONTRIB = 1;
 constexpr int RI_GROUP = 2;
 constexpr int RI_FLAGS = 3;
+constexpr int RI_CLASS = 6;
 constexpr int FLAG_END_CAP = 8;
 constexpr int FLAG_JOINT_TIP = 16;
-// Staged fill row: edges, 1/area, aux/w (RF_EDGE .. RF_AW + 12); ints:
-// contribution, flags.
-constexpr int FILL_F = 22;
-constexpr int FILL_I = 2;
-// Staged stroke row: the row's first 26 floats (edges, 1/area, aux/w, 1/w,
-// end-cap y), then desc_f[0:9] of its group; ints: flags, then
-// desc_i[0:13] of its group.  Each staged row's box, widened, is staged
-// apart (cull_box).
-constexpr int STROKE_ROW = RF_END_Y + 1;
-constexpr int STROKE_F = STROKE_ROW + 9;
-constexpr int STROKE_I = 1 + 13;
 constexpr int OP_STENCIL = 0;
 constexpr int OP_CLIP = 1;
 constexpr int OP_UNCLIP = 2;
@@ -582,24 +623,38 @@ __device__ __forceinline__ float4 cull_box(const float* f, float coord) {
   return make_float4(x0 - mx, y0 - my, x1 + mx, y1 + my);
 }
 
-// Stage the culling boxes of rows [base, base + n) of a tile's rows, with
-// the rows (before the staging barrier).
-__device__ __forceinline__ void stage_boxes(const float* rows_f, int base,
-                                            int n, const RasterArgs& a,
-                                            float4* sbox) {
-  const float coord =
-      (float)(a.ntx * a.lw + (a.n_tiles / a.ntx) * a.lh + 1);
-  for (int i = threadIdx.x; i < n; i += BLOCK)
-    sbox[i] = cull_box(rows_f + (size_t)(base + i) * D_F, coord);
+// The edge reject's margin (see the note at the head): 2^-20 = 16u of
+// the edge function's magnitude, and 2^-100 for underflow.
+constexpr float EDGE_EPS = 0x1p-20f;
+constexpr float EDGE_TINY = 0x1p-100f;
+
+// Whether no sample of the warp whose rectangle of pixel centres is r
+// (min x, min y, max x, max y) can pass one of entry row f's three edge
+// tests: its sample footprint is [r.x - 1/2, r.z + 1/2] x [r.y - 1/2, r.w
+// + 1/2] (every corner exact), and an edge function's largest value on
+// it, at the corner its (a, b) points to, lies below minus the rounding
+// margin.  A NaN rejects nothing.  ops/coverage.py::_edge_reject is the
+// same arithmetic in torch.
+__device__ __forceinline__ bool edge_reject(const float* f, const float4 r,
+                                            float coord) {
+  bool out = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ea = f[3 * k], eb = f[3 * k + 1], ec = f[3 * k + 2];
+    const float x = ea > 0.0f ? r.z + 0.5f : r.x - 0.5f;
+    const float y = eb > 0.0f ? r.w + 0.5f : r.y - 0.5f;
+    const float e = ea * x + eb * y + ec;
+    const float margin =
+        EDGE_EPS * ((fabsf(ea) + fabsf(eb)) * coord + fabsf(ec)) + EDGE_TINY;
+    out = out | (e < -margin);
+  }
+  return out;
 }
 
-// Whether culling box b holds the centre (pxc, pyc) of some pixel of this
-// thread's warp.  The OR over the warp (__reduce_or_sync) leaves the
-// answer in a uniform register, so the compiler knows that a branch on it
-// never diverges.
-__device__ __forceinline__ bool warp_meets(const float4 b, float pxc, float pyc) {
-  const bool mine = !((b.z < pxc) | (b.x > pxc) | (b.w < pyc) | (b.y > pyc));
-  return __reduce_or_sync(FULL, (unsigned)mine) != 0u;
+// Whether box b meets the rectangle r of pixel centres (min x, min y,
+// max x, max y); a NaN keeps the box.
+__device__ __forceinline__ bool box_meets(const float4 b, const float4 r) {
+  return !((b.z < r.x) | (b.x > r.z) | (b.w < r.y) | (b.y > r.w));
 }
 
 // jnp.remainder: the truncated remainder moved into the sign of b.
@@ -697,13 +752,12 @@ __device__ __forceinline__ bool dash_mask(const float* df, const int* di,
 }
 
 // Whether one sample's texcoords lie on the stroke (reference
-// process_stroke_batch.entry_keep).
+// process_stroke_batch.entry_keep): f the entry's row, df and di its
+// group's descriptor rows (desc_f, desc_i).
 template <bool JOINT, int DASH>
-__device__ __forceinline__ bool stroke_keep(const float* f, const int* ii,
+__device__ __forceinline__ bool stroke_keep(const float* f, int flags,
+                                            const float* df, const int* di,
                                             const float* tex) {
-  const int flags = ii[0];
-  const int* di = ii + 1;
-  const float* df = f + STROKE_ROW;
   if constexpr (JOINT) {
     const float radius = sqrtf(tex[0] * tex[0] + tex[1] * tex[1]);
     const int join = di[10];
@@ -730,6 +784,13 @@ __device__ __forceinline__ bool stroke_keep(const float* f, const int* ii,
   }
 }
 
+// The lanes below this one's, as a mask.
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
 // One stroke entry against this thread's pixel: bit s of the result is set
 // when the entry covers sample s.  The edge tests come first, for all S
 // samples; a sample's predicates run only where some lane of the warp has
@@ -737,11 +798,12 @@ __device__ __forceinline__ bool stroke_keep(const float* f, const int* ii,
 // once.  The result is `inside & keep` per sample either way.  The
 // predicates' loop stays rolled (offsets from shared memory), so their code
 // does not grow with S.  All 32 lanes must call it together.
-template <bool JOINT, int DASH>
-__device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
+template <bool JOINT, int DASH, int S>
+__device__ __forceinline__ unsigned stroke_cover(const float* f, int flags,
+                                                 const float* df, const int* di,
                                                  float pxc, float pyc,
                                                  const float* sdx,
-                                                 const float* sdy, int n) {
+                                                 const float* sdy) {
   constexpr int NCH = JOINT ? 3 : 2;
   const float a0 = f[0], b0 = f[1], c0 = f[2];
   const float a1 = f[3], b1 = f[4], c1 = f[5];
@@ -749,13 +811,12 @@ __device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
   const float e0 = a0 * pxc + b0 * pyc + c0;
   const float e1 = a1 * pxc + b1 * pyc + c1;
   const float e2 = a2 * pxc + b2 * pyc + c2;
-  const int flags = ii[0];
   const bool tl0 = (flags & 1) != 0;
   const bool tl1 = (flags & 2) != 0;
   const bool tl2 = (flags & 4) != 0;
   unsigned in_bits = 0u;
 #pragma unroll
-  for (int s = 0; s < n; ++s) {
+  for (int s = 0; s < S; ++s) {
     const float dx = sdx[s], dy = sdy[s];
     const float nt0 = -(a0 * dx + b0 * dy);
     const float nt1 = -(a1 * dx + b1 * dy);
@@ -796,71 +857,31 @@ __device__ __forceinline__ unsigned stroke_cover(const float* f, const int* ii,
     for (int cc = 0; cc < NCH; ++cc)
       tex[cc] = (ch[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv;
     const bool inside = ((in_bits >> s) & 1u) != 0u;
-    const bool cov = inside & stroke_keep<JOINT, DASH>(f, ii, tex);
+    const bool cov = inside & stroke_keep<JOINT, DASH>(f, flags, df, di, tex);
     bits |= (unsigned)cov << s;
   }
   return bits;
 }
 
-__device__ __forceinline__ int group_of(const int* rows_i, size_t row,
-                                        int n_groups) {
-  return min(max(rows_i[row * D_I + RI_GROUP], 0), n_groups - 1);
-}
-
-// Stroke entries [lo, hi) of one class from a tile's rows, staged through
-// shared memory CHUNK rows at a time with their groups' descriptors and
-// culling boxes; each warp walks only the entries whose box holds one of
-// its pixel centres.  A covered sample whose winding is 0 (and, with clip
-// ops, whose clip counter equals the command's depth) ends at winding 1:
-// the stroke OR, entry by entry.  lo and hi are uniform over the block, so
-// every thread reaches every barrier; a warp that the clip vote ruled out
-// (live false) stages its share and walks no entry.
-template <int S, bool CA, bool JOINT, int DASH>
-__device__ void stroke_range(const float* rows_f, const int* rows_i, int lo,
-                             int hi, float pxc, float pyc, const RasterArgs& a,
-                             int (&wind)[S], const int (&clip)[CA ? S : 1],
-                             int depth, bool live, float* sf, int* si,
-                             float4* sbox, const float* sdx, const float* sdy) {
-  for (int base = lo; base < hi; base += CHUNK) {
-    const int n = min(CHUNK, hi - base);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int i = threadIdx.x; i < n * STROKE_F; i += BLOCK) {
-      const int r = i / STROKE_F, col = i - r * STROKE_F;
-      const size_t row = (size_t)(base + r);
-      sf[i] = col < STROKE_ROW
-                  ? rows_f[row * D_F + col]
-                  : a.desc_f[(size_t)group_of(rows_i, row, a.n_groups) * DESC_F +
-                             (col - STROKE_ROW)];
-    }
-    for (int i = threadIdx.x; i < n * STROKE_I; i += BLOCK) {
-      const int r = i / STROKE_I, col = i - r * STROKE_I;
-      const size_t row = (size_t)(base + r);
-      si[i] = col == 0
-                  ? rows_i[row * D_I + RI_FLAGS]
-                  : a.desc_i[(size_t)group_of(rows_i, row, a.n_groups) * DESC_I +
-                             (col - 1)];
-    }
-    stage_boxes(rows_f, base, n, a, sbox);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      if (!warp_meets(sbox[j], pxc, pyc)) continue;
-      const unsigned bits = stroke_cover<JOINT, DASH>(
-          sf + j * STROKE_F, si + j * STROKE_I, pxc, pyc, sdx, sdy, S);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        bool cov = ((bits >> s) & 1u) != 0;
-        if constexpr (CA) cov = cov & (clip[s] == depth);
-        wind[s] = (cov & (wind[s] == 0)) ? 1 : wind[s];
-      }
-    }
+// An entry row held across the warp's lanes, lane j its float j (a row
+// is D_F = 32 floats, one coalesced load); f[k] broadcasts float k by a
+// shuffle.  A fill entry reads its row so: 22 row values held in
+// registers, or 22 addresses' worth of loads in flight, would push the
+// capped fill build past its 64 registers.  All 32 lanes must use it
+// together.
+struct WarpRow {
+  float v;
+  // Float k; k may differ from lane to lane.
+  __device__ __forceinline__ float operator[](int k) const {
+    return __shfl_sync(FULL, v, k);
   }
-}
+};
 
 // One fill entry against this thread's pixel: NCH = 0 solid, 3 quadratic,
-// 4 cubic (the number of interpolated implicit-curve weights).
+// 4 cubic (the number of interpolated implicit-curve weights); the S edge
+// tests, then the curve tests.  All 32 lanes must call it together.
 template <int S, bool CA, int NCH>
-__device__ __forceinline__ void fill_entry(const float* f, int contrib,
+__device__ __forceinline__ void fill_entry(const WarpRow& f, int contrib,
                                            int flags, float pxc, float pyc,
                                            const RasterArgs& a, int (&wind)[S],
                                            const int (&clip)[CA ? S : 1],
@@ -874,21 +895,7 @@ __device__ __forceinline__ void fill_entry(const float* f, int contrib,
   const bool tl0 = (flags & 1) != 0;
   const bool tl1 = (flags & 2) != 0;
   const bool tl2 = (flags & 4) != 0;
-  float ch[4], gx[4], gy[4];
-  if (NCH > 0) {
-    const float inv_area = f[RF_INV_AREA];
-    const float l0 = e0 * inv_area;
-    const float l1 = e1 * inv_area;
-    const float l2 = e2 * inv_area;
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      // aux/w of the vertex paired with edge 0, 1, 2 (RF_AW + 4*edge + k).
-      const float w0 = f[RF_AW + k], w1 = f[RF_AW + 4 + k], w2 = f[RF_AW + 8 + k];
-      ch[k] = l0 * w0 + l1 * w1 + l2 * w2;
-      gx[k] = inv_area * (a0 * w0 + a1 * w1 + a2 * w2);
-      gy[k] = inv_area * (b0 * w0 + b1 * w1 + b2 * w2);
-    }
-  }
+  unsigned keep = 0u;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const float dx = a.sample_x[s] - 0.5f;
@@ -896,56 +903,300 @@ __device__ __forceinline__ void fill_entry(const float* f, int contrib,
     const float nt0 = -(a0 * dx + b0 * dy);
     const float nt1 = -(a1 * dx + b1 * dy);
     const float nt2 = -(a2 * dx + b2 * dy);
-    bool keep = (e0 > nt0 || (e0 == nt0 && tl0)) &&
-                (e1 > nt1 || (e1 == nt1 && tl1)) &&
-                (e2 > nt2 || (e2 == nt2 && tl2));
-    if (NCH == 3) {
-      const float xs = ch[0] + (gx[0] * dx + gy[0] * dy);
-      const float ys = ch[1] + (gx[1] * dx + gy[1] * dy);
-      const float zs = ch[2] + (gx[2] * dx + gy[2] * dy);
-      keep = keep && (xs * xs - ys * zs <= 0.0f);
-    } else if (NCH == 4) {
-      const float xs = ch[0] + (gx[0] * dx + gy[0] * dy);
-      const float ys = ch[1] + (gx[1] * dx + gy[1] * dy);
-      const float zs = ch[2] + (gx[2] * dx + gy[2] * dy);
-      const float ws = ch[3] + (gx[3] * dx + gy[3] * dy);
-      keep = keep && (xs * xs * xs - ys * zs * ws <= 0.0f);
+    const bool inside = (e0 > nt0 || (e0 == nt0 && tl0)) &&
+                        (e1 > nt1 || (e1 == nt1 && tl1)) &&
+                        (e2 > nt2 || (e2 == nt2 && tl2));
+    keep |= (unsigned)inside << s;
+  }
+  if constexpr (NCH > 0) {
+    const float inv_area = f[RF_INV_AREA];
+    const float l0 = e0 * inv_area;
+    const float l1 = e1 * inv_area;
+    const float l2 = e2 * inv_area;
+    // Each weight at the pixel centre, ch[k], and its offset to each
+    // sample, gx[k] * dx + gy[k] * dy.  The offsets are the same for
+    // every pixel: with NCH * S <= 32 lane k * S + s computes offset
+    // (k, s) alone, and each pixel takes it by a shuffle, so no lane
+    // holds the 2 * NCH slopes (the capped fill build's registers).
+    float ch[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      // aux/w of the vertex paired with edge 0, 1, 2 (RF_AW + 4*edge + k).
+      const float w0 = f[RF_AW + k], w1 = f[RF_AW + 4 + k], w2 = f[RF_AW + 8 + k];
+      ch[k] = l0 * w0 + l1 * w1 + l2 * w2;
     }
-    if constexpr (CA) keep = keep && clip[s] == depth;
-    wind[s] += keep ? contrib : 0;
+    float offset = 0.0f;
+    float gx[NCH * S <= 32 ? 1 : NCH], gy[NCH * S <= 32 ? 1 : NCH];
+    if constexpr (NCH * S <= 32) {
+      const int lane = threadIdx.x & 31;
+      const int k = min(lane / S, NCH - 1), s = lane % S;
+      const float w0 = f[RF_AW + k], w1 = f[RF_AW + 4 + k], w2 = f[RF_AW + 8 + k];
+      const float gxk = inv_area * (a0 * w0 + a1 * w1 + a2 * w2);
+      const float gyk = inv_area * (b0 * w0 + b1 * w1 + b2 * w2);
+      offset = gxk * (a.sample_x[s] - 0.5f) + gyk * (a.sample_y[s] - 0.5f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const float w0 = f[RF_AW + k], w1 = f[RF_AW + 4 + k], w2 = f[RF_AW + 8 + k];
+        gx[k] = inv_area * (a0 * w0 + a1 * w1 + a2 * w2);
+        gy[k] = inv_area * (b0 * w0 + b1 * w1 + b2 * w2);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float v[NCH];  // the weights at sample s
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        if constexpr (NCH * S <= 32) {
+          v[k] = ch[k] + __shfl_sync(FULL, offset, k * S + s);
+        } else {
+          const float dx = a.sample_x[s] - 0.5f;
+          const float dy = a.sample_y[s] - 0.5f;
+          v[k] = ch[k] + (gx[k] * dx + gy[k] * dy);
+        }
+      }
+      bool curve;
+      if constexpr (NCH == 3) {
+        curve = v[0] * v[0] - v[1] * v[2] <= 0.0f;
+      } else {
+        curve = v[0] * v[0] * v[0] - v[1] * v[2] * v[3] <= 0.0f;
+      }
+      keep &= ~((unsigned)!curve << s);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    bool k = ((keep >> s) & 1u) != 0u;
+    if constexpr (CA) k = k && clip[s] == depth;
+    wind[s] += k ? contrib : 0;
   }
 }
 
-// Fill entries [lo, hi) of one class from a tile's rows, staged through
-// shared memory CHUNK rows at a time with their culling boxes; each warp
-// walks only the entries whose box holds one of its pixel centres.  lo and
-// hi are uniform over the block, so every thread reaches every barrier; a
-// warp that the clip vote ruled out (live false) walks no entry.
-template <int S, bool CA, int NCH>
-__device__ void fill_range(const float* rows_f, const int* rows_i, int lo,
-                           int hi, float pxc, float pyc, const RasterArgs& a,
-                           int (&wind)[S], const int (&clip)[CA ? S : 1],
-                           int depth, bool live, float* sf, int* si,
-                           float4* sbox) {
-  for (int base = lo; base < hi; base += CHUNK) {
-    const int n = min(CHUNK, hi - base);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int i = threadIdx.x; i < n * FILL_F; i += BLOCK) {
-      const int r = i / FILL_F;
-      sf[i] = rows_f[(size_t)(base + r) * D_F + (i - r * FILL_F)];
+__device__ __forceinline__ int group_of(const int* ii, int n_groups) {
+  return min(max(ii[RI_GROUP], 0), n_groups - 1);
+}
+
+// A staged row: its class (bits 28-31), whether it is a global row (bit
+// 27) and its index in its table (bits 0-26).
+constexpr int META_CLASS = 28;
+constexpr unsigned META_GLOBAL = 1u << 27;
+constexpr unsigned META_ROW = META_GLOBAL - 1u;
+
+// A command's stencil rows of one tile, in the order the block walks
+// them: the local stroke rows, the global stroke rows, the local fill
+// rows, the global fill rows (each a contiguous run of the tile's
+// per-(command, class) ranges, from class range b).  Strokes must precede
+// fills: the stroke OR does not commute with a fill's add; within each,
+// the order is free.  The stroke runs are empty where `strokes` is false,
+// the fill runs where `fills` is.
+struct WalkRuns {
+  int lo0, lo1, lo2, lo3;      // each run's first row in its table
+  int end0, end1, end2, end3;  // the runs' cumulative lengths
+};
+
+__device__ __forceinline__ WalkRuns walk_runs(const RasterArgs& a, int t, int b,
+                                              bool strokes, bool fills) {
+  const size_t n_ranges = (size_t)N_CLASSES * a.n_commands + 1;
+  const int* off = a.off + (size_t)t * n_ranges + b;
+  const int* g_off = a.g_off + (size_t)t * n_ranges + b;
+  WalkRuns w;
+  w.lo0 = off[0];
+  w.lo1 = g_off[0];
+  w.lo2 = off[CLS_FILL_SOLID];
+  w.lo3 = g_off[CLS_FILL_SOLID];
+  w.end0 = strokes ? w.lo2 - w.lo0 : 0;
+  w.end1 = w.end0 + (strokes ? w.lo3 - w.lo1 : 0);
+  w.end2 = w.end1 + (fills ? off[N_CLASSES] - w.lo2 : 0);
+  w.end3 = w.end2 + (fills ? g_off[N_CLASSES] - w.lo3 : 0);
+  return w;
+}
+
+// Entry row `row` of tile t, local or global: its floats and its ints.
+// The row's index in its table fits an int (a table of 2^31 rows would
+// take 256 GiB); an index of 32 bits keeps the walk's registers down.
+__device__ __forceinline__ const float* row_f(const RasterArgs& a, int t,
+                                              bool global, int row) {
+  return global ? a.g_tri_f + (size_t)(t * a.kgp + row) * D_F
+                : a.tri_f + (size_t)(t * a.kp + row) * D_F;
+}
+__device__ __forceinline__ const int* row_i(const RasterArgs& a, int t,
+                                            bool global, int row) {
+  return global ? a.g_tri_i + (size_t)(t * a.kgp + row) * D_I
+                : a.tri_i + (size_t)(t * a.kp + row) * D_I;
+}
+
+// The block's shared memory for the stencil walk: the block's and each
+// warp's rectangle of pixel centres and the coordinate bound (raster_item
+// writes them per item; read from here, they hold no register through
+// the walk), each chunk's staged rows (their culling boxes and metas, and
+// their count), and each warp's hit list.
+struct WalkShared {
+  float4 box[CHUNK];
+  float4 slab;
+  float4 wrect[BLOCK / 32];
+  unsigned meta[CHUNK];
+  unsigned hits[BLOCK / 32][CHUNK];
+  float coord;
+  int count;
+};
+
+// Stage virtual rows [base, base + CHUNK) of command range b's walk (warp
+// 0 alone, two rows a lane): each row's culling box is tested against the
+// block's rectangle of pixel centres, and the rows that meet it enter
+// `sh` in the walk's order (a ballot and a prefix of __popc), with their
+// boxes, classes and places.  Called between the chunk's two barriers.
+__device__ __forceinline__ void stage_chunk(const RasterArgs& a, int t, int b,
+                                            bool strokes, bool fills, int base,
+                                            WalkShared& sh) {
+  const WalkRuns w = walk_runs(a, t, b, strokes, fills);
+  const float4 slab = sh.slab;
+  const float coord = sh.coord;
+  const int lane = threadIdx.x;
+  int kept = 0;
+#pragma unroll 1
+  for (int half = 0; half < CHUNK / 32; ++half) {
+    const int v = base + half * 32 + lane;
+    bool keep = false;
+    float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    unsigned meta = 0u;
+    if (v < w.end3) {
+      // Which run v lies in, and its row there.
+      int lo = w.lo0, start = 0;
+      bool global = false;
+      if (v >= w.end0) { lo = w.lo1; start = w.end0; global = true; }
+      if (v >= w.end1) { lo = w.lo2; start = w.end1; global = false; }
+      if (v >= w.end2) { lo = w.lo3; start = w.end2; global = true; }
+      const int row = lo + (v - start);
+      box = cull_box(row_f(a, t, global, row), coord);
+      keep = box_meets(box, slab);
+      meta = ((unsigned)row_i(a, t, global, row)[RI_CLASS] << META_CLASS) |
+             (global ? META_GLOBAL : 0u) | (unsigned)row;
     }
-    for (int i = threadIdx.x; i < n; i += BLOCK) {
-      si[FILL_I * i] = rows_i[(size_t)(base + i) * D_I + RI_CONTRIB];
-      si[FILL_I * i + 1] = rows_i[(size_t)(base + i) * D_I + RI_FLAGS];
+    const unsigned m = __ballot_sync(FULL, keep);
+    if (keep) {
+      const int at = kept + __popc(m & lanes_below());
+      sh.box[at] = box;
+      sh.meta[at] = meta;
     }
-    stage_boxes(rows_f, base, n, a, sbox);
+    kept += __popc(m);
+  }
+  if (lane == 0) sh.count = kept;
+}
+
+// One command's stencil walk on this block (tile t, command range b):
+// its rows (walk_runs) staged CHUNK at a time and compacted per block
+// (stage_chunk); then each warp tests the staged boxes 32 at a time, lane
+// j box j, against its own rectangle of pixel centres (the bounds of its
+// 32 pixels; and a stroke row against the edge reject), lists
+// its hits in order, and walks the list: a stroke entry ORs into the
+// winding (a covered sample whose winding is 0, and, with clip ops,
+// whose clip counter equals the command's depth, ends at 1), a fill
+// entry adds its contribution.  The runs are uniform over the block, so
+// every thread meets every barrier; a warp that the clip vote ruled out
+// (live false) walks no entry.
+template <int S, bool CA, bool STROKES>
+__device__ __forceinline__ void stencil_walk(const RasterArgs& a, int t, int b,
+                                             bool strokes, bool fills, float pxc,
+                                             float pyc, int (&wind)[S],
+                                             const int (&clip)[CA ? S : 1],
+                                             int depth, bool live,
+                                             WalkShared& sh,
+                                             const float* sdx, const float* sdy,
+                                             Laps& laps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* hits = sh.hits[warp];
+  const WalkRuns runs = walk_runs(a, t, b, strokes, fills);
+  const int n_rows = runs.end3, n_strokes = runs.end1;
+  for (int base = 0; base < n_rows; base += CHUNK) {
+    __syncthreads();  // the previous chunk has been walked
+    if (threadIdx.x < 32) stage_chunk(a, t, b, strokes, fills, base, sh);
     __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      if (!warp_meets(sbox[j], pxc, pyc)) continue;
-      fill_entry<S, CA, NCH>(sf + j * FILL_F, si[FILL_I * j],
-                             si[FILL_I * j + 1], pxc, pyc, a, wind, clip,
-                             depth);
+    const int body = base < n_strokes ? BODY_STROKE : BODY_FILL;
+    if (!live) {
+      laps.lap(body);
+      continue;
+    }
+    // The warp's hit list.  n is uniform over the block; the OR leaves it
+    // in a uniform register.
+    const int n = (int)__reduce_or_sync(FULL, (unsigned)sh.count);
+    const float4 wrect = sh.wrect[warp];
+    int n_hits = 0;
+    for (int k0 = 0; k0 < n; k0 += 32) {
+      const int k = k0 + lane;
+      bool hit = false;
+      unsigned meta = 0u;
+      if (k < n) {
+        meta = sh.meta[k];
+        hit = box_meets(sh.box[k], wrect);
+        if constexpr (STROKES) {
+          if (hit && (int)(meta >> META_CLASS) < CLS_FILL_SOLID) {
+            hit = !edge_reject(
+                row_f(a, t, (meta & META_GLOBAL) != 0u, (int)(meta & META_ROW)),
+                wrect, sh.coord);
+          }
+        }
+      }
+      const unsigned m = __ballot_sync(FULL, hit);
+      if (hit) hits[n_hits + __popc(m & lanes_below())] = meta;
+      n_hits += __popc(m);
+    }
+    __syncwarp();
+    laps.lap(body);
+    for (int h = 0; h < n_hits; ++h) {
+      // Uniform over the warp: the OR leaves it in a uniform register, so
+      // the switch below never diverges.
+      const unsigned meta = __reduce_or_sync(FULL, hits[h]);
+      const int cls = (int)(meta >> META_CLASS);
+      const bool global = (meta & META_GLOBAL) != 0u;
+      const int row = (int)(meta & META_ROW);
+      const float* f = row_f(a, t, global, row);
+      const int* ii = row_i(a, t, global, row);
+      if constexpr (STROKES) {
+        if (cls < CLS_FILL_SOLID) {
+          const int g = group_of(ii, a.n_groups);
+          const float* df = a.desc_f + (size_t)g * DESC_F;
+          const int* di = a.desc_i + (size_t)g * DESC_I;
+          const int flags = ii[RI_FLAGS];
+          unsigned bits = 0u;
+          switch (cls) {
+#define STROKE_CLASS(CODE, JOINT, DASH)                                        \
+  case CODE:                                                                   \
+    bits = stroke_cover<JOINT, DASH, S>(f, flags, df, di, pxc, pyc, sdx, sdy); \
+    break;
+            STROKE_CLASS(CLS_LINE_SOLID, false, 0)
+            STROKE_CLASS(CLS_LINE_SOLID + 1, false, 1)
+            STROKE_CLASS(CLS_LINE_SOLID + 2, false, 2)
+            STROKE_CLASS(CLS_JOINT_SOLID, true, 0)
+            STROKE_CLASS(CLS_JOINT_SOLID + 1, true, 1)
+            STROKE_CLASS(CLS_JOINT_SOLID + 2, true, 2)
+#undef STROKE_CLASS
+            default: break;
+          }
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            bool cov = ((bits >> s) & 1u) != 0;
+            if constexpr (CA) cov = cov & (clip[s] == depth);
+            wind[s] = (cov & (wind[s] == 0)) ? 1 : wind[s];
+          }
+          laps.lap(BODY_STROKE);
+          continue;
+        }
+      }
+      const int contrib = ii[RI_CONTRIB], flags = ii[RI_FLAGS];
+      const WarpRow fr{f[lane]};
+      switch (cls) {
+        case CLS_FILL_SOLID:
+          fill_entry<S, CA, 0>(fr, contrib, flags, pxc, pyc, a, wind, clip, depth);
+          break;
+        case CLS_FILL_QUAD:
+          fill_entry<S, CA, 3>(fr, contrib, flags, pxc, pyc, a, wind, clip, depth);
+          break;
+        case CLS_FILL_CUBIC:
+          fill_entry<S, CA, 4>(fr, contrib, flags, pxc, pyc, a, wind, clip, depth);
+          break;
+        default: break;
+      }
+      laps.lap(BODY_FILL);
     }
   }
 }
@@ -1008,6 +1259,25 @@ __device__ __forceinline__ bool omitted(int body, const RasterArgs& a) {
   return OMIT == body && a.n_tiles > 0;
 }
 
+// Sample s of the pixel whose centre is (pxc, pyc): pxc + (sample_x[s]
+// - 0.5), which rounds as the pixel's corner plus sample_x[s] does (both
+// terms are exact).
+__device__ __forceinline__ float sample_px(const RasterArgs& a, float pxc, int s) {
+  return pxc + (a.sample_x[s] - 0.5f);
+}
+__device__ __forceinline__ float sample_py(const RasterArgs& a, float pyc, int s) {
+  return pyc + (a.sample_y[s] - 0.5f);
+}
+
+// The index of pixel (ix, iy) in the frame's (height, width) pixels; -1
+// on the padding past the frame's last column or row, which is walked but
+// not written.  A warp's row is 8 neighbouring pixels of one frame row:
+// one 128-byte run of float4, or 32 bytes of packed RGBA8.
+__device__ __forceinline__ long long pixel_index(const RasterArgs& a, int ix,
+                                                 int iy) {
+  return ix < a.width && iy < a.height ? (long long)iy * a.width + ix : -1;
+}
+
 template <int S>
 __device__ __forceinline__ bool warp_at_depth(const int (&clip)[S], int depth) {
   unsigned at = 0u;
@@ -1023,8 +1293,8 @@ __device__ __forceinline__ bool warp_at_depth(const int (&clip)[S], int depth) {
 template <int S, bool DEPTH, int PAINT, class Blend>
 __device__ __forceinline__ void cover_samples(
     const RasterArgs& a, const Blend& blend, unsigned cover, int pk,
-    const float* cf, const float* g, const float* pxy, const float (&solid)[4], float bx,
-    float by, float (&color)[4][S], int (&wind)[S], float (&zbuf)[DEPTH ? S : 1],
+    const float* cf, const float* g, const float* pxy, const float (&solid)[4], float pxc,
+    float pyc, float (&color)[4][S], int (&wind)[S], float (&zbuf)[DEPTH ? S : 1],
     const float (&zv)[DEPTH ? S : 1], Laps& laps) {
   if (omitted(BODY_PAINT, a)) pk = 0;
   if constexpr (PROFILE) {
@@ -1032,7 +1302,7 @@ __device__ __forceinline__ void cover_samples(
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       if (((cover >> s) & 1u) == 0u) continue;
-      paint_src<PAINT>(pk, g, pxy, solid, bx + a.sample_x[s], by + a.sample_y[s],
+      paint_src<PAINT>(pk, g, pxy, solid, sample_px(a, pxc, s), sample_py(a, pyc, s),
                        src[s]);
     }
     laps.lap(BODY_PAINT);
@@ -1051,7 +1321,7 @@ __device__ __forceinline__ void cover_samples(
     for (int s = 0; s < S; ++s) {
       if (((cover >> s) & 1u) == 0u) continue;
       float src[4];
-      paint_src<PAINT>(pk, g, pxy, solid, bx + a.sample_x[s], by + a.sample_y[s],
+      paint_src<PAINT>(pk, g, pxy, solid, sample_px(a, pxc, s), sample_py(a, pyc, s),
                        src);
       if (!omitted(BODY_BLEND, a)) blend_sample<S>(blend, src, color, s, cf + 20);
       wind[s] = 0;
@@ -1074,10 +1344,9 @@ __device__ __forceinline__ void cover_samples(
 // gradients; 2 gradients and user paints.  Every thread of the block
 // calls it with the same item.
 template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
-__device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab,
-                                            float* slots, float* sf, int* si,
-                                            float4* sbox, const float* sdx,
-                                            const float* sdy,
+__device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab_i,
+                                            float* slots, WalkShared& sh,
+                                            const float* sdx, const float* sdy,
                                             unsigned long long* sprof,
                                             float* sgrad) {
   constexpr bool CA = NL >= 0;
@@ -1086,8 +1355,9 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
   // The slab's warp w is the 4 rows x 8 lanes from lane 8w
   // (ops/coverage.py::warp_pixels).
   const int q = threadIdx.x & 31, blocks_x = a.tw / 64;
-  const int r = (slab / blocks_x) * 4 + (q >> 3);
-  const int l = (slab % blocks_x) * 64 + (threadIdx.x >> 5) * 8 + (q & 7);
+  const int r0 = (slab_i / blocks_x) * 4, l0 = (slab_i % blocks_x) * 64;
+  const int r = r0 + (q >> 3);
+  const int l = l0 + (threadIdx.x >> 5) * 8 + (q & 7);
   // Strip layout: lane l of row r is screen pixel
   // (x0 + l % lw, y0 + (l / lw) * th + r).
   int ix, iy;
@@ -1100,19 +1370,12 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
   }
   ix += (t % a.ntx) * a.lw;
   iy += (t / a.ntx) * a.lh;
-  // The pixel's index in the frame's (height, width) pixels; -1 on the
-  // padding past the frame's last column or row, which is walked but not
-  // written.  A warp's row is 8 neighbouring pixels of one frame row: one
-  // 128-byte run of float4, or 32 bytes of packed RGBA8.
-  const long long at =
-      ix < a.width && iy < a.height ? (long long)iy * a.width + ix : -1;
   const int n_active = a.acount[t];
-  const bool out_u8 = a.out_u8 != 0;
-
   if (n_active == 0) {  // empty tile: transparent black
     if (omitted(BODY_EMPTY, a)) return;
+    const long long at = pixel_index(a, ix, iy);
     if (at >= 0) {
-      if (out_u8)
+      if (a.out_u8)
         static_cast<uint32_t*>(a.out)[at] = 0u;
       else
         static_cast<float4*>(a.out)[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -1121,10 +1384,40 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     return;
   }
 
-  const float bx = (float)ix;
-  const float by = (float)iy;
-  const float pxc = bx + 0.5f;
-  const float pyc = by + 0.5f;
+  // The pixel's centre.  A sample's position is pxc + (sample_x - 0.5):
+  // both terms are exact, so it rounds as (float)ix + sample_x does.  The
+  // kernel keeps only the centre: every register the walk's fill entries
+  // do not need is one the capped fill build does not spill.
+  const float pxc = (float)ix + 0.5f;
+  const float pyc = (float)iy + 0.5f;
+  // The block's rectangle of pixel centres, which the stencil walk's
+  // staging culls by (block_rects in ops/coverage.py; with strips
+  // narrower than its 64 lanes, it spans several strips), and `coord`,
+  // a bound on every pixel coordinate of the grid (cull_box, the edge
+  // reject).  Thread 0 writes them, and lane 0 of each warp its warp's
+  // rectangle; they are read after the walk's first barrier.
+  if (threadIdx.x == 0) {
+    const int tile_x = (t % a.ntx) * a.lw, tile_y = (t / a.ntx) * a.lh;
+    const int slab_x = l0 % a.lw;
+    sh.slab = make_float4(
+        (float)(tile_x + slab_x) + 0.5f,
+        (float)(tile_y + (l0 / a.lw) * a.th + r0) + 0.5f,
+        (float)(tile_x + slab_x + min(a.lw, 64) - 1) + 0.5f,
+        (float)(tile_y + ((l0 + 63) / a.lw) * a.th + r0 + 3) + 0.5f);
+    sh.coord = (float)(a.ntx * a.lw + (a.n_tiles / a.ntx) * a.lh + 1);
+  }
+  // The warp's rectangle: the least and greatest of its pixels
+  // (warp_rects in ops/coverage.py).  Where a strip is 8 or more pixels
+  // wide they are 8 x 4 from lane 0's; in a narrower strip the warp's 8
+  // lanes span several strips, th rows apart.
+  {
+    const int x_lo = __reduce_min_sync(FULL, ix), x_hi = __reduce_max_sync(FULL, ix);
+    const int y_lo = __reduce_min_sync(FULL, iy), y_hi = __reduce_max_sync(FULL, iy);
+    if (q == 0)
+      sh.wrect[threadIdx.x >> 5] =
+          make_float4((float)x_lo + 0.5f, (float)y_lo + 0.5f, (float)x_hi + 0.5f,
+                      (float)y_hi + 0.5f);
+  }
 
   int wind[S];
   float color[4][S];
@@ -1152,14 +1445,6 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     }
   }
 
-  const int n_ranges = N_CLASSES * a.n_commands + 1;
-  const int* off = a.off + (size_t)t * n_ranges;
-  const int* g_off = a.g_off + (size_t)t * n_ranges;
-  const float* tri_f = a.tri_f + (size_t)t * a.kp * D_F;
-  const int* tri_i = a.tri_i + (size_t)t * a.kp * D_I;
-  const float* g_tri_f = a.g_tri_f + (size_t)t * a.kgp * D_F;
-  const int* g_tri_i = a.g_tri_i + (size_t)t * a.kgp * D_I;
-
   for (int k = 0; k < n_active; ++k) {
     const int uid = a.aclist[(size_t)t * a.n_units + k];
     const int c = a.unit_cmd[uid];
@@ -1182,42 +1467,15 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     laps.lap(BODY_SETUP);
 
     if (op == OP_STENCIL) {
-      const int b = N_CLASSES * c;
-      // Stroke classes first, in the reference's order: lines then
-      // joints, each solid, single-interval dash, general dash; each
-      // local, then global.  A warp the clip vote ruled out still walks
-      // the ranges, staging its share of each chunk and meeting every
-      // barrier, but skips the entries.
-      if constexpr (STROKES) {
-        if (!omitted(BODY_STROKE, a)) {
-#define STROKE_CLASS(CODE, JOINT, DASH)                                        \
-  stroke_range<S, CA, JOINT, DASH>(tri_f, tri_i, off[b + (CODE)],              \
-                                   off[b + (CODE) + 1], pxc, pyc, a, wind,     \
-                                   clip, depth, live, sf, si, sbox, sdx, sdy); \
-  stroke_range<S, CA, JOINT, DASH>(g_tri_f, g_tri_i, g_off[b + (CODE)],        \
-                                   g_off[b + (CODE) + 1], pxc, pyc, a, wind,   \
-                                   clip, depth, live, sf, si, sbox, sdx, sdy);
-      STROKE_CLASS(CLS_LINE_SOLID, false, 0)
-      STROKE_CLASS(CLS_LINE_SOLID + 1, false, 1)
-      STROKE_CLASS(CLS_LINE_SOLID + 2, false, 2)
-      STROKE_CLASS(CLS_JOINT_SOLID, true, 0)
-      STROKE_CLASS(CLS_JOINT_SOLID + 1, true, 1)
-      STROKE_CLASS(CLS_JOINT_SOLID + 2, true, 2)
-#undef STROKE_CLASS
-        }
-      }
-      laps.lap(BODY_STROKE);
-      if (omitted(BODY_FILL, a)) continue;
-#define FILL_CLASS(CODE, NCH)                                                  \
-  fill_range<S, CA, NCH>(tri_f, tri_i, off[b + (CODE)], off[b + (CODE) + 1],   \
-                         pxc, pyc, a, wind, clip, depth, live, sf, si, sbox);  \
-  fill_range<S, CA, NCH>(g_tri_f, g_tri_i, g_off[b + (CODE)],                  \
-                         g_off[b + (CODE) + 1], pxc, pyc, a, wind, clip,       \
-                         depth, live, sf, si, sbox);
-      FILL_CLASS(CLS_FILL_SOLID, 0)
-      FILL_CLASS(CLS_FILL_QUAD, 3)
-      FILL_CLASS(CLS_FILL_CUBIC, 4)
-#undef FILL_CLASS
+      // The stroke rows, then the fill rows, in one staged walk.  A warp
+      // the clip vote ruled out still meets every barrier of the walk,
+      // but walks no entry.
+      const bool fills = !omitted(BODY_FILL, a);
+      stencil_walk<S, CA, STROKES>(a, t, N_CLASSES * c,
+                                   STROKES && !omitted(BODY_STROKE, a), fills,
+                                   pxc, pyc, wind, clip, depth, live, sh, sdx,
+                                   sdy, laps);
+      if (!fills) continue;
       if (live) {
         const int bulk = a.bulk[(size_t)t * a.n_commands + c];
 #pragma unroll
@@ -1248,7 +1506,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
                     h2 = lines[4 * h + 2];
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          const float he = h0 * (bx + a.sample_x[s]) + h1 * (by + a.sample_y[s]) + h2;
+          const float he = h0 * sample_px(a, pxc, s) + h1 * sample_py(a, pyc, s) + h2;
           in_hull[s] = in_hull[s] && he >= 0.0f;
         }
       }
@@ -1272,7 +1530,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
         const float za = zp[0], zb = zp[1], zc = zp[2];
 #pragma unroll
         for (int s = 0; s < S; ++s)
-          zv[s] = za * (bx + a.sample_x[s]) + zb * (by + a.sample_y[s]) + zc;
+          zv[s] = za * sample_px(a, pxc, s) + zb * sample_py(a, pyc, s) + zc;
         if (!omitted(BODY_DEPTH, a)) zpass = depth_pass<S>(a.depth_compare, zv, zbuf);
       }
       unsigned cover = 0u;
@@ -1287,7 +1545,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       // The cover vote: the paint, the blend, the winding reset and the
       // depth write all take this mask, so a warp in which no lane has a
       // sample that passes would change nothing and skips them.  The OR
-      // lies in a uniform register (see warp_meets).
+      // lies in a uniform register (see stencil_walk).
       if (__reduce_or_sync(FULL, cover) == 0u) continue;
       // Paint code: 0 solid, 1 linear, 2 radial, 3 + i user paint i.
       const int pk = PAINT > 0 ? a.cmd_i[c * 4 + 3] : 0;
@@ -1307,7 +1565,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
       // The blend state is uniform over the grid: one switch per unit,
       // outside the sample loop.
 #define COVER(BLEND)                                                           \
-  cover_samples<S, DEPTH, PAINT>(a, BLEND, cover, pk, cf, g, pxy, solid, bx, by, \
+  cover_samples<S, DEPTH, PAINT>(a, BLEND, cover, pk, cf, g, pxy, solid, pxc, pyc, \
                                  color, wind, zbuf, zv, laps)
       switch (a.blend_kind) {
         case BLEND_BACK_TO_FRONT: COVER(BlendBackToFront{}); break;
@@ -1393,6 +1651,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
   if (omitted(BODY_RESOLVE, a)) return;
   // Resolve: the sample mean, summed in sample order, written at the
   // pixel's place in the frame.
+  const long long at = pixel_index(a, (int)(pxc - 0.5f), (int)(pyc - 0.5f));
   const float inv_s = 1.0f / (float)S;
   float mean[4];
 #pragma unroll
@@ -1403,7 +1662,7 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
     mean[chan] = v * inv_s;
   }
   if (at >= 0) {
-    if (out_u8) {
+    if (a.out_u8) {
       // floor(clip(v) * 255 + 0.5), packed little-endian RGBA8 in uint32
       // (A << 24 would overflow an int32).
       uint32_t packed = 0;
@@ -1429,10 +1688,8 @@ __device__ __forceinline__ void raster_item(const RasterArgs& a, int t, int slab
 // its own slice of the scratch.
 template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
 __device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
-  __shared__ float sf[CHUNK * STROKE_F];
-  __shared__ int si[CHUNK * STROKE_I];
+  __shared__ WalkShared sh;
   __shared__ float sdx[MAX_SAMPLES], sdy[MAX_SAMPLES];
-  __shared__ float4 sbox[CHUNK];
   // Sample offsets from the pixel centre, for the rolled stroke loops; the
   // first staging barrier orders these writes before any read.
   if (threadIdx.x == 0) {
@@ -1460,12 +1717,12 @@ __device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
     const int n_items = a.n_tiles * (a.th * a.tw / BLOCK);
     for (int item = blockIdx.x; item < n_items; item += gridDim.x)
       raster_item<S, NL, STROKES, DEPTH, PAINT>(a, item % a.n_tiles,
-                                                item / a.n_tiles, slots, sf, si,
-                                                sbox, sdx, sdy, sprof, sgrad);
+                                                item / a.n_tiles, slots, sh,
+                                                sdx, sdy, sprof, sgrad);
   } else {
     raster_item<S, NL, STROKES, DEPTH, PAINT>(a, blockIdx.x, blockIdx.y,
-                                              nullptr, sf, si, sbox, sdx, sdy,
-                                              sprof, sgrad);
+                                              nullptr, sh, sdx, sdy, sprof,
+                                              sgrad);
   }
   if constexpr (PROFILE) {
     __syncthreads();
@@ -1473,8 +1730,19 @@ __device__ __forceinline__ void raster_blocks(const RasterArgs& a) {
   }
 }
 
+// The blocks an SM each instantiation is built for: three at S <= 4
+// without clip or alpha ops (at most 80 registers a thread), two up to
+// S = 8 (128), one at S = 16.  Without a block count ptxas held this
+// walk's S = 4 stroke builds to 80 registers and spilled up to 380 B;
+// with two it spilled nothing, but put the stroke build with depth at
+// 89 registers, two blocks an SM, and the showcase under depth ran at
+// 0.41-0.43 ms; with three, at 78 registers, 0.34 ms (chip_ab.py, H100;
+// PERF.md lists each build's registers).  Builds with user paints
+// (PAINT 2) compile the caller's paint code into the cover, whose
+// registers no measurement here bounds: they keep two blocks (128).
 template <int S, int NL, bool STROKES, bool DEPTH, int PAINT>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK,
+                                  (S <= 4 && NL < 0 && PAINT != 2 ? 3 : S <= 8 ? 2 : 1))
     coverage_raster_kernel(const RasterArgs a) {
   raster_blocks<S, NL, STROKES, DEPTH, PAINT>(a);
 }
@@ -1483,9 +1751,10 @@ __global__ void __launch_bounds__(BLOCK)
 // the same body held to 64 registers, so that four blocks (32 warps) fit
 // an SM instead of three.  Left to itself, ptxas put this build at 64 or
 // 79 registers from one edit of unrelated code to the next; at 79 the
-// gradient card ran 9% slower than at 64 (chip_ab.py, H100, PERF.md),
-// and the spills the cap costs (48-108 B at S = 4) are cheaper.  Builds
-// with depth spill more under it (188 B) and are not capped.
+// gradient card ran 9% slower than at 64 (chip_ab.py, H100, PERF.md).
+// Since fill rows are read through shuffles (WarpRow) it spills
+// nothing.  Builds with depth spilled more under it (188 B) and are
+// not capped.
 template <int S, int PAINT>
 __global__ void __launch_bounds__(BLOCK, 4)
     coverage_raster_fill_kernel(const RasterArgs a) {

@@ -1342,6 +1342,54 @@ def warp_pixels(tile_h, tile_w):
     lane = (b % blocks_x) * BLOCK_LANES + w * 8 + q % 8
     return (row * tile_w + lane).reshape(-1, 32)
 
+
+def block_rects(spec):
+    """Each block's footprint as the kernel computes it (raster_item's
+    slab box): (tile_h * tile_w / 256, 4) int (x_lo, y_lo, x_hi, y_hi),
+    the bounding rectangle of the block's pixels relative to its tile's
+    origin.  With strips narrower than the block's 64 lanes the block
+    spans several strips, and the rectangle holds them all."""
+    th, tw, lw = spec.tile_h, spec.tile_w, spec.screen_tile_w
+    blocks_x = tw // BLOCK_LANES
+    rects = []
+    for slab in range(th * tw // (BLOCK_ROWS * BLOCK_LANES)):
+        l0 = (slab % blocks_x) * BLOCK_LANES
+        r0 = (slab // blocks_x) * BLOCK_ROWS
+        x_lo = l0 % lw
+        rects.append((
+            x_lo,
+            (l0 // lw) * th + r0,
+            x_lo + min(lw, BLOCK_LANES) - 1,
+            ((l0 + BLOCK_LANES - 1) // lw) * th + r0 + BLOCK_ROWS - 1,
+        ))
+    return torch.tensor(rects)
+
+
+def warp_rects(spec):
+    """Each warp's rectangle as the kernel computes it (raster_item: the
+    warp min and max of its threads' pixels, each thread's pixel from its
+    block and lane): (tile_h * tile_w / 32, 4) int (x_lo, y_lo, x_hi,
+    y_hi) relative to its tile's origin, warp by warp as warp_pixels
+    orders them.  Where a strip is 8 pixels wide or more it is the 8 x 4
+    pixels from lane 0's; in a narrower strip the warp's 8 lanes span
+    several strips, tile_h rows apart."""
+    th, tw, lw = spec.tile_h, spec.tile_w, spec.screen_tile_w
+    blocks_x = tw // BLOCK_LANES
+    b = torch.arange(th * tw // 256)[:, None, None]
+    w = torch.arange(8)[None, :, None]
+    q = torch.arange(32)[None, None, :]
+    r = (b // blocks_x) * BLOCK_ROWS + q // 8
+    l = (b % blocks_x) * BLOCK_LANES + w * 8 + q % 8
+    if spec.tile_strips == 1:
+        ix, iy = l, r
+    else:
+        ix, iy = l % lw, (l // lw) * th + r
+    ix, iy = (v.reshape(-1, 32) for v in torch.broadcast_tensors(ix, iy))
+    return torch.stack(
+        [ix.amin(1), iy.amin(1), ix.amax(1), iy.amax(1)], 1
+    )
+
+
 _MAX_SAMPLES = 16
 
 
@@ -1777,6 +1825,35 @@ def _cull_boxes(rf, coord):
     return x0 - mx, y0 - my, x1 + mx, y1 + my
 
 
+#: The edge reject's margin (coverage_raster.cu's note): 2^-20 = 16u of
+#: the edge function's magnitude, and 2^-100 for underflow.
+EDGE_EPS = 2.0 ** -20
+EDGE_TINY = 2.0 ** -100
+
+
+def _edge_reject(rf, rect, coord):
+    """The kernel's edge reject (``edge_reject``): True where one of the
+    entry's three edge functions, at the corner of a warp's sample
+    footprint that maximises it, lies below minus its rounding margin, so
+    that no sample of the warp passes that edge's test.  rf (..., D_F)
+    rows; rect the warps' rectangles of pixel centres (x_lo, y_lo, x_hi,
+    y_hi), each broadcast against rf.shape[:-1], whose footprint is
+    [x_lo - 1/2, x_hi + 1/2] x [y_lo - 1/2, y_hi + 1/2]; ``coord`` as for
+    _cull_boxes.  The kernel's arithmetic, step for step (a NaN rejects
+    nothing)."""
+    x_lo, y_lo, x_hi, y_hi = rect
+    out = None
+    for k in range(3):
+        a, b, c = (rf[..., 3 * k + i] for i in range(3))
+        x = torch.where(a > 0.0, x_hi + 0.5, x_lo - 0.5)
+        y = torch.where(b > 0.0, y_hi + 0.5, y_lo - 0.5)
+        e = a * x + b * y + c
+        margin = EDGE_EPS * ((a.abs() + b.abs()) * coord + c.abs()) + EDGE_TINY
+        rejected = e < -margin
+        out = rejected if out is None else out | rejected
+    return out
+
+
 def _edges(rf, ri, pxc, pyc):
     """Edge coefficients a, b (each (T, B, 1)), the edge functions at the
     pixel centres e (T, B, P) and the top-left flags, of a batch of
@@ -1800,11 +1877,13 @@ def _inside(edges, dx, dy):
     return inside
 
 
-def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
+def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets, walk=None):
     """Winding deltas (T, S, P) of a batch of fill entries: rf (T, B,
     D_F), ri (T, B, D_I), ok (T, B) marks the entries inside their
-    range; pxc/pyc (T, 1, P) pixel centres.  The arithmetic and its
-    order are the kernel's, step for step."""
+    range; pxc/pyc (T, 1, P) pixel centres; ``walk`` (T, B, P), where
+    given, the pixels whose warp walks the entry (the others take no
+    update).  The arithmetic and its order are the kernel's, step for
+    step."""
 
     def cf(i):
         return rf[..., i:i + 1]                          # (T, B, 1)
@@ -1827,6 +1906,8 @@ def _fill_delta(rf, ri, ok, class_code, pxc, pyc, offsets):
         dx = float(ox) - 0.5
         dy = float(oy) - 0.5
         keep = _inside(edges, dx, dy)
+        if walk is not None:
+            keep = keep & walk
         if n_ch:
             xs, ys, zs = (
                 ch_c[k] + (gx[k] * dx + gy[k] * dy) for k in range(3)
@@ -1974,10 +2055,11 @@ def _stroke_keep(joint, dash_mode, df, di, flags, end_y, tex):
 
 
 def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
-                  offsets):
+                  offsets, walk=None):
     """Per-sample coverage (T, S, P) of a batch of stroke entries of one
     class: rf (T, B, D_F), ri (T, B, D_I), ok (T, B) marks the entries
-    inside their range; pxc/pyc (T, 1, P) pixel centres.  A sample is
+    inside their range; pxc/pyc (T, 1, P) pixel centres; ``walk`` as
+    for _fill_delta.  A sample is
     covered when any entry covers it (the stroke stencil is an OR).
     Perspective-correct texcoords as in the kernel, step for step: the
     linear numerators and 1/w at the pixel centre, shifted to each
@@ -2016,6 +2098,8 @@ def _stroke_cover(rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxc, pyc,
         dx = float(ox) - 0.5
         dy = float(oy) - 0.5
         inside = ok[..., None] & _inside(edges, dx, dy)
+        if walk is not None:
+            inside = inside & walk
         iws = iw_c + (gxw * dx + gyw * dy)
         inv = 1.0 / torch.where(iws != 0.0, iws, 1.0)
         tex = [(ch_c[cc] + (gx[cc] * dx + gy[cc] * dy)) * inv
@@ -2092,23 +2176,41 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     at the samples inside the hull with a nonzero winding; ``"blend"``,
     blended samples; ``"paint"``, {cover draw: blended samples} for
     non-solid paints; ``"alpha"``, {op: updated samples} for alpha ops.
-    It also receives what the kernel skips per warp of 32 pixels
-    (``warp_pixels``): ``"clip_skipped"``, the (warp, unit) pairs of
-    units other than clip and unclip that the clip vote skips, where no
-    sample of the warp has a clip counter equal to the unit's depth
-    (frames with clip ops); ``"entry_warps"``, the (warp, entry) pairs of
-    the binned stroke and fill entries; ``"culled"``, those of warps the
-    clip vote kept that the box test culls (the entry's ``_cull_boxes``
-    box holds none of the warp's pixel centres); ``"stroke_samples"``,
-    the stroke sample evaluations (32·S per stroke pair that is walked,
-    neither culled nor clip-skipped); ``"vote_skipped"``, those the warp
-    vote skips (32 for each sample that no pixel of the warp has inside
-    the entry); ``"cover_warps"``, the (warp, colour unit) pairs that
+    It also receives what the kernel skips per block of 256 pixels
+    (``block_rects``) and per warp of 32 (``warp_pixels``):
+    ``"clip_skipped"``, the (warp, unit) pairs of units other than clip
+    and unclip that the clip vote skips, where no sample of the warp has
+    a clip counter equal to the unit's depth (frames with clip ops);
+    ``"entry_blocks"``, the (block, entry) pairs of the binned stroke and
+    fill entries (what a block staging every row would stage);
+    ``"staged_rows"``,
+    those the block's staging keeps (the entry's ``_cull_boxes`` box
+    meets the block's rectangle of pixel centres); ``"entry_warps"``,
+    the (warp, entry) pairs of the binned entries; ``"culled"``, those
+    of warps the clip vote kept that the box test culls (the box meets
+    not the warp's rectangle of pixel centres); ``"edge_rejected"``, the
+    stroke pairs of warps the clip vote kept, in the box, that the edge
+    reject drops (``_edge_reject``); ``"walked"``, the (warp, entry)
+    pairs a warp walks; ``"stroke_pairs"``, the stroke pairs walked, and
+    ``"inside_pairs"``, those with a sample that some lane of the warp
+    has inside the entry; ``"stroke_samples"``, the stroke sample
+    evaluations (32·S per stroke pair walked); ``"vote_skipped"``, those
+    the warp vote skips (32 for each sample that no pixel of the warp
+    has inside the entry); ``"keep_lanes"``, the (lane, sample) pairs of
+    walked stroke pairs inside the entry, whose predicates must run;
+    ``"keep_slots_sample"``, the lane slots that the kernel's walk of the
+    samples some lane has inside spends on them (32 a sample);
+    ``"fill_pairs"``, the quadratic and cubic
+    fill pairs walked, and ``"fill_pairs_outside"``, those with no sample
+    inside (their curve weights change nothing);
+    ``"cover_warps"``, the (warp, colour unit) pairs that
     reach the cover vote (the unit's hull meets the tile, the clip vote
     kept the warp); ``"cover_skipped"``, those the cover vote skips, where
     no sample of the warp passes the cover mask (hull, winding, clip,
     depth).  With ``work`` the skips are modelled: a skipped warp takes
-    no update of the unit, which leaves the image as it is."""
+    no update of the unit, and a warp takes no update of an entry that
+    its block's staging, its box test or its edge reject dropped, which
+    leaves the image as it is."""
     dev = prepared.tri_f.device
     f32, i32 = torch.float32, torch.int32
     S = spec.samples
@@ -2143,10 +2245,26 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     pyc = (by + 0.5)[:, None, :]
     px = torch.stack([bx + float(ox) for ox, _ in offsets], 1)  # (T, S, P)
     py = torch.stack([by + float(oy) for _, oy in offsets], 1)
-    # Each warp's pixel centres (T, P / 32, 32).
     warps = warp_pixels(th, tw).to(dev)                  # (P / 32, 32)
-    wx, wy = bx[:, warps] + 0.5, by[:, warps] + 0.5
     coord = spec.ntx * lw + spec.nty * lh + 1
+
+    def centres(rects):
+        rects = rects.to(dev).float()
+        return (
+            tile_x0 + rects[:, 0] + 0.5, tile_y0 + rects[:, 1] + 0.5,
+            tile_x0 + rects[:, 2] + 0.5, tile_y0 + rects[:, 3] + 0.5,
+        )
+
+    # Each warp's and each block's rectangle of pixel centres as the
+    # kernel computes them, (T, W) and (T, NB); the warp of each pixel and
+    # the block of each warp.
+    warp_rect = centres(warp_rects(spec))
+    block_rect = centres(block_rects(spec))
+    n_warps = P // 32
+    warp_of = torch.empty(P, dtype=torch.long, device=dev)
+    warp_of[warps.reshape(-1)] = torch.arange(n_warps, device=dev).repeat_interleave(32)
+    warp_block = torch.arange(n_warps, device=dev) // (BLOCK_ROWS * BLOCK_LANES // 32)
+    stroke_codes = {code for code, _, _ in STROKE_CLASSES}
 
     # active[t, u]: unit u is in tile t's active list.
     k = torch.arange(U, device=dev)
@@ -2187,46 +2305,72 @@ def rasterize_plain(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
                 j = torch.clamp(j, max=rows_f.shape[1] - 1)
                 yield rows_f[sel[:, None], j], rows_i[sel[:, None], j], ok
 
-    def count_warps(sel, rf, ri, ok, stroke, live):
-        """The kernel's per-warp culling and, for strokes, its warp vote
-        on one batch of entries (``work``'s stencil counts); ``live``
-        (T, P / 32) marks the warps that the clip vote kept."""
-        x0, y0, x1, y1 = (v[..., None, None] for v in _cull_boxes(rf, coord))
-        cx, cy = wx[sel][:, None], wy[sel][:, None]     # (T, 1, P / 32, 32)
-        meets = ~((x1 < cx) | (x0 > cx) | (y1 < cy) | (y0 > cy))
-        culled = ~meets.any(-1) & live[:, None, :]
-        walked = ok[..., None] & ~culled & live[:, None, :]  # (T, B, P / 32)
-        count("entry_warps", ok.sum() * (P // 32))
-        count("culled", (ok[..., None] & culled).sum())
+    def walk_mask(sel, rf, ri, ok, code, live):
+        """The kernel's stencil walk on one batch of entries of class
+        ``code`` (``work``'s stencil counts): the block's staging, the
+        warp's box test and, for strokes, its edge reject; the warp vote
+        of strokes, and the curve pairs with no sample inside.  ``live``
+        (T, P / 32) marks the warps that the clip vote kept.  Returns the
+        pixels whose warp walks each entry, (T, B, P)."""
+        box = [v[..., None] for v in _cull_boxes(rf, coord)]  # (T, B, 1)
+
+        def meets(rect):
+            x0, y0, x1, y1 = (v[sel][:, None, :] for v in rect)
+            return ~((box[2] < x0) | (box[0] > x1) | (box[3] < y0) | (box[1] > y1))
+
+        staged = ok[..., None] & meets(block_rect)          # (T, B, NB)
+        in_box = meets(warp_rect)                            # (T, B, W)
+        kept = ok[..., None] & live[:, None, :]
+        count("entry_blocks", ok.sum() * staged.shape[-1])
+        count("staged_rows", staged.sum())
+        count("entry_warps", ok.sum() * n_warps)
+        count("culled", (kept & ~in_box).sum())
+        walked = kept & in_box & staged[..., warp_block]
+        stroke = code in stroke_codes
         if stroke:
-            edges = _edges(rf, ri, pxc[sel], pyc[sel])
-            voted = sum(
-                _inside(edges, float(ox) - 0.5, float(oy) - 0.5)[..., warps]
-                .any(-1).long()
-                for ox, oy in offsets
+            rejected = _edge_reject(
+                rf[..., None, :], [v[sel][:, None] for v in warp_rect], coord
             )
-            count("stroke_samples", walked.sum() * 32 * S)
-            count("vote_skipped", ((S - voted) * walked).sum() * 32)
+            count("edge_rejected", (walked & rejected).sum())
+            walked = walked & ~rejected
+        count("walked", walked.sum())
+        if stroke or code != CLS_FILL_SOLID:
+            edges = _edges(rf, ri, pxc[sel], pyc[sel])
+            pairs = voted = 0
+            for ox, oy in offsets:
+                inside = _inside(edges, float(ox) - 0.5, float(oy) - 0.5)[..., warps]
+                pairs = pairs + inside.sum(-1)               # (T, B, W)
+                voted = voted + inside.any(-1).long()
+            n = walked.sum()
+            if stroke:
+                count("stroke_pairs", n)
+                count("inside_pairs", (walked & (pairs > 0)).sum())
+                count("stroke_samples", n * 32 * S)
+                count("vote_skipped", ((S - voted) * walked).sum() * 32)
+                count("keep_lanes", (pairs * walked).sum())
+                count("keep_slots_sample", (voted * walked).sum() * 32)
+            else:
+                count("fill_pairs", n)
+                count("fill_pairs_outside", (walked & (voted == 0)).sum())
+        return walked[..., warp_of]
 
     def stencil(sel, c, w, clip_ok, live):
         base = N_CLASSES * c
         pxs, pys = pxc[sel], pyc[sel]
         for code, joint, dash_mode in STROKE_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
-                if work is not None:
-                    count_warps(sel, rf, ri, ok, True, live)
+                walk = None if work is None else walk_mask(sel, rf, ri, ok, code, live)
                 cov = _stroke_cover(
                     rf, ri, ok, joint, dash_mode, desc_f, desc_i, pxs, pys,
-                    offsets,
+                    offsets, walk,
                 )
                 if clip_ok is not None:
                     cov = cov & clip_ok
                 w = torch.where(cov & (w == 0), 1, w)
         for code in FILL_CLASSES:
             for rf, ri, ok in batches(sel, base + code):
-                if work is not None:
-                    count_warps(sel, rf, ri, ok, False, live)
-                delta = _fill_delta(rf, ri, ok, code, pxs, pys, offsets)
+                walk = None if work is None else walk_mask(sel, rf, ri, ok, code, live)
+                delta = _fill_delta(rf, ri, ok, code, pxs, pys, offsets, walk)
                 if clip_ok is not None:
                     delta = torch.where(clip_ok, delta, 0)
                 w = w + delta

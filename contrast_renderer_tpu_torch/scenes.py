@@ -606,6 +606,89 @@ def warp_boundaries():
     ]
 
 
+def thin_strokes(size=128, geometry=None):
+    """Thin diagonal strokes, whose culling boxes are loose: twelve
+    lines from 0.3 to 1.4 px wide at angles from 5 to 148 degrees
+    through a ``size``² frame (solid, butt caps), and two zigzag
+    polylines 0.8 and 1.2 px wide, one with a single-interval dash and
+    round joins, one with a two-interval dash and mitre joins.  Returns
+    ``(paths, options)`` for a ``size``² frame under ``ortho``."""
+    g = _geo(geometry)
+    cap, join = g.Cap, g.Join
+    options = [
+        g.DynamicStrokeOptions.make_solid(join.BEVEL, cap.BUTT, cap.BUTT),
+        g.DynamicStrokeOptions.make_dashed(
+            join.ROUND,
+            [g.DashInterval(gap_start=3.0, gap_end=5.0,
+                            dash_start=cap.ROUND, dash_end=cap.BUTT)],
+            phase=0.25,
+        ),
+        g.DynamicStrokeOptions.make_dashed(
+            join.MITER,
+            [
+                g.DashInterval(gap_start=2.0, gap_end=3.0,
+                               dash_start=cap.BUTT, dash_end=cap.SQUARE),
+                g.DashInterval(gap_start=5.0, gap_end=6.5,
+                               dash_start=cap.OUT, dash_end=cap.IN),
+            ],
+            phase=0.5,
+        ),
+    ]
+
+    def line(points, width, group):
+        p = g.Path(start=points[0])
+        for point in points[1:]:
+            p.push_line(g.LineSegment([point]))
+        p.stroke_options = g.StrokeOptions(
+            width=width, offset=0.0, miter_clip=3.0, closed=False,
+            dynamic_stroke_options_group=group,
+        )
+        return p
+
+    c = size / 2.0
+    paths = []
+    for i in range(12):
+        angle = np.radians(5.0 + 13.0 * i)
+        dx, dy = np.cos(angle) * 0.45 * size, np.sin(angle) * 0.45 * size
+        paths.append(line([(c - dx, c - dy), (c + dx, c + dy)], 0.3 + 0.1 * i, 0))
+    zig = [(0.08 * size + 0.12 * size * k, (0.2 if k % 2 else 0.3) * size)
+           for k in range(8)]
+    paths.append(line(zig, 0.8, 1))
+    paths.append(line([(x, size - y) for x, y in zig], 1.2, 2))
+    return paths, options
+
+
+def stroke_over_fill(size=64, api=None, geometry=None):
+    """One stencil command whose shape has fill and stroke rows that
+    cover the same samples: a square (the middle half of a ``size``²
+    frame) and a horizontal stroke across it (0.2·size wide, butt caps),
+    then its colour cover.  With a one-bit winding counter (even-odd),
+    a sample inside both ends covered only if the stroke OR precedes the
+    fill's add (0 -> 1 -> 2, even) and not the other way (±1, odd)."""
+    g = _geo(geometry)
+    if api is None:
+        from . import renderer as api
+    square = g.Path(start=(0.25 * size, 0.25 * size))
+    for x, y in ((0.75, 0.25), (0.75, 0.75), (0.25, 0.75), (0.25, 0.25)):
+        square.push_line(g.LineSegment([(x * size, y * size)]))
+    line = g.Path(start=(0.1 * size, 0.5 * size))
+    line.push_line(g.LineSegment([(0.9 * size, 0.5 * size)]))
+    line.stroke_options = g.StrokeOptions(
+        width=0.2 * size, offset=0.0, miter_clip=1.0, closed=False,
+        dynamic_stroke_options_group=0,
+    )
+    shape = api.Shape(
+        [square, line],
+        [g.DynamicStrokeOptions.make_solid(g.Join.BEVEL, g.Cap.BUTT, g.Cap.BUTT)],
+    )
+    t = ortho(size, size)
+    op = api.RenderOperation
+    return [
+        api.DrawCommand(op.STENCIL, shape, t),
+        api.DrawCommand(op.COLOR, shape, t, color=(1.0, 1.0, 1.0, 1.0)),
+    ]
+
+
 #: BASELINE config 4's text (benchmarks/run_configs.py::config4): 112
 #: lines of two pangrams with digits, 10,080 glyphs.
 CONFIG4_TEXT = "\n".join(

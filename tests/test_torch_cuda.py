@@ -9,7 +9,9 @@ and alpha frames; depth under each compare function, with and without
 write; linear, radial, multi-stop and degenerate gradients; a user
 paint compiled into the kernel; the cap golden; the whole path on the
 card against the path on the CPU; ``render_sequence`` writing its
-frames in place; ``FrameProgram``'s captured frame step (its replays
+frames in place; the stencil walk on stroke-heavy and fill-heavy frames
+at S = 1, 4, 8 and 16 with and without a clip, and a command's strokes
+before its fills; ``FrameProgram``'s captured frame step (its replays
 against the eager binning and raster, without a synchronise, across a
 capacity growth and with two alpha layers), its compile hysteresis over
 an unplanned motion and its scout through a binning step; the
@@ -351,18 +353,94 @@ def test_gated_matches_ungated_on_card(card, frame, monkeypatch):
 
 
 @pytest.mark.parametrize("samples", [1, 4, 16])
-@pytest.mark.parametrize("strips", [1, 2, 4, 8])
+@pytest.mark.parametrize("strips", [1, 2, 4, 8, 32, 128])
 def test_warp_boundaries_match_plain(card, samples, strips):
     """scenes.warp_boundaries: entries whose boxes end exactly on warp
     footprints and tile boundaries, vertices on sample positions and
     slivers, under every strip layout (at 8 strips a warp's 32 lanes
-    span two strips), bit for bit."""
+    span two strips; at 32 and 128 a warp's 8 lanes span 2 and 8
+    strips), bit for bit."""
     renderer = Renderer(
         Configuration(msaa_sample_count=samples), *scenes.BOUNDARY_SIZE,
         tile_strips=strips, device=card,
     )
     spec, _, runtime = renderer._prepare(scenes.warp_boundaries())
     assert spec.tile_strips == strips
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+def stencil_commands(kind, clip, size=SIZE):
+    """A stroke-heavy frame (scenes.thin_strokes, and config 3's dashed
+    polylines through a window) or a fill-heavy one (Bézier fills, and a
+    command whose shape has stroke and fill rows over the same samples),
+    inside a rectangular clip where ``clip``."""
+    op = RenderOperation
+    t = scenes.ortho(size, size)
+    if kind == "strokes":
+        dashed = Shape(*scenes.dashed_strokes(1920, 1080, seed=1))
+        moved = t.copy()
+        moved[0, 3] -= 2.0 * 800.0 / size
+        moved[1, 3] -= 2.0 * 450.0 / size
+        shapes = [(Shape(*scenes.thin_strokes(size)), t), (dashed, moved)]
+    else:
+        fills = Shape(scenes.bezier_fill_paths(
+            150, size, size, seed=5, margin=8.0, radius=(3.0, 30.0)))
+        mixed = scenes.stroke_over_fill(size)[0]
+        shapes = [(fills, t), (mixed.shapes[0], mixed.transform)]
+    depth = 1 if clip else 0
+    body = []
+    for shape, transform in shapes:
+        body += [
+            DrawCommand(op.STENCIL, shape, transform, clip_depth=depth),
+            DrawCommand(op.COLOR, shape, transform, clip_depth=depth,
+                        color=(0.9, 0.5, 0.2, 0.8)),
+        ]
+    if not clip:
+        return body
+    box = Shape([Path.from_rect((size * 0.45, size * 0.55), (size * 0.35, size * 0.3))])
+    return ([DrawCommand(op.STENCIL, box, t), DrawCommand(op.CLIP, box, t, clip_depth=1)]
+            + body + [DrawCommand(op.UNCLIP, box, t, clip_depth=0)])
+
+
+@pytest.mark.parametrize("samples", [1, 4, 8, 16])
+@pytest.mark.parametrize("kind", ["strokes", "fills"])
+@pytest.mark.parametrize("clip", [False, True], ids=["plain", "clip"])
+def test_stencil_walk_matches_plain(card, samples, kind, clip):
+    """The stencil walk (one staged walk per command, compacted per
+    block, per-warp hit lists, the stroke edge reject, fill rows read
+    through shuffles) on stroke-heavy and fill-heavy frames, with and
+    without a clip, bit for bit."""
+    renderer = Renderer(Configuration(msaa_sample_count=samples), SIZE, SIZE,
+                        device=card)
+    spec, _, runtime = renderer._prepare(stencil_commands(kind, clip))
+    assert spec.has_strokes
+    assert coverage.clip_alpha_ops(spec)[0] == clip
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+@pytest.mark.parametrize("kind", ["strokes", "fills"])
+@pytest.mark.parametrize("strips", [32, 128])
+def test_stencil_walk_in_narrow_strips_matches_plain(card, samples, kind, strips):
+    """The stencil walk where a strip is narrower than a warp's 8 lanes
+    (4 and 1 pixels): each warp's rectangle and edge-reject footprint
+    span several strips.  Stroke-heavy and fill-heavy frames inside a
+    clip, bit for bit."""
+    renderer = Renderer(Configuration(msaa_sample_count=samples), SIZE, SIZE,
+                        tile_strips=strips, device=card)
+    spec, _, runtime = renderer._prepare(stencil_commands(kind, True))
+    assert spec.tile_strips == strips and spec.screen_tile_w < 8
+    assert_kernel_matches_plain(spec, *runtime)
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_strokes_before_fills_on_card(card, bits):
+    """scenes.stroke_over_fill under a one-bit and a four-bit winding
+    counter: the kernel runs a command's stroke rows before its fill
+    rows, as the plain version does, bit for bit."""
+    renderer = Renderer(Configuration(winding_counter_bits=bits), 64, 64,
+                        device=card)
+    spec, _, runtime = renderer._prepare(scenes.stroke_over_fill(64))
     assert_kernel_matches_plain(spec, *runtime)
 
 

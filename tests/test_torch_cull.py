@@ -1,11 +1,13 @@
 """The coverage kernel's per-warp skips, checked on the CPU: the box test
 by which each warp culls stroke and fill entries is exact (no sample
 that passes an entry's three edge tests lies outside the entry's
-widened box), the plain version's counts of culled (warp, entry) pairs,
-of stroke samples skipped by the warp vote and of (warp, unit) pairs
-skipped by the clip vote equal a brute-force count over the warp
-footprints, and the renderer's entry point runs on the card unless
-asked for the CPU.
+widened box), the plain version's counts of the stencil walk (the
+(block, entry) rows staged, the (warp, entry) pairs culled by the box
+test, dropped by the edge reject and walked, the stroke samples skipped
+by the warp vote, the predicate lanes, the curve pairs with no sample
+inside) and of (warp, unit) pairs skipped by the clip vote equal a brute-force
+count over the block and warp footprints, and the renderer's entry
+point runs on the card unless asked for the CPU.
 
 Scenes, each at most 128² pixels: a 128² window of BASELINE config 3
 (``scenes.dashed_strokes(1920, 1080, seed=1)``, widths unchanged), the
@@ -154,25 +156,54 @@ def test_no_passing_sample_lies_outside_the_widened_box(scene):
         assert classes & set(coverage.FILL_CLASSES)
 
 
+def edge_rejects(row, wx, wy, coord):
+    """The kernel's edge reject of one entry row for warps whose pixels
+    are (wx, wy), (W, 32) each, in numpy float32: one of its edge
+    functions, at the corner of the warp's sample footprint (the union of
+    its pixels' squares' bounding rectangle) that maximises it, below
+    minus 2^-20 of its magnitude (and 2^-100)."""
+    f32 = np.float32
+    x_lo, y_lo = wx.min(1), wy.min(1)
+    x_hi, y_hi = wx.max(1) + 1, wy.max(1) + 1
+    out = np.zeros(len(wx), bool)
+    for edge in range(3):
+        a, b, c = (f32(row[3 * edge + i]) for i in range(3))
+        x = (x_hi if a > 0 else x_lo).astype(f32)
+        y = (y_hi if b > 0 else y_lo).astype(f32)
+        e = (a * x + b * y) + c
+        margin = f32(2.0 ** -20) * ((abs(a) + abs(b)) * f32(coord) + abs(c)) + f32(2.0 ** -100)
+        out |= e < -margin
+    return out
+
+
 def brute_force_counts(spec, runtime):
-    """The stencil walk's counts, pair by pair: every (warp, entry) of
-    the stencil units in each tile's active list, the rectangle of the
-    warp's 32 pixel centres, the box test against ``_cull_boxes``, and
-    for the stroke pairs that remain, the samples that no lane of the
-    warp has inside (edge tests in numpy float32)."""
+    """The stencil walk's counts, pair by pair: every (block, entry) and
+    (warp, entry) of the stencil units in each tile's active list, the
+    rectangles of the block's 256 and the warp's 32 pixel centres, the
+    box test against ``_cull_boxes``, the edge reject of stroke pairs
+    in the box, and for the pairs walked the samples that no lane of the
+    warp has inside (edge tests in numpy float32): the warp vote of
+    strokes, the predicate lanes, and the curve pairs with none."""
     prepared, cmd_i = runtime[0], runtime[1]
     draws = coverage.draw_tables(spec)
     S = spec.samples
     offsets = coverage.SAMPLE_PATTERNS[S].astype(np.float64)
     coord = spec.ntx * spec.screen_tile_w + spec.nty * spec.screen_tile_h + 1
     stroke_codes = {code for code, _, _ in coverage.STROKE_CLASSES}
-    counts = dict(entry_warps=0, culled=0, stroke_samples=0, vote_skipped=0)
+    counts = dict(entry_blocks=0, staged_rows=0, entry_warps=0, culled=0,
+                  edge_rejected=0, walked=0, stroke_pairs=0, inside_pairs=0,
+                  stroke_samples=0, vote_skipped=0, keep_lanes=0,
+                  keep_slots_sample=0, fill_pairs=0,
+                  fill_pairs_outside=0)
     f32 = np.float32
     warps = warp_lanes(spec)
+    blocks = warps.reshape(-1, 8 * 32)
     for t in range(spec.n_tiles):
         xs, ys = pixel_grid(spec, t)
         wx, wy = xs[warps], ys[warps]
         fp = (wx.min(1) + 0.5, wy.min(1) + 0.5, wx.max(1) + 0.5, wy.max(1) + 0.5)
+        bx, by = xs[blocks], ys[blocks]
+        bp = (bx.min(1) + 0.5, by.min(1) + 0.5, bx.max(1) + 0.5, by.max(1) + 0.5)
         pxc, pyc = (xs + 0.5).astype(f32), (ys + 0.5).astype(f32)
         for k in range(int(prepared.acount[t, 0, 0])):
             u = int(prepared.aclist[t, 0, k])
@@ -186,11 +217,25 @@ def brute_force_counts(spec, runtime):
                 for j in range(lo, hi):
                     row = rows_f[t, j]
                     box = [float(v) for v in coverage._cull_boxes(row[None], coord)]
-                    meets = ~((box[2] < fp[0]) | (box[0] > fp[2])
-                              | (box[3] < fp[1]) | (box[1] > fp[3]))
-                    counts["entry_warps"] += len(meets)
-                    counts["culled"] += int((~meets).sum())
-                    if int(rows_i[t, j, coverage.RI_CLASS]) not in stroke_codes:
+
+                    def meets(r):
+                        return ~((box[2] < r[0]) | (box[0] > r[2])
+                                 | (box[3] < r[1]) | (box[1] > r[3]))
+
+                    staged = meets(bp).repeat(8)
+                    in_box = meets(fp)
+                    counts["entry_blocks"] += len(bp[0])
+                    counts["staged_rows"] += int(meets(bp).sum())
+                    counts["entry_warps"] += len(in_box)
+                    counts["culled"] += int((~in_box).sum())
+                    walked = staged & in_box
+                    cls = int(rows_i[t, j, coverage.RI_CLASS])
+                    if cls in stroke_codes:
+                        rejected = edge_rejects(row.numpy(), wx, wy, coord)
+                        counts["edge_rejected"] += int((walked & rejected).sum())
+                        walked &= ~rejected
+                    counts["walked"] += int(walked.sum())
+                    if cls == coverage.CLS_FILL_SOLID:
                         continue
                     a, b, e = [], [], []
                     for edge in range(3):
@@ -199,7 +244,8 @@ def brute_force_counts(spec, runtime):
                         b.append(bk)
                         e.append(ak * pxc + bk * pyc + ck)
                     flags = int(rows_i[t, j, coverage.RI_FLAGS])
-                    lanes_in = np.zeros((len(meets), S), bool)
+                    lanes_in = np.zeros((len(in_box), S), bool)
+                    pairs = np.zeros(len(in_box), int)
                     for s, (ox, oy) in enumerate(offsets):
                         dx, dy = f32(ox - 0.5), f32(oy - 0.5)
                         inside = np.ones(len(xs), bool)
@@ -208,15 +254,25 @@ def brute_force_counts(spec, runtime):
                             tl = bool(flags >> edge & 1)
                             inside &= (e[edge] > nt) | ((e[edge] == nt) & tl)
                         lanes_in[:, s] = inside[warps].any(1)
-                    walked = int(meets.sum())
-                    counts["stroke_samples"] += walked * 32 * S
-                    counts["vote_skipped"] += 32 * int((~lanes_in[meets]).sum())
+                        pairs += inside[warps].sum(1)
+                    n = int(walked.sum())
+                    voted = lanes_in[walked].sum(1)
+                    if cls not in stroke_codes:
+                        counts["fill_pairs"] += n
+                        counts["fill_pairs_outside"] += int((voted == 0).sum())
+                        continue
+                    counts["stroke_pairs"] += n
+                    counts["inside_pairs"] += int((pairs[walked] > 0).sum())
+                    counts["stroke_samples"] += n * 32 * S
+                    counts["vote_skipped"] += 32 * int((S - voted).sum())
+                    counts["keep_lanes"] += int(pairs[walked].sum())
+                    counts["keep_slots_sample"] += 32 * int(voted.sum())
     return counts
 
 
 @pytest.mark.parametrize(
     "scene,strips",
-    [("boundaries", 1), ("boundaries", 4), ("config3", 2)],
+    [("boundaries", 1), ("boundaries", 4), ("config3", 2), ("boundaries", 32)],
 )
 def test_warp_counts_match_brute_force(scene, strips):
     spec, runtime = frame(scene, strips)
@@ -233,10 +289,13 @@ def test_warp_counts_match_brute_force(scene, strips):
         coverage.rasterize_plain(spec, prepared, cmd_i, cmd_f, *units, desc_f, desc_i),
     )
     want = brute_force_counts(spec, runtime)
-    assert {key: work[key] for key in want} == want
-    # Both mechanisms have work to skip on these frames.
+    assert {key: work.get(key, 0) for key in want} == want
+    # Each mechanism has work to skip on these frames.
+    assert 0 < want["staged_rows"] < want["entry_blocks"]
     assert 0 < want["culled"] < want["entry_warps"]
+    assert 0 < want["edge_rejected"]
     assert 0 < want["vote_skipped"] < want["stroke_samples"]
+    assert 0 < want["keep_lanes"] < want["keep_slots_sample"]
 
 
 def brute_force_clip_skips(spec, runtime):
