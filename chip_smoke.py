@@ -110,7 +110,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    captured, the host time a frame for planning, copies in and replay,
    copy out and carry, every frame equal to the eager frame to the bit;
    the peak device memory of graph and eager frames and rebuilds; the
-   calls of one frame that wait for the device; under torch.profiler, the device's
+   frame record (``frame_record_check``) of the last window, each frame
+   one binning with six rising device marks, binning's stages in ms a
+   frame, and an eager binning of two frames whose stages sum to within
+   5% of CUDA events around it; the calls of one frame that wait for the device; under torch.profiler, the device's
    busy share, the kernel's and binning's device time and the device
    operations a frame; the frame with the most
    crossings, a fused frame and a frame that fell back (where one does)
@@ -355,6 +358,58 @@ ALPHA_OP_OPS = {4: 0, 5: 2, 6: 3, 7: 2}
 def fail(message):
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def raster_launches():
+    """The raster kernel's launches in this process, from the port's
+    frame record (a replayed graph adds the launches it captured)."""
+    from contrast_renderer_tpu_torch.utils.profiling import RECORD
+
+    return RECORD.counters["raster_launches"]
+
+
+def frame_record_check(program, n, stacks, label):
+    """The port's frame record of ``program``'s last ``n`` frames: fails
+    unless each holds one binning with its six device marks rising, and
+    unless an eager binning of each of ``stacks`` has its five stages sum
+    to within 5% of CUDA events around it.  Returns the mean ms a frame
+    of each stage over the ``n`` frames."""
+    import torch
+    from contrast_renderer_tpu_torch.utils.profiling import MARKS, RECORD, STAGES
+
+    rows = [r for r in RECORD.rows() if r["program"] == program._name][-n:]
+    bad = [
+        i for i, r in enumerate(rows)
+        if not r["marks_ns"] or len(r["marks_ns"]) != 1
+        or len(r["marks_ns"][0]) != MARKS
+        or any(a >= b for a, b in zip(r["marks_ns"][0], r["marks_ns"][0][1:]))
+    ]
+    if len(rows) != n or bad:
+        fail(f"{label}: the frame record holds {len(rows)} of {n} frames; "
+             f"frames {bad[:8]} lack six rising device marks")
+    dev = program._renderer.device
+    for t in stacks:
+        variant, transforms = program._choose(program._opt_rows(t),
+                                              derive=False)
+        d = {k: torch.as_tensor(a, device=dev)
+             for k, a in program._descriptors().items()}
+        args = (*program._scene.arrays, torch.as_tensor(transforms, device=dev),
+                d["static"], variant.paints)
+        variant.prepare(*args)
+        torch.cuda.synchronize()
+        frame = RECORD.begin("chip_smoke eager binning", "check", "check", "bin")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        variant.prepare(*args)
+        end.record()
+        frame.end()
+        torch.cuda.synchronize()
+        row = [r for r in RECORD.rows() if r["frame"] == frame.index][0]
+        stages, events = sum(row["stages_ms"].values()), start.elapsed_time(end)
+        if abs(stages - events) > 0.05 * events:
+            fail(f"{label}: an eager binning's stages sum to {stages:.4f} ms "
+                 f"against {events:.4f} ms of CUDA events")
+    return {s: sum(r["stages_ms"][s] for r in rows) / n for s in STAGES}
 
 
 def cuda_ms(fn, reps, iters, warmup):
@@ -748,14 +803,14 @@ def check_frame(image, height, width, label):
 
 
 def render_main_path(coverage, renderer, commands, label, height, width):
-    """One frame through Renderer.render with the launch count set to 0
-    just before and read just after; fails unless the kernel launched."""
+    """One frame through Renderer.render, the launch count read just
+    before and just after; fails unless the kernel launched."""
     import torch
 
-    coverage.raster_launches = 0
+    since = raster_launches()
     image = renderer.render(commands, to_host=False)
     torch.cuda.synchronize()
-    launches = coverage.raster_launches
+    launches = raster_launches() - since
     if launches < 1:
         fail(f"{label}: Renderer.render did not launch coverage_raster")
     covered = check_frame(image, height, width, label)
@@ -928,14 +983,14 @@ def main():
     if not spec3.has_strokes:
         fail("config 3: the spec has no stroke rows")
     err3 = kernel_vs_plain(coverage, spec3, runtime3, "config 3")
-    coverage.raster_launches = 0
+    since = raster_launches()
     images = []
     for phase in (0.0, 0.3):
         for g, join in enumerate(scenes.DASHED_JOINS):
             dashed.set_dynamic_stroke_options(g, scenes.dashed_options(join, phase))
         images.append(renderer3.render(commands3, to_host=False))
     torch.cuda.synchronize()
-    launches3 = coverage.raster_launches
+    launches3 = raster_launches() - since
     if launches3 < 2:
         fail(f"config 3: {launches3} launches for two frames")
     for image in images:
@@ -1314,7 +1369,7 @@ def layers_phase(coverage, Configuration, Renderer, cmds):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        coverage.raster_launches = 0
+        since = raster_launches()
         images[layers] = r.render(cmds, to_host=False, as_uint8=True)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
@@ -1322,10 +1377,10 @@ def layers_phase(coverage, Configuration, Renderer, cmds):
         scratch = blocks * max(1, spec.n_layers) * spec.samples * 256 * 4
         print(f"showcase clip/alpha, 16x MSAA, {layers} alpha layer(s): layer "
               f"mode {coverage.layer_mode(spec)}, layer scratch {blocks} blocks, "
-              f"{scratch / 2**20:.1f} MiB; {coverage.raster_launches} launch(es); "
+              f"{scratch / 2**20:.1f} MiB; {raster_launches() - since} launch(es); "
               f"peak device memory over the render {peak / 2**20:.1f} MiB",
               flush=True)
-        if coverage.raster_launches < 1:
+        if (raster_launches() - since) < 1:
             fail("showcase clip/alpha, 16 layers: the render did not launch the kernel")
         if layers == 16 and (blocks == 0 or peak > LAYER_MEMORY_LIMIT):
             fail(f"showcase clip/alpha, 16 layers: {blocks} scratch blocks, "
@@ -1799,7 +1854,7 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     for window in range(ORBIT_WINDOWS):
         host = {"plan_ms": 0.0, "bin_ms": 0.0, "raster_ms": 0.0}
         fused_at, held, captured = [], [], 0
-        coverage.raster_launches = 0
+        since = raster_launches()
         start = time.perf_counter()
         for i in range(n):
             image, acc = program(at(i), carry=acc)
@@ -1810,7 +1865,7 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
             captured += "capture_ms" in program.stats
         total = float(acc)
         walls.append(time.perf_counter() - start)
-        launches = coverage.raster_launches
+        launches = raster_launches() - since
         differ = [i for i in range(n) if not torch.equal(held[i], eager[i])]
         del held
         print(f"{label} ({card}), window {window + 1}: {n} frames in "
@@ -1834,6 +1889,13 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     wall = statistics.median(walls)
     rebuilds = program.builds - built
     del eager
+    stages = frame_record_check(program, n, [stacks[0], stacks[crossing]],
+                                label)
+    print(f"{label} ({card}): frame record over the last window's {n} frames, "
+          f"binning's stages in device ms a frame: "
+          + ", ".join(f"{s} {ms:.3f}" for s, ms in stages.items())
+          + "; every frame six rising marks; an eager binning's stages "
+          "within 5% of its CUDA events", flush=True)
 
     def peak_mib(frame):
         """Peak device memory of 8 frames above what was allocated before
@@ -2282,7 +2344,7 @@ def moved_render_run(coverage, Renderer, config, width, height, frames, at,
     recaptured = [0] * MOVED_WINDOWS
     for window in range(MOVED_WINDOWS):
         held = []
-        coverage.raster_launches = 0
+        since = raster_launches()
         start = time.perf_counter()
         for i in range(n):
             at(i)
@@ -2295,7 +2357,7 @@ def moved_render_run(coverage, Renderer, config, width, height, frames, at,
             held.append(image)
         total = float(acc)
         walls.append(time.perf_counter() - start)
-        launches = coverage.raster_launches
+        launches = raster_launches() - since
         differ = [i for i in range(n) if not torch.equal(held[i], want[i])]
         if launches != n or differ or not total > 0:
             fail(f"moved {label}: window {window + 1}: {launches} launches for "
@@ -2453,7 +2515,7 @@ def frame_loop_phase(coverage, Renderer, card):
         if loop.renderer.device.type != "cuda":
             fail(f"{label}: the loop's renderer is on {loop.renderer.device}")
         seconds, captured, dragged = {}, {}, []
-        coverage.raster_launches = 0
+        since = raster_launches()
         for index in range(LOOP_FRAMES):
             if index == 0:
                 loop.send_button(True)
@@ -2499,7 +2561,7 @@ def frame_loop_phase(coverage, Renderer, card):
                       f"frames at {size[0]}x{size[1]}: fps {loop.timer.fps:.2f}, "
                       f"average_s {loop.timer.average_s:.5f}", flush=True)
                 loop.request_resize(WIDTH, HEIGHT)
-        launches = coverage.raster_launches
+        launches = raster_launches() - since
         print(f"{label} ({card}): FrameTimer after {LOOP_FRAMES} frames: "
               f"fps {loop.timer.fps:.2f}, average_s {loop.timer.average_s:.5f}; "
               + "; ".join(
@@ -2702,11 +2764,11 @@ def sharded_phase(coverage, showcase, Configuration, Renderer, card):
         if label == "showcase":
             runs.append(("render_sharded_2d, 2x2", render_sharded_2d, grid))
         for name, fn, where in runs:
-            coverage.raster_launches = 0
+            since = raster_launches()
             start = time.perf_counter()
             sharded = fn(Renderer(config, SHOWCASE_W, SHOWCASE_H), cmds, where)
             seconds = time.perf_counter() - start
-            count = coverage.raster_launches
+            count = raster_launches() - since
             if launches is None:
                 launches = count
             got = torch.from_numpy(sharded).to(single.device)

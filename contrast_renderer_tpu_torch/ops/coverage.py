@@ -50,6 +50,7 @@ from ..vertex import (
     KIND_STROKE_JOINT,
     KIND_STROKE_LINE,
 )
+from ..utils.profiling import END, RECORD
 
 OP_STENCIL = 0
 OP_CLIP = 1
@@ -745,6 +746,8 @@ def make_prepare(spec: FrameSpec):
                 ],
                 w_eps=torch.tensor(1e-6, dtype=torch.float32, device=dev),
                 eps=torch.tensor(1e-5, dtype=torch.float32, device=dev),
+                # The frame record's marks of the stages below.
+                mark=RECORD.ring(dev).mark,
             )
         return c
 
@@ -763,10 +766,14 @@ def make_prepare(spec: FrameSpec):
         i32 = torch.int32
         i64 = torch.int64
         k = device_constants(dev)
+        mark = k["mark"]
 
         def arange(n, dtype=i32):
             return torch.arange(n, dtype=dtype, device=dev)
 
+        # The frame record's stages (profiling.STAGES), each marked at its
+        # start by name: "setup" is every row's triangle setup.
+        mark("setup")
         # ---- per-stencil-draw triangle setup --------------------------
         sshape = k["sshape"]
         sxy = xy[sshape]                          # (Rs, T, 3, 2)
@@ -994,6 +1001,8 @@ def make_prepare(spec: FrameSpec):
 
         bulk = torch.zeros((n_tiles, C), dtype=i32, device=dev)
 
+        # "slots": the local entries to their tiles.
+        mark("slots")
         # ---- local slot enumeration ----------------------------------
         m = arange(M, i64)
         etx = tx0[:, None] + (m % mx)[None, :]           # (N, M)
@@ -1058,6 +1067,7 @@ def make_prepare(spec: FrameSpec):
         tri_i = rows_i[tri_rows]
         off = torch.clamp(off, max=K)
 
+        mark("globals")
         # ---- globals (big triangles) via a small dense matrix ---------
         gkey = torch.where(is_global, key2_flat, C * N_CLASSES + 1)
         gsrow = torch.sort(gkey, stable=True).indices
@@ -1128,6 +1138,7 @@ def make_prepare(spec: FrameSpec):
         tile_g_count = g_off[:, -1]
         g_off = torch.clamp(g_off, max=Kg)
 
+        mark("covers")
         # ---- cover draws: near-plane clip + hull lines + class ---------
         hp = hull[k["c_shape"]]                          # (Rc, Hm, 2)
         ctf = transforms[k["c_row"]]                     # (Rc, 4, 4)
@@ -1232,6 +1243,8 @@ def make_prepare(spec: FrameSpec):
         ).to(i32).permute(1, 2, 0).reshape(n_tiles, Rc)
         hbits = h_bits.permute(1, 2, 0).reshape(n_tiles, Rc)
 
+        # "units": to the outputs, made contiguous.
+        mark("units")
         # ---- active unit list ------------------------------------------
         # A unit is a whole stencil command or one cover draw, walked in
         # global draw order.
@@ -1287,7 +1300,10 @@ def make_prepare(spec: FrameSpec):
             zplane=zplane,
             overflow=overflow,
         )
-        return PreparedFrame(**{k: v.contiguous() for k, v in fields.items()})
+        prepared = PreparedFrame(
+            **{k: v.contiguous() for k, v in fields.items()})
+        mark(END)
+        return prepared
 
     return prepare
 
@@ -1314,15 +1330,6 @@ def prepare_in_float64(prepare):
 # ---------------------------------------------------------------------------
 # rasterize: the CUDA kernel and its plain torch version
 # ---------------------------------------------------------------------------
-
-#: Launches of the CUDA kernel since the count was last reset: the
-#: wrapper adds one where it launches and nowhere else.  A launch made
-#: while the stream is captured into a CUDA graph runs only when the
-#: graph replays: it counts in ``raster_captures`` instead, and whoever
-#: replays the graph adds its captured launches here on every replay
-#: (renderer._FrameStep).
-raster_launches = 0
-raster_captures = 0
 
 #: The kernel's thread layout: a block of 256 threads is BLOCK_ROWS x
 #: BLOCK_LANES pixels of a tile, and its warp w the BLOCK_ROWS x 8 lanes
@@ -1703,7 +1710,6 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
     which adds each body's warp-cycles to it; ``omit``, one of
     PROFILE_BODIES, launches the subtractive build that skips that body
     (its output is not the frame)."""
-    global raster_launches, raster_captures
     draws, expected = _raster_plan(spec)
     tensors = dict(
         prepared._asdict(), cmd_i=cmd_i, cmd_f=cmd_f,
@@ -1788,10 +1794,11 @@ def coverage_raster(spec, prepared, cmd_i, cmd_f, unit_cmd, unit_draw,
         captured = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"coverage_raster launch failed: CUDA error {err}")
-    if captured:
-        raster_captures += 1
-    else:
-        raster_launches += 1
+    # The frame record's counters: a launch made while the stream is
+    # captured into a CUDA graph runs only when the graph replays, and
+    # whoever replays it adds its captured launches on every replay
+    # (renderer._FrameStep).
+    RECORD.count("raster_captures" if captured else "raster_launches")
     return out
 
 

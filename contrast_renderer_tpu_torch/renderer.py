@@ -35,7 +35,6 @@ import gc
 import hashlib
 import logging
 import math
-import time
 from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
@@ -56,6 +55,7 @@ from .fill import FillBuilder
 from .ops import coverage
 from .path import DynamicStrokeOptions, Path, SegmentType
 from .stroke import StrokeBuilder
+from .utils.profiling import RECORD, Capture, Span
 from .vertex import (
     KIND_INTEGRAL_QUADRATIC, KIND_SOLID, KIND_STROKE_LINE, TriangleTable,
 )
@@ -1540,7 +1540,16 @@ class Renderer:
             torch.cuda.Stream(self.device)
             if self.device.type == "cuda" else None
         )
+        #: The program name of this renderer's frames in the frame record.
+        self._name = RECORD.name("Renderer")
         self._drop_bin_steps()
+
+    @property
+    def frame_record(self):
+        """The process's frame record (``utils.profiling.FrameRecord``):
+        the last frames of every renderer and program, their host spans,
+        binning's device marks, and the counters."""
+        return RECORD
 
     # ------------------------------------------------------------------
 
@@ -2054,9 +2063,27 @@ class Renderer:
         nothing overflows, reading the counters back once per binning;
         without it they are read on a later frame (_defer_overflow) and
         a replayed miss waits for nothing on the device.  A growth
-        drops every step."""
-        start = time.perf_counter()
-        timing = {"bin_ms": 0.0}
+        drops every step.
+
+        The call is a frame of the frame record, its spans
+        (``Renderer.prepare.<span>`` under torch.profiler) tiling it:
+        ``pack`` (validation and packing), ``lookup`` (the spec, its
+        executors and the cache), ``step`` (the binning: the step's
+        copies in and replay, or its eager run) and ``store`` (the
+        counters' read or deferral and the cache's copy); ``timing``
+        reads them."""
+        frame = RECORD.begin(self._name, "Renderer.prepare",
+                             "Renderer.prepare", "pack")
+        self.timing = timing = {}
+        try:
+            return self._prepare_frame(frame, commands, uint8_kernel, graph)
+        finally:
+            frame.end()
+            timing["bin_ms"] = frame.ms("step")
+            timing["prepare_ms"] = (frame.ns[-1] - frame.ns[0]) / 1e6
+
+    def _prepare_frame(self, frame, commands, uint8_kernel, graph):
+        timing = self.timing
         self._validate(commands)
         commands, _ = _optimize_commands(commands)
         if self.auto_instance:
@@ -2085,6 +2112,7 @@ class Renderer:
         desc_static = np.ascontiguousarray(desc_i[:, [9, 8]])
 
         for _attempt in range(4):
+            frame.span("lookup")
             spec = self._spec(
                 ops, cmd_shape, cmd_inst, scene, paints, commands=commands
             )
@@ -2110,7 +2138,7 @@ class Renderer:
             if cached is not None:
                 prepared, self.stats = cached
                 break
-            binning = time.perf_counter()
+            frame.span("step")
             step = None
             if graph:
                 step = self._bin_step(
@@ -2131,7 +2159,7 @@ class Renderer:
                     None if paint_model is None
                     else self._dev_cached("paints", paint_model),
                 )
-            timing["bin_ms"] += (time.perf_counter() - binning) * 1e3
+            frame.span("store")
             limits = (
                 spec.capacity,
                 spec.global_capacity,
@@ -2171,6 +2199,7 @@ class Renderer:
         else:
             raise RuntimeError("tile binning capacity did not converge")
 
+        frame.span("pack")
         cmd_i, cmd_f = self._pack_commands_runtime(
             commands, self._blend_constant_arg()
         )
@@ -2181,8 +2210,6 @@ class Renderer:
             self._dev_cached("desc_f", desc_f),
             self._dev_cached("desc_i", desc_i),
         )
-        timing["prepare_ms"] = (time.perf_counter() - start) * 1e3
-        self.timing = timing
         return raster_spec, rasterize, runtime_args
 
     def render(
@@ -2427,11 +2454,14 @@ class _FrameStep:
     run's own ``prepared``.  The second call captures the step into a
     graph in the memory pool that the owner holds then (``pool``, a
     ``_GraphPool``), and it and every later call replay
-    the graph, adding its captured kernel launches to
-    ``coverage.raster_launches``; so a step met once never pays a
-    capture.  A failed capture or replay raises, naming the step.  On
-    the CPU every call runs the step eagerly and copies its binning into
-    ``prepared``, as a replay leaves it."""
+    the graph, adding its captured kernel launches to the frame record's
+    ``raster_launches``; so a step met once never pays a capture.  The
+    warm-up and the capture are spans of the frame record
+    (``FrameStep.warm_up``, ``FrameStep.capture``), which counts the
+    graph's nodes at the capture and gives each replay's binning its row
+    of the device marks.  A failed capture or replay raises, naming the
+    step.  On the CPU every call runs the step eagerly and copies its
+    binning into ``prepared``, as a replay leaves it."""
 
     def __init__(self, name, prepare, scene_arrays, transforms: np.ndarray,
                  desc_static, paints, pool, side, raster=None):
@@ -2456,6 +2486,9 @@ class _FrameStep:
         self.prepared = None
         self._warm = False
         self.graph = None
+        #: The frame record's account of the capture (profiling.Capture):
+        #: its binnings and the graph's nodes.
+        self._captured = None
         #: Kernel launches that one replay makes.
         self.launches = 0
         #: Host ms of the capture (and the graph's instantiation).
@@ -2476,41 +2509,57 @@ class _FrameStep:
     def _warm_up(self):
         """Run the step on the side stream; returns its binning (its
         frame is in ``self.frame``)."""
-        stream = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(stream)
-        with torch.cuda.stream(self._side):
-            prepared = self._step()
-        stream.wait_stream(self._side)
-        for t in prepared:
-            t.record_stream(stream)
+        with Span("FrameStep", "warm_up"):
+            stream = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(stream)
+            with torch.cuda.stream(self._side):
+                prepared = self._step()
+            stream.wait_stream(self._side)
+            for t in prepared:
+                t.record_stream(stream)
         self._warm = True
         return prepared
 
     def _capture(self):
         """Capture the step into ``self.graph``; returns the host ms."""
-        start = time.perf_counter()
+        before = RECORD.counters["raster_captures"]
         graph = torch.cuda.CUDAGraph()
-        before = coverage.raster_captures
         # A collection during the capture could free another graph, which
         # a capture forbids (and which ends it).
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(self._side):
-                graph.capture_begin(pool=self._pool.handle)
-                try:
-                    self.prepared = self._step()
-                finally:
-                    graph.capture_end()
+            with Capture() as captured:
+                with torch.cuda.stream(self._side):
+                    graph.capture_begin(pool=self._pool.handle)
+                    try:
+                        self.prepared = self._step()
+                        captured.seal(self._side)
+                    finally:
+                        graph.capture_end()
         except RuntimeError as exc:
             raise RuntimeError(f"capturing {self.name} failed") from exc
         finally:
             if collecting:
                 gc.enable()
-        self.launches = coverage.raster_captures - before
+        self.launches = RECORD.counters["raster_captures"] - before
         self.graph = graph
-        self.capture_ms = (time.perf_counter() - start) * 1e3
+        self._captured = captured
+        self.capture_ms = captured.ms
         return self.capture_ms
+
+    @property
+    def nodes(self):
+        """Nodes of the captured graph, the frame record's marks left
+        out; None before a capture (and on the CPU)."""
+        return None if self._captured is None else self._captured.nodes
+
+    @property
+    def stage_nodes(self):
+        """The captured graph's nodes by stage of binning
+        (``profiling.STAGES``), the marks left out; None before a
+        capture."""
+        return None if self._captured is None else self._captured.stage_nodes
 
     def capture(self):
         """Warm up (a frame of the staged inputs) and capture now, on a
@@ -2544,7 +2593,8 @@ class _FrameStep:
             self.graph.replay()
         except RuntimeError as exc:
             raise RuntimeError(f"replaying {self.name} failed") from exc
-        coverage.raster_launches += self.launches
+        RECORD.replayed(self._captured)
+        RECORD.count("raster_launches", self.launches)
         return self.prepared, capture_ms
 
 
@@ -2649,13 +2699,19 @@ class FrameProgram:
         #: Builds of the program, the first included (a capacity growth
         #: or a geometry edit rebuilds it).
         self.builds = 0
-        #: The last call's host times in ms: choosing the variant
-        #: (``plan_ms``); packing the descriptors, the copies in and the
-        #: graph's replay (``bin_ms``); the copy out, carry and overflow
-        #: upkeep (``raster_ms``); on a frame that captured its variant's
-        #: graph, the capture (``capture_ms``, within ``bin_ms``); and
-        #: whether the frame was fused.
+        #: The last call's host times in ms, from its spans in the frame
+        #: record: choosing the variant (``plan_ms``, the ``plan`` span);
+        #: packing the descriptors, the copies in and the graph's replay
+        #: (``bin_ms``, ``stage`` and ``replay``); the copy out, carry and
+        #: overflow upkeep (``raster_ms``, ``out``); on a frame that
+        #: captured its variant's graph, the capture (``capture_ms``,
+        #: within ``bin_ms``); and whether the frame was fused.  The
+        #: ``upkeep`` span before them (the transforms' checks, the
+        #: deferred overflow counters, geometry edits, the blend
+        #: constant) is in none of them.
         self.stats = {}
+        #: The program name of this program's frames in the frame record.
+        self._name = RECORD.name("FrameProgram")
         #: The side stream of warm-ups and captures (CUDA only).
         self._side = (
             torch.cuda.Stream(renderer.device)
@@ -3187,29 +3243,42 @@ class FrameProgram:
 
         ``carry``: with it, returns ``(image, carry + sum(image[...,
         3]))``, the sum on the device with no host synchronise (see
-        ``Renderer.render``)."""
-        transforms = self._opt_rows(transforms)
-        require_finite(transforms, "frame transforms")
-        self._frame += 1
-        self._sync()
-        self._refresh_cmd_f()
-        start = time.perf_counter()
-        variant, transforms = self._choose(transforms)
-        planned = time.perf_counter()
-        self._stage_descriptors()
-        step = self._frame_step(variant, transforms)
-        prepared, capture_ms = step(transforms)
-        stepped = time.perf_counter()
-        # The step's frame is overwritten by its next replay.
-        image = step.frame.clone()
-        if carry is not None:
-            carry = self._renderer._carry(carry, image)
-        self._defer(prepared.overflow)
+        ``Renderer.render``).
+
+        The call is a frame of the frame record, its five spans
+        (``FrameProgram.<span>`` under torch.profiler) tiling it:
+        ``upkeep``, ``plan``, ``stage``, ``replay`` and ``out``."""
+        frame = RECORD.begin(self._name, "FrameProgram", "FrameProgram",
+                             "upkeep")
+        try:
+            transforms = self._opt_rows(transforms)
+            require_finite(transforms, "frame transforms")
+            self._frame += 1
+            self._sync()
+            self._refresh_cmd_f()
+            frame.span("plan")
+            variant, transforms = self._choose(transforms)
+            frame.span("stage")
+            self._stage_descriptors()
+            frame.span("replay")
+            step = self._frame_step(variant, transforms)
+            prepared, capture_ms = step(transforms)
+            frame.span("out")
+            # The step's frame is overwritten by its next replay.
+            image = step.frame.clone()
+            if carry is not None:
+                carry = self._renderer._carry(carry, image)
+            self._defer(prepared.overflow)
+            fused = variant is not self._seq
+        finally:
+            frame.end()
+        # The boundaries of upkeep, plan, stage, replay, out and the end.
+        _, plan, stage, _, out, end = frame.ns
         self.stats = {
-            "fused": variant is not self._seq,
-            "plan_ms": (planned - start) * 1e3,
-            "bin_ms": (stepped - planned) * 1e3,
-            "raster_ms": (time.perf_counter() - stepped) * 1e3,
+            "fused": fused,
+            "plan_ms": (stage - plan) / 1e6,
+            "bin_ms": (out - stage) / 1e6,
+            "raster_ms": (end - out) / 1e6,
         }
         if capture_ms is not None:
             self.stats["capture_ms"] = capture_ms
@@ -3223,53 +3292,65 @@ class FrameProgram:
         active fused plan is used only when every frame validates under
         it; each frame replays its variant's step once, and the
         segment's overflow counters are reduced by max and read as one
-        frame's."""
-        transforms = np.ascontiguousarray(transforms, np.float32)
-        if transforms.ndim != 4:
-            transforms = transforms.reshape(len(transforms), -1, 4, 4)
-        if len(transforms) == 0:
-            raise ValueError("render_sequence needs at least one frame")
-        expected = sum(c.n_instances for c in self._commands)
-        if transforms.shape[1] != expected:
-            raise ValueError(
-                f"expected {expected} transform rows per frame (one per "
-                f"command instance, pre-fusion), got {transforms.shape[1]}"
+        frame's.  The call is one frame of the frame record, with the five
+        spans of ``__call__`` (``replay`` holds every frame's replay and
+        copy out)."""
+        frame = RECORD.begin(self._name, "FrameProgram.render_sequence",
+                             "FrameProgram", "upkeep")
+        try:
+            transforms = np.ascontiguousarray(transforms, np.float32)
+            if transforms.ndim != 4:
+                transforms = transforms.reshape(len(transforms), -1, 4, 4)
+            if len(transforms) == 0:
+                raise ValueError("render_sequence needs at least one frame")
+            expected = sum(c.n_instances for c in self._commands)
+            if transforms.shape[1] != expected:
+                raise ValueError(
+                    f"expected {expected} transform rows per frame (one per "
+                    f"command instance, pre-fusion), got "
+                    f"{transforms.shape[1]}"
+                )
+            if self._keep_rows is not None:
+                transforms = transforms[:, self._keep_rows]
+            require_finite(transforms, "sequence transforms")
+            self._frame += len(transforms)
+            self._sync()
+            self._refresh_cmd_f()
+            frame.span("plan")
+            variant = self._seq
+            if self._runs and self._plan is not None:
+                fused_frames = [
+                    self._plan_transforms_if_valid(self._plan, t)
+                    for t in transforms
+                ]
+                if all(f is not None for f in fused_frames):
+                    variant = self._fused_variants[self._plan.signature][1]
+                    transforms = np.stack(fused_frames)
+            transforms = np.ascontiguousarray(transforms)
+            frame.span("stage")
+            self._stage_descriptors()
+            frame.span("replay")
+            step = self._frame_step(variant, transforms[0])
+            r = self._renderer
+            quantize = as_uint8 and not self._uint8
+            frames = torch.empty(
+                (len(transforms), r.height, r.width, 4),
+                dtype=torch.uint8 if as_uint8 or self._uint8 else torch.float32,
+                device=r.device,
             )
-        if self._keep_rows is not None:
-            transforms = transforms[:, self._keep_rows]
-        require_finite(transforms, "sequence transforms")
-        self._frame += len(transforms)
-        self._sync()
-        self._refresh_cmd_f()
-        variant = self._seq
-        if self._runs and self._plan is not None:
-            fused_frames = [
-                self._plan_transforms_if_valid(self._plan, t)
-                for t in transforms
-            ]
-            if all(f is not None for f in fused_frames):
-                variant = self._fused_variants[self._plan.signature][1]
-                transforms = np.stack(fused_frames)
-        transforms = np.ascontiguousarray(transforms)
-        self._stage_descriptors()
-        step = self._frame_step(variant, transforms[0])
-        r = self._renderer
-        quantize = as_uint8 and not self._uint8
-        frames = torch.empty(
-            (len(transforms), r.height, r.width, 4),
-            dtype=torch.uint8 if as_uint8 or self._uint8 else torch.float32,
-            device=r.device,
-        )
-        worst = None
-        for b in range(len(transforms)):
-            overflow = step(transforms[b])[0].overflow
-            if quantize:
-                frames[b] = Renderer._quantize(step.frame)
-            else:
-                frames[b].copy_(step.frame)
-            worst = (
-                overflow.clone() if worst is None
-                else torch.maximum(worst, overflow)
-            )
-        self._defer(worst)
+            worst = None
+            for b in range(len(transforms)):
+                overflow = step(transforms[b])[0].overflow
+                if quantize:
+                    frames[b] = Renderer._quantize(step.frame)
+                else:
+                    frames[b].copy_(step.frame)
+                worst = (
+                    overflow.clone() if worst is None
+                    else torch.maximum(worst, overflow)
+                )
+            frame.span("out")
+            self._defer(worst)
+        finally:
+            frame.end()
         return frames

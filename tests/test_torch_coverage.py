@@ -18,6 +18,7 @@ from contrast_renderer_tpu.path import Path
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from contrast_renderer_tpu_torch.utils.profiling import RECORD
 from test_torch_instance import one_thread  # noqa: F401
 
 SIZE = 128
@@ -240,9 +241,9 @@ def test_plain_rasterizer_is_the_cpu_path():
         torch.as_tensor(draws.unit_cmd), torch.as_tensor(draws.unit_draw),
         torch.as_tensor(f["desc_f"]), torch.as_tensor(f["desc_i"]),
     )
-    before = port_cov.raster_launches
+    before = RECORD.counters["raster_launches"]
     image = port_cov.coverage_raster(*args)
-    assert port_cov.raster_launches == before
+    assert RECORD.counters["raster_launches"] == before
     tiles = port_cov.rasterize_plain(*args)
     assert tiles.shape == (spec.n_tiles, 4, spec.tile_h, spec.tile_w)
     assert torch.equal(image, port_cov.detile(spec, tiles))

@@ -24,9 +24,12 @@ binning and raster, float and packed, cached binnings and returned
 frames that alias none of its buffers, no synchronise without
 ``strict_capacity``, one read with it, a growth, two alpha layers,
 depth and paints); the
-sharded programs' per-rect steps against their eager frames; and the
+sharded programs' per-rect steps against their eager frames; the
 standalone fill rasterizer, band sharding and the frame loop on the card
-against the CPU, the single render and ``compile_frame``.
+against the CPU, the single render and ``compile_frame``; and the frame
+record's device marks (rising within each replayed frame, five stages
+that sum to CUDA events around an eager binning, graph nodes that repeat
+across captures of one variant).
 
 Needs a CUDA device and the CUDA toolkit; skips without them.  The
 file imports no jax, so on a machine without jax run it without the
@@ -48,6 +51,7 @@ from contrast_renderer_tpu_torch import renderer as port
 from contrast_renderer_tpu_torch.models import showcase
 from contrast_renderer_tpu_torch.ops import coverage
 from contrast_renderer_tpu_torch.path import Path
+from contrast_renderer_tpu_torch.utils.profiling import RECORD
 from contrast_renderer_tpu_torch.renderer import (
     BlendComponent,
     BlendState,
@@ -145,11 +149,11 @@ def assert_kernel_matches_plain(spec, prepared, cmd_i, cmd_f, desc_f, desc_i):
     for u8 in (False, True):
         args = (replace(spec, out_uint8=u8), prepared, cmd_i, cmd_f, *units,
                 desc_f, desc_i)
-        before = coverage.raster_launches
+        before = RECORD.counters["raster_launches"]
         got = coverage.coverage_raster(*args)
         want = coverage.detile(args[0], coverage.rasterize_plain(*args))
         torch.cuda.synchronize()
-        assert coverage.raster_launches == before + 1
+        assert RECORD.counters["raster_launches"] == before + 1
         assert torch.equal(got, want), u8
         assert bool((want != 0).any())
 
@@ -685,9 +689,9 @@ def test_user_paint_matches_plain(card):
     spec, _, runtime = renderer._prepare(commands)
     assert coverage.kernel_features(spec).user_sources == (scenes.CHECKER_CUDA,)
     assert_kernel_matches_plain(spec, *runtime)
-    before = coverage.raster_launches
+    before = RECORD.counters["raster_launches"]
     image = renderer.render(commands, as_uint8=True)
-    assert coverage.raster_launches == before + 1
+    assert RECORD.counters["raster_launches"] == before + 1
     for rgb in ((204, 0, 204), (0, 204, 0)):  # the checker's two colours
         assert (image[..., :3] == rgb).all(-1).any(), rgb
 
@@ -698,10 +702,10 @@ def test_user_paint_without_cuda_raises_on_card(card):
     paint = UserPaint(scenes.checker)
     commands = scenes.mixed_paints(SIZE, SIZE, user_paint=paint)
     renderer = Renderer(Configuration(), SIZE, SIZE, device=card)
-    before = coverage.raster_launches
+    before = RECORD.counters["raster_launches"]
     with pytest.raises(ValueError, match="cuda"):
         renderer.render(commands)
-    assert coverage.raster_launches == before
+    assert RECORD.counters["raster_launches"] == before
     assert not renderer._prepared_cache
 
 
@@ -838,9 +842,9 @@ def test_orbit_render_sequence_matches_calls_on_card(orbit):
     _, program, _ = orbit
     segment = np.stack([showcase.orbit_transforms(i, ORBIT_W, ORBIT_H)
                         for i in range(24, 32)])
-    before = coverage.raster_launches
+    before = RECORD.counters["raster_launches"]
     frames = program.render_sequence(segment)
-    assert coverage.raster_launches == before + len(segment)
+    assert RECORD.counters["raster_launches"] == before + len(segment)
     for got, t in zip(frames, segment):
         assert torch.equal(got, program(t))
 
@@ -859,9 +863,9 @@ def test_render_sequence_writes_frames_in_place_on_card(card, uint8_output):
                         for i in range(3)])
     calls = [program(t) for t in segment]
     for as_uint8 in (False, True):
-        before = coverage.raster_launches
+        before = RECORD.counters["raster_launches"]
         frames = program.render_sequence(segment, as_uint8=as_uint8)
-        assert coverage.raster_launches == before + len(segment)
+        assert RECORD.counters["raster_launches"] == before + len(segment)
         quantize = as_uint8 and not uint8_output
         for got, want in zip(frames, calls):
             assert torch.equal(got, Renderer._quantize(want) if quantize else want)
@@ -936,13 +940,13 @@ def test_frame_graph_matches_eager_on_card(card):
     def phase(i):
         shape.set_dynamic_stroke_options(0, showcase.dashed_options(0.1 * i))
 
-    before = coverage.raster_launches
+    before = RECORD.counters["raster_launches"]
     graph = []
     for i, t in enumerate(stacks):
         phase(i)
         graph.append(program(t))
         assert program.stats["fused"] and "capture_ms" not in program.stats
-    assert coverage.raster_launches == before + len(stacks)
+    assert RECORD.counters["raster_launches"] == before + len(stacks)
     eager = []
     for i, t in enumerate(stacks):
         phase(i)
@@ -1005,10 +1009,10 @@ def test_frame_graph_growth_recaptures_on_card(card):
     want = Renderer(Configuration(), SIZE, SIZE, device=card).render(
         commands, to_host=False)
     for captures in (True, False):
-        before = coverage.raster_launches
+        before = RECORD.counters["raster_launches"]
         assert torch.equal(program(), want)
         assert ("capture_ms" in program.stats) == captures
-        assert coverage.raster_launches == before + 1
+        assert RECORD.counters["raster_launches"] == before + 1
         assert program._seq.step is step and step.graph is not None
 
 
@@ -1276,10 +1280,10 @@ def test_render_sharded_on_card_matches_single_render(card):
 
     shape = showcase.build_shape(with_text=True)
     commands = showcase.showcase_commands(shape, SIZE, SIZE)
-    before = coverage.raster_launches
+    before = RECORD.counters["raster_launches"]
     sharded = render_sharded(Renderer(Configuration(), SIZE, SIZE, device=card),
                              commands, _band_mesh())
-    assert coverage.raster_launches - before >= 4
+    assert RECORD.counters["raster_launches"] - before >= 4
     single = Renderer(Configuration(), SIZE, SIZE, device=card).render(commands)
     assert float(np.mean(np.abs(sharded - single))) < 1e-4
 
@@ -1374,10 +1378,10 @@ def test_render_graph_matches_eager_on_card(card, uint8_kernel):
     commands, stacks, r, e = showcase_orbit(card, strict_capacity=False)
     frames, captured = [], []
     for t in stacks:
-        before = coverage.raster_launches
+        before = RECORD.counters["raster_launches"]
         frames.append(r.render(moved(commands, t), to_host=False,
                                uint8_kernel=uint8_kernel))
-        assert coverage.raster_launches == before + 1
+        assert RECORD.counters["raster_launches"] == before + 1
         captured.append("capture_ms" in r.timing)
     assert captured == [False, True] + [False] * (len(stacks) - 2)
     (step,) = r._bin_steps.values()
@@ -1559,9 +1563,9 @@ def test_sharded_program_graph_matches_eager_on_card(card, grid):
         program(stack)
     frames = []
     for stack in stacks:
-        before = coverage.raster_launches
+        before = RECORD.counters["raster_launches"]
         frames.append(program(stack))
-        assert coverage.raster_launches == before + 4
+        assert RECORD.counters["raster_launches"] == before + 4
         want, _ = mesh_module._run_grid(
             program._pipeline, program._grid, program._rows(stack))
         assert torch.equal(frames[-1], want)
@@ -1570,3 +1574,84 @@ def test_sharded_program_graph_matches_eager_on_card(card, grid):
     assert all(s.graph is not None for s in program._steps.values())
     assert not own & {f.data_ptr() for f in frames}
     assert len({f.cpu().numpy().tobytes() for f in frames}) == len(frames)
+
+
+@pytest.fixture(scope="module")
+def record_card():
+    """The card with the S = 4 library alone, for the frame record's
+    cases (``-k frame_record`` runs them without the other builds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    coverage.build_kernels([coverage.KernelFeatures(4)])
+    return torch.device("cuda")
+
+
+def record_rows(program):
+    return [r for r in RECORD.rows() if r["program"] == program._name]
+
+
+def test_frame_record_marks_are_monotone_on_card(record_card):
+    """The orbit's planned frames at SIZE² replayed back to back: each
+    frame's six device marks (captured with the graph) rise, its five
+    stages are positive, and it counts its graph's nodes, the marks left
+    out, equal to the step's count at the capture."""
+    _, program, stacks = orbit_program(record_card)
+    for t in stacks:
+        program(t)
+    rows = record_rows(program)[-len(stacks):]
+    step = program._fused_variants[program._plan.signature][1].step
+    assert step.nodes > sum(step.stage_nodes.values()) > 0
+    for row in rows:
+        assert row["kind"] == "FrameProgram" and len(row["marks_ns"]) == 1
+        marks = row["marks_ns"][0]
+        assert all(a < b for a, b in zip(marks, marks[1:])), marks
+        assert all(v > 0 for v in row["stages_ms"].values())
+        assert row["graph_nodes"] == step.nodes
+        assert row["stage_nodes"] == step.stage_nodes
+
+
+def test_frame_record_stages_match_events_on_card(record_card):
+    """An eager binning of each of three orbit frames at 1080p: its five
+    stages sum to within 5% of CUDA events recorded around it."""
+    shape = showcase.build_shape(with_text=True)
+    program = Renderer(Configuration(), ORBIT_W, ORBIT_H, strict_capacity=False,
+                       device=record_card).compile_frame(
+        showcase.showcase_commands(shape, ORBIT_W, ORBIT_H), uint8_output=True)
+    dev = record_card
+    for frame in (0, 15, ORBIT_CROSSING):
+        t = program._opt_rows(showcase.orbit_transforms(frame, ORBIT_W, ORBIT_H))
+        variant, transforms = program._choose(t, derive=False)
+        d = {k: torch.as_tensor(a, device=dev)
+             for k, a in program._descriptors().items()}
+        args = (*program._scene.arrays, torch.as_tensor(transforms, device=dev),
+                d["static"], variant.paints)
+        variant.prepare(*args)  # its constants made, its kernels loaded
+        torch.cuda.synchronize()
+        record = RECORD.begin("eager binning", "test", "test", "bin")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        variant.prepare(*args)
+        end.record()
+        record.end()
+        torch.cuda.synchronize()
+        row = [r for r in RECORD.rows() if r["frame"] == record.index][0]
+        stages = sum(row["stages_ms"].values())
+        events = start.elapsed_time(end)
+        assert abs(stages - events) <= 0.05 * events, (
+            frame, row["stages_ms"], events)
+
+
+def test_frame_record_node_counts_repeat_on_card(record_card):
+    """Captures of one variant, after its steps are dropped and in a
+    second program of the same commands, count the same nodes in all and
+    per stage."""
+    counts = []
+    for _ in range(2):
+        _, program, stacks = orbit_program(record_card)
+        for _ in range(2):
+            step = program._fused_variants[program._plan.signature][1].step
+            counts.append((step.nodes, step.stage_nodes))
+            program._drop_steps()
+            for t in stacks[:2]:  # a warm-up, then a capture
+                program(t)
+    assert counts[0][0] > 0 and all(c == counts[0] for c in counts), counts

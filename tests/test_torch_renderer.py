@@ -10,7 +10,7 @@ from contrast_renderer_tpu import renderer as ref
 from contrast_renderer_tpu_torch import path as port_path
 from contrast_renderer_tpu_torch import interop, scenes
 from contrast_renderer_tpu_torch import renderer as port
-from contrast_renderer_tpu_torch.ops import coverage as port_cov
+from contrast_renderer_tpu_torch.utils.profiling import RECORD
 
 SIZE = 128
 
@@ -65,14 +65,14 @@ def test_uint8_kernel_and_float_paths_agree(reference_scene):
     commands, _ = reference_scene
     renderer = port.Renderer(port.Configuration(), SIZE, SIZE, device="cpu")
     scene = interop.scene_from_reference(commands)
-    launches = port_cov.raster_launches
+    launches = RECORD.counters["raster_launches"]
     packed = renderer.render(scene, uint8_kernel=True)
     image = renderer.render(scene)
     quantized = (np.clip(image, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     assert np.array_equal(packed, quantized)
     assert np.array_equal(renderer.render(scene, as_uint8=True), quantized)
     assert renderer.stats["tiles"] == 4
-    assert port_cov.raster_launches == launches  # CPU tensors never launch
+    assert RECORD.counters["raster_launches"] == launches  # CPU tensors never launch
 
 
 def test_circle_coverage_against_oracle():
