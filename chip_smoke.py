@@ -152,6 +152,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and orbit frames 30 and 98 at 3840×2160 through ``Renderer.render``
    against their float64 binning: the pixels that differ counted, at
    most 0.1% of them;
+19d. binning's cover kernel (csrc/cover_bins.cu, ``cover_bins_phase``)
+   at the drift cells' shapes (config 3 and config 2 at 1920x1080), the
+   4K orbit's frame 30 and config 4 per glyph at 1920x1080: its outputs
+   against its plain version's on the card to the bit, its time beside
+   its bound, the plain version's time eager and replayed from a CUDA
+   graph, its registers and the launches counted; it fails where the
+   kernel is slower than its plain version;
 20. the orbit example's app (``examples.orbit_camera``) through
    ``FrameLoop`` at 3840×2160 for 24 frames: a scripted drag and a wheel
    event, 1920×1080 asked for after frame 12, a ``PngSink`` every 8
@@ -366,6 +373,14 @@ def raster_launches():
     from contrast_renderer_tpu_torch.utils.profiling import RECORD
 
     return RECORD.counters["raster_launches"]
+
+
+def cover_bin_launches():
+    """Binning's cover kernel's launches in this process, from the port's
+    frame record, counted as ``raster_launches`` are."""
+    from contrast_renderer_tpu_torch.utils.profiling import RECORD
+
+    return RECORD.counters["cover_bin_launches"]
 
 
 def frame_record_check(program, n, stacks, label):
@@ -1163,6 +1178,7 @@ def main():
                         SHOWCASE_W, SHOWCASE_H)
     orbit_phase(coverage, showcase, Configuration, Renderer, card, WIDTH, HEIGHT)
     near_plane_phase(coverage, showcase, Configuration, Renderer, card)
+    cover_bins_phase(coverage, scenes, showcase, renderer_module, card)
     moved_render_phase(coverage, renderer_module, scenes, showcase, card)
 
     # ---- 20. the orbit example through FrameLoop ---------------------------------
@@ -1793,14 +1809,21 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     captures.setdefault("sequential walk", seq_step)
     print(f"{label} ({card}): capture (host ms, the graph's instantiation "
           f"included; each variant warmed up before) "
-          + ", ".join(f"{k} {step.capture_ms:.1f} ms ({step.launches} launch)"
+          + ", ".join(f"{k} {step.capture_ms:.1f} ms ({step.launches} "
+                      f"coverage_raster launch, "
+                      f"{step.replay_launches['cover_bin_launches']} cover_bins "
+                      f"launch a replay)"
                       for k, step in captures.items())
           + f"; reserved device memory {reserved / 2**20:.1f} -> "
           f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB over the sequential "
           f"walk's capture; the program's graph pool "
           f"{graph_pool_mib(program._pool)}", flush=True)
-    if any(step.launches != 1 for step in captures.values()):
-        fail(f"{label}: a captured step does not launch the kernel once")
+    if any(step.replay_launches != {"raster_launches": 1,
+                                    "cover_bin_launches": 1}
+           for step in captures.values()):
+        fail(f"{label}: a captured step does not launch the raster kernel and "
+             f"the cover kernel once each: "
+             f"{ {k: step.replay_launches for k, step in captures.items()} }")
 
     # Near-plane crossings of every frame, from the sequential walk.
     walk = Renderer(Configuration(), width, height, auto_instance=False,
@@ -1854,7 +1877,7 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
     for window in range(ORBIT_WINDOWS):
         host = {"plan_ms": 0.0, "bin_ms": 0.0, "raster_ms": 0.0}
         fused_at, held, captured = [], [], 0
-        since = raster_launches()
+        since, covers_since = raster_launches(), cover_bin_launches()
         start = time.perf_counter()
         for i in range(n):
             image, acc = program(at(i), carry=acc)
@@ -1866,11 +1889,13 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
         total = float(acc)
         walls.append(time.perf_counter() - start)
         launches = raster_launches() - since
+        covers = cover_bin_launches() - covers_since
         differ = [i for i in range(n) if not torch.equal(held[i], eager[i])]
         del held
         print(f"{label} ({card}), window {window + 1}: {n} frames in "
               f"{walls[-1] * 1e3:.1f} ms, {n / walls[-1]:.2f} frames/s; "
-              f"{launches} coverage_raster launches; {sum(fused_at)} frames "
+              f"{launches} coverage_raster launches, {covers} cover_bins "
+              f"launches; {sum(fused_at)} frames "
               f"fused; {captured} captured; host per frame: planning "
               f"{host['plan_ms'] / n:.3f} ms, copies in and replay (bin_ms) "
               f"{host['bin_ms'] / n:.3f} ms, copy out and carry (raster_ms) "
@@ -1879,8 +1904,9 @@ def orbit_phase(coverage, showcase, Configuration, Renderer, card, width, height
         if captured:
             fail(f"{label}: {captured} frames captured a graph in a timed "
                  f"window")
-        if launches != n:
-            fail(f"{label}: {launches} coverage_raster launches for {n} frames")
+        if launches != n or covers != n:
+            fail(f"{label}: {launches} coverage_raster launches and {covers} "
+                 f"cover_bins launches for {n} frames")
         if not np.isfinite(total) or total <= 0:
             fail(f"{label}: the frames' alpha sum is {total}")
         if differ:
@@ -2034,6 +2060,145 @@ def in_float64(coverage, fn):
         return fn()
     finally:
         coverage.make_prepare = make_prepare
+
+
+def cover_bins_inputs(coverage, run):
+    """The arguments of the last ``coverage.cover_bins`` call that
+    ``run()`` makes (make_prepare's cover stage)."""
+    seen = []
+    original = coverage.cover_bins
+
+    def spy(*args):
+        seen.append(args)
+        return original(*args)
+
+    coverage.cover_bins = spy
+    try:
+        run()
+    finally:
+        coverage.cover_bins = original
+    return seen[-1]
+
+
+#: Calls of the cover kernel captured into the graph that phase 19d times.
+COVER_GRAPH_CALLS = 20
+
+
+def graph_ms(fn, calls):
+    """(median, least, greatest) device ms a call of ``fn`` replayed from a
+    CUDA graph that captures ``calls`` calls of it (warmed up on a side
+    stream first), as ``cuda_ms`` times the replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return tuple(t / calls for t in cuda_ms(graph.replay, 5, 10, 2))
+
+
+def cover_bins_bound(spec, hull, transforms, c_shape):
+    """(ms, "bytes" or "operations", bytes, operations): the least time of
+    the cover stage's work on the card (the peaks of ``kernel_bound``).
+    Operations: 10 a (tile, cover, hull line) pair (_corner_min_max's 4
+    multiplies and 6 adds) and about 60 a cover's hull vertex (transform
+    28, clip 14, projection 6, area 3, line 9).  Bytes: the hull and
+    transform tables and the two index tables read once, hull_lines and
+    the (tiles, covers) int32 cls and hbits written once."""
+    rc, h2 = c_shape.shape[0], spec.h_max + 2
+    size = hull.element_size()
+    ops = 10 * spec.n_tiles * rc * h2 + 60 * rc * h2
+    nbytes = ((hull.numel() + transforms.numel() + 4 * rc * h2) * size
+              + 16 * rc + 8 * spec.n_tiles * rc)
+    by_ops, by_bytes = ops / 67e12, nbytes / 3.35e12
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", nbytes, ops)
+
+
+def cover_bins_phase(coverage, scenes, showcase, api, card):
+    """Phase 19d: binning's cover kernel (csrc/cover_bins.cu) at the drift
+    cells' shapes (config 3 and config 2 at 1920x1080, one cover each),
+    the 4K orbit's frame 30 and config 4 per glyph at 1920x1080: its
+    outputs against cover_bins_plain's on the card to the bit, its time
+    (back-to-back launches between CUDA events) beside its bound, the
+    plain version's time eager and replayed from a CUDA graph (as binning's
+    graph ran it), its registers (ptxas) and the ``cover_bin_launches``
+    counted.  Fails where the kernel is slower than the plain version."""
+    import torch
+    from contrast_renderer_tpu_torch import cuda_build
+    from contrast_renderer_tpu_torch.utils.profiling import RECORD
+
+    coverage._cover_bins_library()
+    log = cuda_build.build_logs.get("cover_bins", (None, ""))[1]
+    for line in log.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"  cover_bins ptxas: {line.strip()}", flush=True)
+    op = api.RenderOperation
+    drift = api.Configuration(msaa_sample_count=4, winding_counter_bits=4)
+    t = scenes.ortho(WIDTH, HEIGHT)
+
+    def drift_frame(shape, color):
+        commands = [api.DrawCommand(op.STENCIL, shape, t),
+                    api.DrawCommand(op.COLOR, shape, t, color=color)]
+        return lambda: api.Renderer(
+            drift, WIDTH, HEIGHT, strict_capacity=False, device="cuda",
+        )._prepare(commands, graph=False)
+
+    frames = {
+        "strokes-1080p.drift": drift_frame(
+            api.Shape(*scenes.dashed_strokes(WIDTH, HEIGHT, seed=1)), (1, 1, 1, 1)),
+        "fills-1080p.drift": drift_frame(
+            api.Shape(scenes.bezier_fill_paths(1000, WIDTH, HEIGHT, seed=0)),
+            (0.9, 0.4, 0.1, 1.0)),
+        "orbit 4K frame 30": lambda: orbit_frame(
+            coverage, showcase, api.Configuration, api.Renderer, 30),
+        "config 4 per-glyph 1080p": lambda: api.Renderer(
+            api.Configuration(), WIDTH, HEIGHT, device="cuda",
+        )._prepare(scenes.config4_text("per_glyph"), graph=False),
+    }
+    for label, run in frames.items():
+        args = cover_bins_inputs(coverage, run)
+        spec, hull, transforms, c_shape, _ = args
+        got = coverage.cover_bins(*args)
+        want = coverage.cover_bins_plain(*args)
+        for name, a, b in zip(("hull_lines", "cls", "hbits"), got, want):
+            if a.is_floating_point():
+                bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+                a, b = a.view(bits), b.view(bits)
+            if not torch.equal(a, b):
+                fail(f"cover_bins {label}: {name} differs from the plain "
+                     f"version in {int((a != b).sum())} places")
+        before = RECORD.counters["cover_bin_launches"]
+        # Eager calls: paced by the wrapper's host work, not the card.
+        eager_k = cuda_ms(lambda: coverage.cover_bins(*args), 5, 100, 10)[0]
+        launches = RECORD.counters["cover_bin_launches"] - before
+        eager_p = cuda_ms(lambda: coverage.cover_bins_plain(*args), 5, 3, 1)[0]
+        # As binning's graph runs the stage: the kernel as one node of a
+        # graph of GRAPH_CALLS calls, the plain version's nodes replayed.
+        k_ms, k_lo, k_hi = graph_ms(lambda: coverage.cover_bins(*args),
+                                    COVER_GRAPH_CALLS)
+        p_ms = graph_ms(lambda: coverage.cover_bins_plain(*args), 1)[0]
+        b_ms, b_by, nbytes, ops = cover_bins_bound(spec, hull, transforms, c_shape)
+        print(f"cover_bins {label} ({card}): {c_shape.shape[0]} covers, "
+              f"{spec.h_max + 2} hull lines, {spec.n_tiles} tiles of "
+              f"{spec.screen_tile_w}x{spec.screen_tile_h} px; kernel "
+              f"{k_ms:.4f} ms [{k_lo:.4f}, {k_hi:.4f}] a node of a graph, "
+              f"{eager_k:.4f} ms a call eager ({launches} cover_bin_launches "
+              f"over 510 calls); plain {p_ms:.4f} ms replayed from a graph, "
+              f"{eager_p:.4f} ms eager; bound {b_ms:.6f} ms ({b_by}: "
+              f"{nbytes / 1e3:.1f} kB, {ops / 1e6:.3f} MFLOP); equal to the "
+              f"plain version to the bit", flush=True)
+        if launches != 510:
+            fail(f"cover_bins {label}: {launches} launches counted for 510 calls")
+        if k_ms > p_ms or eager_k > eager_p:
+            fail(f"cover_bins {label}: the kernel ({k_ms:.4f} ms in a graph, "
+                 f"{eager_k:.4f} ms eager) is slower than the plain version "
+                 f"({p_ms:.4f}, {eager_p:.4f} ms)")
 
 
 def near_plane_phase(coverage, showcase, Configuration, Renderer, card):
@@ -2342,9 +2507,10 @@ def moved_render_run(coverage, Renderer, config, width, height, frames, at,
     eager_s = time.perf_counter() - start
     walls, split = [], {"call_ms": 0.0, "prepare_ms": 0.0, "bin_ms": 0.0}
     recaptured = [0] * MOVED_WINDOWS
+    counted = []
     for window in range(MOVED_WINDOWS):
         held = []
-        since = raster_launches()
+        since, covers_since = raster_launches(), cover_bin_launches()
         start = time.perf_counter()
         for i in range(n):
             at(i)
@@ -2358,9 +2524,14 @@ def moved_render_run(coverage, Renderer, config, width, height, frames, at,
         total = float(acc)
         walls.append(time.perf_counter() - start)
         launches = raster_launches() - since
+        covers = cover_bin_launches() - covers_since
+        counted.append((launches, covers))
         differ = [i for i in range(n) if not torch.equal(held[i], want[i])]
-        if launches != n or differ or not total > 0:
-            fail(f"moved {label}: window {window + 1}: {launches} launches for "
+        # Each frame misses the cache (8 frames) and bins once, through
+        # its key's step.
+        if launches != n or covers != n or differ or not total > 0:
+            fail(f"moved {label}: window {window + 1}: {launches} "
+                 f"coverage_raster and {covers} cover_bins launches for "
                  f"{n} frames, frames {differ[:8]} differ from the eager "
                  f"frames, alpha sum {total}")
     kept = held
@@ -2375,7 +2546,8 @@ def moved_render_run(coverage, Renderer, config, width, height, frames, at,
           f"{split['prepare_ms'] / k:.3f} ms, of it the binning step's copies "
           f"in and replay {split['bin_ms'] / k:.3f} ms; captures in the two "
           f"passes {len(captures)} ({', '.join(f'{c:.1f}' for c in captures[:32])} "
-          f"ms), in each window {recaptured}; binning steps kept "
+          f"ms), in each window {recaptured}; (coverage_raster, cover_bins) "
+          f"launches in each window {counted}; binning steps kept "
           f"{len(r._bin_steps)}, graph pool {graph_pool_mib(r._pool)}; every "
           f"window frame equal to the eager frame to the bit", flush=True)
     # A key met on one frame a pass captures on its second miss after
@@ -2515,7 +2687,7 @@ def frame_loop_phase(coverage, Renderer, card):
         if loop.renderer.device.type != "cuda":
             fail(f"{label}: the loop's renderer is on {loop.renderer.device}")
         seconds, captured, dragged = {}, {}, []
-        since = raster_launches()
+        since, covers_since = raster_launches(), cover_bin_launches()
         for index in range(LOOP_FRAMES):
             if index == 0:
                 loop.send_button(True)
@@ -2562,13 +2734,15 @@ def frame_loop_phase(coverage, Renderer, card):
                       f"average_s {loop.timer.average_s:.5f}", flush=True)
                 loop.request_resize(WIDTH, HEIGHT)
         launches = raster_launches() - since
+        covers = cover_bin_launches() - covers_since
         print(f"{label} ({card}): FrameTimer after {LOOP_FRAMES} frames: "
               f"fps {loop.timer.fps:.2f}, average_s {loop.timer.average_s:.5f}; "
               + "; ".join(
                   f"{w}x{h}: {len(v)} frames, median {statistics.median(v) * 1e3:.2f} "
                   f"ms a frame (render, quantize and fetch)"
                   for (w, h), v in seconds.items())
-              + f"; {launches} coverage_raster launches; builds of the "
+              + f"; {launches} coverage_raster launches, {covers} cover_bins "
+              f"launches; builds of the "
               f"{WIDTH}x{HEIGHT} program {app._program.builds}", flush=True)
         overflowed = []
         for index, (image, program, t, desc, (host, event), caps) in enumerate(
@@ -2893,6 +3067,7 @@ def sharded_graph_run(mesh_module, program, stacks, label, card):
             break
     torch.cuda.synchronize()
     host, synced, rects = [], [], []
+    since, covers_since = raster_launches(), cover_bin_launches()
     for stack in stacks * 2:
         start = time.perf_counter()
         program(stack)
@@ -2902,6 +3077,18 @@ def sharded_graph_run(mesh_module, program, stacks, label, card):
         rects.append(program.stats["rect_ms"])
         if any(c is not None for c in program.stats["capture_ms"]):
             fail(f"sharded graph {label}: a timed frame captured")
+    # Each rect's step replays one binning and one raster a frame.
+    launches = raster_launches() - since
+    covers = cover_bin_launches() - covers_since
+    expected = len(stacks) * 2 * len(program._steps)
+    per_step = {cell: s.replay_launches for cell, s in program._steps.items()}
+    if launches != expected or covers != expected or any(
+            r != {"raster_launches": 1, "cover_bin_launches": 1}
+            for r in per_step.values()):
+        fail(f"sharded graph {label}: {launches} coverage_raster and {covers} "
+             f"cover_bins launches over {len(host)} frames of "
+             f"{len(program._steps)} rects; each rect's step a replay "
+             f"{per_step}")
     differ = 0
     for stack in stacks:
         got = program(stack)
@@ -2918,6 +3105,7 @@ def sharded_graph_run(mesh_module, program, stacks, label, card):
           f"replay (median) {', '.join(f'{m:.3f}' for m in per_rect)} ms; "
           f"captures per rect (ms) "
           f"{ {c: [round(m, 1) for m in ms] for c, ms in captures.items()} }; "
+          f"{launches} coverage_raster and {covers} cover_bins launches; "
           f"capacities {builds} -> {program._limits}; graph pool {pools}; "
           f"frames that differ from the eager sharded frame {differ} of "
           f"{len(stacks)}", flush=True)

@@ -10,7 +10,10 @@ match so that a reader finds each piece in both packages.
    per-(tile, command, class) entry ranges; cover hulls get a per-tile
    class (skip / boundary / full) and a bitmask of the hull lines that
    cross the tile.  The same arithmetic as the reference, op by op, so
-   the binning outputs agree with it.
+   the binning outputs agree with it.  The cover hulls' stage
+   (``cover_bins``) is one launch of a CUDA kernel
+   (``csrc/cover_bins.cu``) on CUDA tensors and ``cover_bins_plain``,
+   its torch version, on CPU tensors.
 2. ``make_rasterize``: packs the arguments of ``coverage_raster``,
    which returns the frame.  It launches the CUDA kernel
    (``csrc/coverage_raster.cu``), which writes each pixel at its place
@@ -679,6 +682,199 @@ def _gate_masks(spec: FrameSpec, draws: DrawTables):
     return masks
 
 
+#: The hull clip's threshold: a hull vertex is kept where w > HULL_EPS,
+#: taken as a float32 (the reference's constant).
+HULL_EPS = 1e-5
+
+
+def cover_bins_plain(spec: FrameSpec, hull, transforms, c_shape, c_row):
+    """The cover stage of ``make_prepare`` in torch operations: each cover
+    draw's hull (``hull[c_shape]``, (Rc, h_max, 2)) through its transform
+    (``transforms[c_row]``), clipped against w > HULL_EPS, projected to
+    pixels and turned into inward lines; then each (tile, cover) pair's
+    class (0 outside, 1 boundary, 2 inside) and bitmask of the hull lines
+    that cross the tile.  Returns ``hull_lines`` (Rc, h_max + 2, 4) of the
+    hull's dtype, ``cls`` and ``hbits`` (n_tiles, Rc) int32.
+
+    The CPU path of ``cover_bins`` and its kernel's oracle on the card."""
+    dev = hull.device
+    f32 = torch.float32
+    i32 = torch.int32
+    i64 = torch.int64
+    Hm = spec.h_max
+    W, H = spec.width, spec.height
+    tw, th = spec.screen_tile_w, spec.screen_tile_h
+    ntx, nty, n_tiles = spec.ntx, spec.nty, spec.n_tiles
+    Rc = c_shape.shape[0]
+
+    def arange(n, dtype=i32):
+        return torch.arange(n, dtype=dtype, device=dev)
+
+    tile_x0 = arange(ntx).to(f32) * tw
+    tile_y0 = arange(nty).to(f32) * th
+    hp = hull[c_shape]                               # (Rc, Hm, 2)
+    ctf = transforms[c_row]                          # (Rc, 4, 4)
+    Cc = Rc
+    hclip = _transform_points(hp[..., 0], hp[..., 1], ctf[:, None])
+    # Sutherland–Hodgman clip of the convex hull against w > eps.
+    H2 = Hm + 2
+    eps = float(np.float32(HULL_EPS))
+    b_vert = torch.roll(hclip, -1, 1)
+    wa = hclip[..., 3]
+    wb = b_vert[..., 3]
+    in_a = wa > eps
+    denom = torch.where(wb - wa != 0.0, wb - wa, 1.0)
+    t_int = (eps - wa) / denom
+    inter = hclip + t_int[..., None] * (b_vert - hclip)
+    out_v = torch.stack([hclip, inter], 2).reshape(Cc, 2 * Hm, 4)
+    out_valid = torch.stack([in_a, in_a != (wb > eps)], 2).reshape(
+        Cc, 2 * Hm
+    )
+    h_rank = torch.cumsum(out_valid.to(i32), 1) - 1
+    h_count = out_valid.to(i32).sum(1)
+    rows_c = arange(Cc, i64)[:, None].expand(Cc, 2 * Hm)
+    slot = torch.where(out_valid, torch.clamp(h_rank, max=H2), H2).to(i64)
+    clipped = _scatter_rows(
+        Cc * (H2 + 1), (rows_c * (H2 + 1) + slot).reshape(-1),
+        out_v.reshape(-1, 4),
+    ).reshape(Cc, H2 + 1, 4)[:, :H2]
+    # Unused slots repeat the first vertex: degenerate edges, replaced
+    # by pass lines below.
+    in_use = arange(H2)[None, :] < torch.clamp(h_count, max=H2)[:, None]
+    clipped = torch.where(in_use[..., None], clipped, clipped[:, 0:1, :])
+    hvalid = h_count >= 3
+
+    hw = clipped[..., 3]
+    hiw = torch.where(hw > 0.0, 1.0 / hw, 0.0)
+    hndc = clipped[..., :2] * hiw[..., None]
+    hx = (hndc[..., 0] + 1.0) * (0.5 * W)
+    hy = (1.0 - hndc[..., 1]) * (0.5 * H)
+    hxn = torch.roll(hx, -1, -1)
+    hyn = torch.roll(hy, -1, -1)
+    h_area = torch.sum(hx * hyn - hxn * hy, -1)
+    hsign = torch.where(h_area >= 0, 1.0, -1.0)[:, None]
+    ha = -(hyn - hy) * hsign
+    hb = (hxn - hx) * hsign
+    # A hull clipped at the near plane takes each line's constant at
+    # its nearer endpoint (_nearer_endpoint); the others as the
+    # reference does.
+    h_pt = torch.stack([hx, hy], -1)
+    h_next = torch.stack([hxn, hyn], -1)
+    h_mag = torch.abs(h_pt).amax(-1)
+    h_at = torch.where(
+        in_a.all(-1)[:, None, None],
+        h_pt,
+        _nearer_endpoint(h_pt, h_next, h_mag, torch.roll(h_mag, -1, -1)),
+    )
+    hc = -(ha * h_at[..., 0] + hb * h_at[..., 1])
+    degenerate = (ha == 0.0) & (hb == 0.0)
+    ha = torch.where(degenerate, 0.0, ha)
+    hb = torch.where(degenerate, 0.0, hb)
+    hc = torch.where(degenerate, 1.0, hc)
+    hull_lines = torch.stack(
+        [ha, hb, hc, torch.zeros_like(ha)], -1
+    )                                                # (Rc, H2, 4)
+
+    hovx = (hx.amin(-1)[:, None] <= tile_x0[None, :] + tw) & (
+        hx.amax(-1)[:, None] >= tile_x0[None, :]
+    )
+    hovy = (hy.amin(-1)[:, None] <= tile_y0[None, :] + th) & (
+        hy.amax(-1)[:, None] >= tile_y0[None, :]
+    )
+    h_reject = torch.zeros((Cc, nty, ntx), dtype=torch.bool, device=dev)
+    h_accept = torch.ones((Cc, nty, ntx), dtype=torch.bool, device=dev)
+    # Per-(tile, cover) bitmask of the hull lines crossing the tile.
+    h_bits = torch.zeros((Cc, nty, ntx), dtype=i32, device=dev)
+    if H2 > 31:
+        raise ValueError("hull-line bitmask needs a single i32 word")
+    for h_index in range(H2):
+        a = ha[:, h_index][:, None, None]
+        b = hb[:, h_index][:, None, None]
+        c = hc[:, h_index][:, None, None]
+        lo, hi = _corner_min_max(
+            a, b, c, tile_x0[None, None, :], tile_y0[None, :, None], tw, th
+        )
+        h_reject = h_reject | (hi < 0.0)
+        h_accept = h_accept & (lo > 0.0)
+        h_bits = h_bits | torch.where(lo > 0.0, 0, 1 << h_index).to(i32)
+    h_over = hovy[:, :, None] & hovx[:, None, :] & hvalid[:, None, None]
+    cls = torch.where(
+        h_over,
+        torch.where(h_accept, 2, torch.where(h_reject, 0, 1)),
+        0,
+    ).to(i32).permute(1, 2, 0).reshape(n_tiles, Rc)
+    hbits = h_bits.permute(1, 2, 0).reshape(n_tiles, Rc)
+    return hull_lines, cls, hbits
+
+
+@functools.lru_cache(maxsize=None)
+def _cover_bins_library():
+    """The cover stage's library (csrc/cover_bins.cu), built on first
+    use."""
+    lib = cuda_build.load_library("cover_bins", (("cover_bins.cu", ()),))
+    lib.cover_bins_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_double, ctypes.c_double, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    )
+    lib.cover_bins_launch.restype = ctypes.c_int
+    return lib
+
+
+def cover_bins(spec: FrameSpec, hull, transforms, c_shape, c_row):
+    """``cover_bins_plain``'s outputs, ``(hull_lines, cls, hbits)``: CPU
+    tensors run it; CUDA tensors launch the kernel of csrc/cover_bins.cu
+    on the current stream, which writes the same values to the bit, in
+    float32 or float64 as ``hull`` and ``transforms`` are.  ``c_shape``
+    and ``c_row`` are int64 (Rc,) tables of rows of ``hull`` (n_shapes,
+    h_max, 2) and ``transforms`` (R, 4, 4)."""
+    device = hull.device
+    if device.type == "cpu":
+        return cover_bins_plain(spec, hull, transforms, c_shape, c_row)
+    if device.type != "cuda":
+        raise ValueError(f"cover_bins takes CPU or CUDA tensors, not {device}")
+    H2 = spec.h_max + 2
+    if H2 > 31:
+        raise ValueError("hull-line bitmask needs a single i32 word")
+    dtype = hull.dtype
+    if dtype not in (torch.float32, torch.float64) or transforms.dtype != dtype:
+        raise ValueError(
+            f"hull and transforms must share float32 or float64, not "
+            f"{hull.dtype} and {transforms.dtype}")
+    Rc = c_shape.shape[0]
+    for name, t, shape, want in (
+        ("hull", hull, tuple(hull.shape[:1]) + (spec.h_max, 2), dtype),
+        ("transforms", transforms, tuple(transforms.shape[:1]) + (4, 4), dtype),
+        ("c_shape", c_shape, (Rc,), torch.int64),
+        ("c_row", c_row, (Rc,), torch.int64),
+    ):
+        if (t.device != device or t.dtype != want or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"cover_bins: {name} must be a contiguous {want} tensor of "
+                f"shape {shape} on {device}, not {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}")
+    lib = _cover_bins_library()
+    hull_lines = torch.empty((Rc, H2, 4), dtype=dtype, device=device)
+    cls = torch.empty((spec.n_tiles, Rc), dtype=torch.int32, device=device)
+    hbits = torch.empty_like(cls)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cover_bins_launch(
+            hull.data_ptr(), transforms.data_ptr(), c_shape.data_ptr(),
+            c_row.data_ptr(), hull_lines.data_ptr(), cls.data_ptr(),
+            hbits.data_ptr(), Rc, spec.h_max, spec.ntx, spec.nty,
+            spec.screen_tile_w, spec.screen_tile_h, 0.5 * spec.width,
+            0.5 * spec.height, HULL_EPS, int(dtype == torch.float64), stream,
+        )
+        captured = torch.cuda.is_current_stream_capturing()
+    if err != 0:
+        raise RuntimeError(f"cover_bins launch failed: CUDA error {err}")
+    # Counted as the raster kernel's launches are (coverage_raster).
+    RECORD.count("cover_bin_captures" if captured else "cover_bin_launches")
+    return hull_lines, cls, hbits
+
+
 def make_prepare(spec: FrameSpec):
     C = spec.n_commands
     draws = draw_tables(spec)
@@ -701,7 +897,6 @@ def make_prepare(spec: FrameSpec):
     Rc = len(draws.c_cmd)
     U = len(draws.unit_cmd)
     T = spec.t_max
-    Hm = spec.h_max
     W, H = spec.width, spec.height
     # All binning geometry is in screen space: the tile footprint.
     tw, th = spec.screen_tile_w, spec.screen_tile_h
@@ -745,7 +940,6 @@ def make_prepare(spec: FrameSpec):
                     for content_m, mach_m, rows_a, rows_b in gates
                 ],
                 w_eps=torch.tensor(1e-6, dtype=torch.float32, device=dev),
-                eps=torch.tensor(1e-5, dtype=torch.float32, device=dev),
                 # The frame record's marks of the stages below.
                 mark=RECORD.ring(dev).mark,
             )
@@ -1140,11 +1334,10 @@ def make_prepare(spec: FrameSpec):
 
         mark("covers")
         # ---- cover draws: near-plane clip + hull lines + class ---------
-        hp = hull[k["c_shape"]]                          # (Rc, Hm, 2)
-        ctf = transforms[k["c_row"]]                     # (Rc, 4, 4)
-        Cc = Rc
         # Paint points projected as the hulls are, so paints ride the
         # camera; zeros without paints, as in the reference.
+        if paint_model is not None or has_depth(spec):
+            ctf = transforms[k["c_row"]]                 # (Rc, 4, 4)
         if paint_model is None:
             paint_xy = torch.zeros((Rc, 4), dtype=f32, device=dev)
         else:
@@ -1153,95 +1346,8 @@ def make_prepare(spec: FrameSpec):
             zplane = _depth_planes(ctf, W, H)
         else:
             zplane = torch.zeros((Rc, 3), dtype=f32, device=dev)
-        hclip = _transform_points(hp[..., 0], hp[..., 1], ctf[:, None])
-        # Sutherland–Hodgman clip of the convex hull against w > eps.
-        H2 = Hm + 2
-        eps = k["eps"]
-        b_vert = torch.roll(hclip, -1, 1)
-        wa = hclip[..., 3]
-        wb = b_vert[..., 3]
-        in_a = wa > eps
-        denom = torch.where(wb - wa != 0.0, wb - wa, 1.0)
-        t_int = (eps - wa) / denom
-        inter = hclip + t_int[..., None] * (b_vert - hclip)
-        out_v = torch.stack([hclip, inter], 2).reshape(Cc, 2 * Hm, 4)
-        out_valid = torch.stack([in_a, in_a != (wb > eps)], 2).reshape(
-            Cc, 2 * Hm
-        )
-        h_rank = torch.cumsum(out_valid.to(i32), 1) - 1
-        h_count = out_valid.to(i32).sum(1)
-        rows_c = arange(Cc, i64)[:, None].expand(Cc, 2 * Hm)
-        slot = torch.where(out_valid, torch.clamp(h_rank, max=H2), H2).to(i64)
-        clipped = _scatter_rows(
-            Cc * (H2 + 1), (rows_c * (H2 + 1) + slot).reshape(-1),
-            out_v.reshape(-1, 4),
-        ).reshape(Cc, H2 + 1, 4)[:, :H2]
-        # Unused slots repeat the first vertex: degenerate edges, replaced
-        # by pass lines below.
-        in_use = arange(H2)[None, :] < torch.clamp(h_count, max=H2)[:, None]
-        clipped = torch.where(in_use[..., None], clipped, clipped[:, 0:1, :])
-        hvalid = h_count >= 3
-
-        hw = clipped[..., 3]
-        hiw = torch.where(hw > 0.0, 1.0 / hw, 0.0)
-        hndc = clipped[..., :2] * hiw[..., None]
-        hx = (hndc[..., 0] + 1.0) * (0.5 * W)
-        hy = (1.0 - hndc[..., 1]) * (0.5 * H)
-        hxn = torch.roll(hx, -1, -1)
-        hyn = torch.roll(hy, -1, -1)
-        h_area = torch.sum(hx * hyn - hxn * hy, -1)
-        hsign = torch.where(h_area >= 0, 1.0, -1.0)[:, None]
-        ha = -(hyn - hy) * hsign
-        hb = (hxn - hx) * hsign
-        # A hull clipped at the near plane takes each line's constant at
-        # its nearer endpoint (_nearer_endpoint); the others as the
-        # reference does.
-        h_pt = torch.stack([hx, hy], -1)
-        h_next = torch.stack([hxn, hyn], -1)
-        h_mag = torch.abs(h_pt).amax(-1)
-        h_at = torch.where(
-            in_a.all(-1)[:, None, None],
-            h_pt,
-            _nearer_endpoint(h_pt, h_next, h_mag, torch.roll(h_mag, -1, -1)),
-        )
-        hc = -(ha * h_at[..., 0] + hb * h_at[..., 1])
-        degenerate = (ha == 0.0) & (hb == 0.0)
-        ha = torch.where(degenerate, 0.0, ha)
-        hb = torch.where(degenerate, 0.0, hb)
-        hc = torch.where(degenerate, 1.0, hc)
-        hull_lines = torch.stack(
-            [ha, hb, hc, torch.zeros_like(ha)], -1
-        )                                                # (Rc, H2, 4)
-
-        hovx = (hx.amin(-1)[:, None] <= tile_x0[None, :] + tw) & (
-            hx.amax(-1)[:, None] >= tile_x0[None, :]
-        )
-        hovy = (hy.amin(-1)[:, None] <= tile_y0[None, :] + th) & (
-            hy.amax(-1)[:, None] >= tile_y0[None, :]
-        )
-        h_reject = torch.zeros((Cc, nty, ntx), dtype=torch.bool, device=dev)
-        h_accept = torch.ones((Cc, nty, ntx), dtype=torch.bool, device=dev)
-        # Per-(tile, cover) bitmask of the hull lines crossing the tile.
-        h_bits = torch.zeros((Cc, nty, ntx), dtype=i32, device=dev)
-        if H2 > 31:
-            raise ValueError("hull-line bitmask needs a single i32 word")
-        for h_index in range(H2):
-            a = ha[:, h_index][:, None, None]
-            b = hb[:, h_index][:, None, None]
-            c = hc[:, h_index][:, None, None]
-            lo, hi = _corner_min_max(
-                a, b, c, tile_x0[None, None, :], tile_y0[None, :, None], tw, th
-            )
-            h_reject = h_reject | (hi < 0.0)
-            h_accept = h_accept & (lo > 0.0)
-            h_bits = h_bits | torch.where(lo > 0.0, 0, 1 << h_index).to(i32)
-        h_over = hovy[:, :, None] & hovx[:, None, :] & hvalid[:, None, None]
-        cls = torch.where(
-            h_over,
-            torch.where(h_accept, 2, torch.where(h_reject, 0, 1)),
-            0,
-        ).to(i32).permute(1, 2, 0).reshape(n_tiles, Rc)
-        hbits = h_bits.permute(1, 2, 0).reshape(n_tiles, Rc)
+        hull_lines, cls, hbits = cover_bins(
+            spec, hull, transforms, k["c_shape"], k["c_row"])
 
         # "units": to the outputs, made contiguous.
         mark("units")

@@ -55,7 +55,7 @@ from .fill import FillBuilder
 from .ops import coverage
 from .path import DynamicStrokeOptions, Path, SegmentType
 from .stroke import StrokeBuilder
-from .utils.profiling import RECORD, Capture, Span
+from .utils.profiling import LAUNCH_COUNTERS, RECORD, Capture, Span
 from .vertex import (
     KIND_INTEGRAL_QUADRATIC, KIND_SOLID, KIND_STROKE_LINE, TriangleTable,
 )
@@ -2455,7 +2455,8 @@ class _FrameStep:
     graph in the memory pool that the owner holds then (``pool``, a
     ``_GraphPool``), and it and every later call replay
     the graph, adding its captured kernel launches to the frame record's
-    ``raster_launches``; so a step met once never pays a capture.  The
+    ``raster_launches`` and ``cover_bin_launches``; so a step met once
+    never pays a capture.  The
     warm-up and the capture are spans of the frame record
     (``FrameStep.warm_up``, ``FrameStep.capture``), which counts the
     graph's nodes at the capture and gives each replay's binning its row
@@ -2489,8 +2490,9 @@ class _FrameStep:
         #: The frame record's account of the capture (profiling.Capture):
         #: its binnings and the graph's nodes.
         self._captured = None
-        #: Kernel launches that one replay makes.
-        self.launches = 0
+        #: Kernel launches that one replay makes, by the frame record's
+        #: launch counter (profiling.LAUNCH_COUNTERS).
+        self.replay_launches = dict.fromkeys(LAUNCH_COUNTERS, 0)
         #: Host ms of the capture (and the graph's instantiation).
         self.capture_ms = None
         self.name = name
@@ -2522,7 +2524,7 @@ class _FrameStep:
 
     def _capture(self):
         """Capture the step into ``self.graph``; returns the host ms."""
-        before = RECORD.counters["raster_captures"]
+        before = {c: RECORD.counters[c] for c in LAUNCH_COUNTERS.values()}
         graph = torch.cuda.CUDAGraph()
         # A collection during the capture could free another graph, which
         # a capture forbids (and which ends it).
@@ -2542,11 +2544,19 @@ class _FrameStep:
         finally:
             if collecting:
                 gc.enable()
-        self.launches = RECORD.counters["raster_captures"] - before
+        self.replay_launches = {
+            name: RECORD.counters[captures] - before[captures]
+            for name, captures in LAUNCH_COUNTERS.items()
+        }
         self.graph = graph
         self._captured = captured
         self.capture_ms = captured.ms
         return self.capture_ms
+
+    @property
+    def launches(self):
+        """Raster kernel launches that one replay makes."""
+        return self.replay_launches["raster_launches"]
 
     @property
     def nodes(self):
@@ -2594,7 +2604,8 @@ class _FrameStep:
         except RuntimeError as exc:
             raise RuntimeError(f"replaying {self.name} failed") from exc
         RECORD.replayed(self._captured)
-        RECORD.count("raster_launches", self.launches)
+        for name, n in self.replay_launches.items():
+            RECORD.count(name, n)
         return self.prepared, capture_ms
 
 

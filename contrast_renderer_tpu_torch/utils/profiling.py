@@ -12,8 +12,8 @@ trace.
 on.  It keeps the last ``RECORD_FRAMES`` frames of the frame entry points
 (``FrameProgram.__call__`` and ``render_sequence``, ``Renderer._prepare``),
 each with its program, its host spans and the device marks of the
-binnings it ran, and the process's two counters of the raster kernel
-beside them:
+binnings it ran, and the process's counters of the raster kernel and of
+binning's cover kernel beside them:
 
 - host spans: a frame's spans tile its call, each boundary one read of
   ``time.perf_counter_ns``; while ``torch.profiler`` records, each span
@@ -58,6 +58,14 @@ TRACE_FILE = "trace.json"
 
 #: Frames the record keeps, and rows of each device ring.
 RECORD_FRAMES = 1024
+
+#: The record's counters of the port's kernels: each counter of launches,
+#: with its counter of the launches captured into a CUDA graph, which the
+#: replays of that graph add to the first.
+LAUNCH_COUNTERS = {
+    "raster_launches": "raster_captures",
+    "cover_bin_launches": "cover_bin_captures",
+}
 
 #: make_prepare's stages, in order (ops/coverage.py): triangle setup,
 #: flatten, near-plane clip, projection, edge setup and dash modes; local
@@ -328,7 +336,9 @@ class FrameRecord:
 
     Counters: ``raster_launches``, the raster kernel's launches (a
     replay adds those its graph captured), and ``raster_captures``, its
-    launches captured into a graph."""
+    launches captured into a graph; ``cover_bin_launches`` and
+    ``cover_bin_captures``, the same of binning's cover kernel
+    (``coverage.cover_bins``).  ``LAUNCH_COUNTERS`` pairs them."""
 
     def __init__(self):
         self._frames = deque(maxlen=RECORD_FRAMES)
